@@ -1,0 +1,11 @@
+"""Frame engine: the whole frame over device-resident scene tensors."""
+
+from softwarerenderer_tpu_torch.engine.renderer import (  # noqa: F401
+    Engine,
+    camera_matrices,
+    default_frame_uniforms,
+    render_frame,
+    scene_fragment_shader,
+    scene_vertex_shader,
+    to_rgb8,
+)

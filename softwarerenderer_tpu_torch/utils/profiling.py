@@ -1,0 +1,186 @@
+"""Where the time of one frame goes, on a CUDA card.
+
+    python -m softwarerenderer_tpu_torch.utils.profiling [--frames N]
+        [--width W] [--height H] [--out DIR]
+
+Renders ``bench.build_scene()`` through ``Engine(scene, RenderParams(W, H),
+device="cuda")`` with ``bench.camera_uniforms(u, i)`` and prints:
+
+  * the scene's binning statistics at frame 0 (valid clip-fan slots, global
+    triangles, binned (tile, triangle) pairs, the busiest tile, the share
+    of the frame covered);
+  * the frame time without the profiler, back to back and synchronised
+    after every frame;
+  * from a torch.profiler trace of N frames, per frame: each
+    ``record_function`` span's host time and device window (first kernel
+    to last kernel of the span, gaps included), kernel time by span and in
+    all, kernel launches, host->device copies and stream syncs;
+  * the device's idle share: 1 - (kernel time per frame) / (synchronised
+    frame time without the profiler).
+
+The chrome trace and a JSON summary go to --out (default
+``chiprun_out/profile``).  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+from typing import Dict
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SPANS = ("frame.camera_cull", "frame.geometry", "frame.extras",
+         "tile.bin_pack", "tile.fold", "tile.shade")
+
+
+def scene_stats(eng, uniforms) -> Dict:
+    """Binning statistics of one frame, read from the tile fold's inputs."""
+    from softwarerenderer_tpu_torch.engine import render_frame
+    from softwarerenderer_tpu_torch.ops import tile_raster
+    seen = {}
+
+    def capture(*args, **kwargs):
+        seen["args"] = args
+        out = tile_raster.tile_fold(*args, **kwargs)
+        seen["best_i"] = out[2]
+        return out
+
+    render_frame(eng.scene, uniforms, eng.params, fold=capture)
+    _, setup, _, n_global, _, _, counts, _, _ = seen["args"]
+    H, W = eng.params.height, eng.params.width
+    ng = int(n_global[0])
+    return {
+        "slots": int(setup.shape[0]),
+        "valid_slots": int((setup[:, 9] != 0).sum()),
+        "global_triangles": ng,
+        "tiles": int(counts.numel()),
+        "binned_pairs": int(counts.sum()),
+        "busiest_tile_segment": int(counts.max()),
+        "busiest_tile_folded": ng + int(counts.max()),
+        "covered": float((seen["best_i"][:H, :W] >= 0).float().mean()),
+    }
+
+
+def _wall_ms(eng, frames, uniforms_at, sync_each: bool) -> float:
+    """Median (sync_each) or mean (back to back) host ms per frame."""
+    times = []
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for i in range(frames):
+        t = time.perf_counter()
+        eng.render(uniforms_at(i))
+        if sync_each:
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    if sync_each:
+        return statistics.median(times)
+    return (time.perf_counter() - t_all) * 1e3 / frames
+
+
+def trace_summary(trace: Dict, frames: int) -> Dict:
+    """Per-frame numbers from a chrome trace written by torch.profiler."""
+    ev = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    kernels = [e for e in ev if e.get("cat") == "kernel"]
+    host = {s: 0.0 for s in SPANS}
+    window = {s: 0.0 for s in SPANS}
+    by_span = {s: 0.0 for s in SPANS}
+    gpu_spans = []
+    for e in ev:
+        if e.get("name") not in host:
+            continue
+        if e.get("cat") == "user_annotation":
+            host[e["name"]] += e["dur"]
+        elif e.get("cat") == "gpu_user_annotation":
+            window[e["name"]] += e["dur"]
+            gpu_spans.append((e["ts"], e["ts"] + e["dur"], e["name"]))
+    for k in kernels:
+        mid = k["ts"] + k["dur"] / 2
+        for lo, hi, name in gpu_spans:
+            if lo <= mid <= hi:
+                by_span[name] += k["dur"]
+                break
+    rt = [e for e in ev if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    launches = sum(1 for e in rt if "LaunchKernel" in e["name"]
+                   or e["name"] == "cuLaunchKernel")
+    syncs = sum(1 for e in rt if "Synchronize" in e["name"])
+    copies = sum(1 for e in ev if e.get("cat") == "gpu_memcpy"
+                 and "HtoD" in e["name"])
+    per = 1e-3 / frames
+    by_name: Dict[str, float] = {}
+    for k in kernels:
+        by_name[k["name"]] = by_name.get(k["name"], 0.0) + k["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "span_host_ms": {s: host[s] * per for s in SPANS},
+        "span_device_window_ms": {s: window[s] * per for s in SPANS},
+        "span_kernel_ms": {s: by_span[s] * per for s in SPANS},
+        "kernel_ms": sum(k["dur"] for k in kernels) * per,
+        "kernels": len(kernels) / frames,
+        "launch_calls": launches / frames,
+        "syncs": syncs / frames,
+        "htod_copies": copies / frames,
+        "top_kernels_ms": [(n[:80], v * per) for n, v in top],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
+                                                  "profile"))
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profiling: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    import bench
+    from softwarerenderer_tpu.config import RenderParams
+    from softwarerenderer_tpu_torch.engine import Engine
+
+    eng = Engine(bench.build_scene(), RenderParams(a.width, a.height),
+                 device="cuda")
+
+    def uniforms_at(i):
+        return bench.camera_uniforms(eng.uniforms, i)
+
+    stats = scene_stats(eng, uniforms_at(0))
+    _wall_ms(eng, 3, uniforms_at, True)                  # warm-up
+    back_to_back = _wall_ms(eng, 30, uniforms_at, False)
+    synced = _wall_ms(eng, 30, uniforms_at, True)
+
+    os.makedirs(a.out, exist_ok=True)
+    path = os.path.join(a.out, "trace.json")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(a.frames):
+            eng.render(uniforms_at(i))
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        summary = trace_summary(json.load(f), a.frames)
+    idle = 1.0 - summary["kernel_ms"] / synced
+    result = {"device": torch.cuda.get_device_name(0),
+              "size": [a.width, a.height], "scene": stats,
+              "frame_ms_back_to_back": back_to_back,
+              "frame_ms_synchronised": synced,
+              "profiled_frames": a.frames, **summary,
+              "device_idle_share": idle}
+    with open(os.path.join(a.out, "summary.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

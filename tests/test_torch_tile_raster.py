@@ -1,0 +1,184 @@
+"""The port's plain tile fold (tile_raster.tile_fold_plain, the twin of the
+CUDA kernel) against the JAX tile kernel run in interpret mode
+(pallas_tile._prepare_ctx + _run_pass), on the same set-up triangles,
+per-triangle extras and framebuffer depth."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from softwarerenderer_tpu import CullMode, RenderParams
+from softwarerenderer_tpu.engine import renderer as jr
+from softwarerenderer_tpu.models import primitives
+from softwarerenderer_tpu.models import scene as scene_mod
+from softwarerenderer_tpu.ops import geometry as jgeom
+from softwarerenderer_tpu.ops import pallas_tile
+from softwarerenderer_tpu.ops import texture as tex_np
+from softwarerenderer_tpu.ops.raster import DEPTH_CLEAR
+from softwarerenderer_tpu.utils import mathlib as ml
+from softwarerenderer_tpu_torch.ops import tile_raster
+
+KEEP = frozenset(jr.scene_fragment_shader.varyings)
+
+
+def cubes_scene():
+    checker = np.asarray(tex_np.checkerboard(16, 4)["data"])
+    insts = [scene_mod.MeshInstance(primitives.plane(20.0),
+                                    ml.translation([0, -1, 0]),
+                                    texture=checker)]
+    rng = np.random.default_rng(0)
+    for _ in range(11):
+        pos = rng.uniform(-4, 4, 3).astype(np.float32)
+        pos[1] = rng.uniform(-0.5, 1.5)
+        insts.append(scene_mod.MeshInstance(primitives.cube(0.5),
+                                            ml.translation(pos),
+                                            texture=checker))
+    return scene_mod.build_scene_buffers(insts), np.float32([0, 0.5, 3.0])
+
+
+def soup_scene():
+    checker = np.asarray(tex_np.checkerboard(16, 4)["data"])
+    soup = primitives.random_triangle_soup(400, seed=3)
+    return (scene_mod.build_scene_buffers(
+        [scene_mod.MeshInstance(soup, texture=checker)]),
+        np.float32([0, 0, 0]))
+
+
+def prepared(scene, cam, params, keep):
+    """JAX-built triangles and extras as numpy arrays.  With keep=None every
+    varying is kept and a 2-wide "data." varying is added, so the plan has
+    all five kinds: pc, pw, pw3, bary and v0."""
+    w, h = params.width, params.height
+    u = jr.default_frame_uniforms(w, h)
+    u["camera_position"] = cam
+    view, proj = jr.camera_matrices(u, w, h, xp=np)
+    u.update(model=scene["mesh_matrices"][scene["vert_mesh_id"]],
+             view=np.asarray(view), projection=np.asarray(proj))
+    vin = {k: scene[k] for k in ("position", "uv", "normal", "color")}
+    tris = jax.jit(lambda vin, idx, u: jgeom.build_triangles(
+        jr.scene_vertex_shader, vin, idx, u, width=w, height=h,
+        cull_mode=params.cull_mode, near_clip=u["near_clip"],
+        keep_varyings=keep))(vin, scene["indices"], u)
+    tris = jax.tree_util.tree_map(np.asarray, tris)
+    if keep is None:
+        tris["attrs"]["data.pair"] = tris["attrs"]["uv"] * np.float32(3.0)
+    tid2 = np.repeat(scene["tri_texture_id"], 2)
+    extra = {"tex_oy": scene["atlas_offsets"][tid2, 0],
+             "tex_ox": scene["atlas_offsets"][tid2, 1],
+             "tex_h": scene["atlas_sizes"][tid2, 0],
+             "tex_w": scene["atlas_sizes"][tid2, 1]}
+    return tris, extra
+
+
+SMALL = RenderParams(width=136, height=92, tile_h=16, span_cap=6)
+CASES = {
+    # (scene, params, varyings kept, fb depth, GLOB_RESIDENT override)
+    "cubes": (cubes_scene, SMALL, KEEP, "clear", None),
+    # Every varying, on a scene the near plane does not clip: interpolating
+    # the unpruned clip x/y and screen_coords of a clipped floor cancels
+    # vertex values ~30x the result, and XLA's contraction then differs
+    # by up to 3.7e-5 absolute (PERF.md).
+    "soup_all_varyings": (soup_scene, SMALL, None, "clear", None),
+    "cubes_fb_depth": (cubes_scene, SMALL, KEEP, "random", None),
+    # span_cap=1 sends most triangles global; a resident cap of 32 makes
+    # the JAX kernel stream the rest through its tail loop.
+    "global_tail": (cubes_scene, SMALL.replace(span_cap=1,
+                                               cull_mode=CullMode.NONE),
+                    KEEP, "clear", 32),
+    "soup_32x128": (soup_scene, RenderParams(width=256, height=96), KEEP,
+                    "clear", None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_fold_matches_jax_kernel(case, monkeypatch):
+    make, params, keep, fb, resident = CASES[case]
+    if resident is not None:
+        monkeypatch.setattr(pallas_tile, "GLOB_RESIDENT", resident)
+    scene, cam = make()
+    tris, extra = prepared(scene, cam, params, keep)
+    h, w = params.height, params.width
+    if fb == "clear":
+        fbd = np.full((h, w), DEPTH_CLEAR, np.float32)
+    else:
+        # a previous depth buffer in the scene's depth range: some
+        # fragments win against it, some lose
+        fbd = np.random.default_rng(7).uniform(
+            -0.995, -0.975, (h, w)).astype(np.float32)
+
+    ctx = pallas_tile._prepare_ctx(tris, params, fbd, extra, 0, gb_keep=keep)
+    jg, jd, ji = map(np.asarray, pallas_tile._run_pass(ctx, interpret=True,
+                                                       raw=True))
+    if resident is not None:
+        assert int(ctx["n_global"][0]) > resident
+
+    tt = {k: torch.tensor(tris[k]) for k in ("screen", "depth", "inv_area",
+                                              "valid", "bbox")}
+    tt["attrs"] = {k: torch.tensor(v) for k, v in tris["attrs"].items()}
+    tctx = tile_raster.prepare(tt, params, torch.tensor(fbd),
+                               {k: torch.tensor(v) for k, v in extra.items()},
+                               keep)
+    assert tctx["gb_slices"] == ctx["gb_slices"]
+    assert tctx["plan"] == ctx["interp_plan"]
+    if keep is None:
+        assert {k for k, _, _ in tctx["plan"]} == set(tile_raster.KINDS)
+    args, kwargs = tile_raster.fold_inputs(tctx)
+    gbuf, best_d, best_i = (t.numpy() for t in
+                            tile_raster.tile_fold_plain(*args, **kwargs))
+
+    # XLA on the CPU contracts multiply-adds into FMAs inside the
+    # interpret run; the port rounds every operation once, as the CUDA
+    # kernel does (-fmad=false).  A contracted edge function near an edge
+    # can flip a borderline pixel and moves depth and interpolants by a
+    # few ulps relative (measured: 2.9e-6 in depth, 3.4e-6 in clip z).
+    same = best_i == ji
+    assert (ji >= 0).mean() > 0.01
+    assert same.mean() >= 0.999
+    np.testing.assert_allclose(best_d[same], jd[same], rtol=1e-5, atol=0)
+    kpi = tctx["kpi"]
+    assert not jg[kpi:].any()          # the JAX kernel's 8-row padding
+    np.testing.assert_allclose(np.where(same, gbuf, 0),
+                               np.where(same, jg[:kpi], 0), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_plain_fold_tie_goes_to_later_triangle():
+    """Two copies of one triangle tie on every pixel at depth -0.5: the
+    later id wins; a nearer framebuffer depth keeps the pixel (id -1) and
+    an equal one loses to the triangle (ids start above -1)."""
+    tile_h, tile_w = 2, 4
+    s = [0.0, 0.0, 8.0, 0.0, 0.0, 8.0]         # covers the whole tile
+    setup = torch.tensor([s + [-0.5, -0.5, -0.5, 1.0 / 64.0]] * 2)
+    fbd = torch.full((tile_h, tile_w), -0.75)
+    fbd[0, 0] = 0.0
+    fbd[0, 1] = -0.5
+    ids = torch.tensor([0, 1], dtype=torch.int32)
+    payload = torch.zeros((2, 3 * 4))
+    plan = (("v0", 0, 0),)
+    args = (fbd, setup, ids, torch.tensor([0], dtype=torch.int32), ids,
+            torch.tensor([0], dtype=torch.int32),
+            torch.tensor([2], dtype=torch.int32), payload, plan)
+    kw = dict(tile_h=tile_h, tile_w=tile_w, kp=4, kpi=1, sl_screen=1,
+              sl_ia=3, clip_w_off=0)
+    _, best_d, best_i = tile_raster.tile_fold_plain(*args, **kw)
+    assert best_i[0, 0] == -1 and best_d[0, 0] == 0.0
+    assert (best_i.reshape(-1)[1:] == 1).all()
+    assert (best_d.reshape(-1)[1:] == -0.5).all()
+
+
+def test_plain_fold_edge_depths_match_chip_smoke_expectation():
+    """The edge case chip_smoke.py runs through the CUDA kernel on the card
+    (depth ties, NaN and -inf depths, -0.0 against a +0.0 framebuffer, a
+    global and two segments) gives the expected winners in the plain twin,
+    so a failure there is the kernel's and not the expectation's."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import edge_case_inputs
+    args, kwargs, want_i, want_d = edge_case_inputs("cpu")
+    gbuf, best_d, best_i = tile_raster.tile_fold(*args, **kwargs)
+    assert torch.equal(best_i, want_i)
+    assert (best_d == want_d).all()
+    assert torch.equal(gbuf[0], torch.where(want_i >= 0, want_i, 0).float())
