@@ -8,8 +8,10 @@ each module's counterpart is found by its path.  The JAX package's
 numpy-only host layer (``config``, ``models.scene``, ``models.primitives``)
 is shared, not copied; nothing here imports JAX.
 
-What renders today is the opaque default frame (``engine.Engine``); every
-option outside it raises ``NotImplementedError``.
+What renders today is the frame of ``engine.Engine`` with any shaders of
+the ``shaders`` ABI: the opaque route and, with ``RenderParams(kbuffer=K)``,
+the depth-peeled K-buffer (LESS_EQUAL depth); every option outside them
+raises ``NotImplementedError``.
 """
 
 from softwarerenderer_tpu.config import (  # noqa: F401

@@ -4,6 +4,8 @@ from softwarerenderer_tpu_torch.engine.renderer import (  # noqa: F401
     Engine,
     camera_matrices,
     default_frame_uniforms,
+    frame_setup,
+    opaque_tri_flags,
     render_frame,
     scene_fragment_shader,
     scene_vertex_shader,

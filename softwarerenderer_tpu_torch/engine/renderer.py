@@ -1,11 +1,14 @@
-"""Frame engine: packed scene + camera -> one opaque frame on the device.
+"""Frame engine: packed scene + camera -> one frame on the device.
 
-Counterpart of ``softwarerenderer_tpu/engine/renderer.py`` on its default
-route: camera and frustum culling, vertex shading, near clip and setup,
-tile binning, the tile kernel (fold, resolve, interpolation), one
-full-frame shading pass with the game's default shaders, blend, and
-``to_rgb8`` for present.  PyTorch runs it eagerly; the scene stays on the
-device and only the per-frame uniforms cross from the host, in one copy.
+Counterpart of ``softwarerenderer_tpu/engine/renderer.py`` on its tile
+routes: camera and frustum culling, vertex shading, near clip and setup,
+tile binning, then either the opaque route (the tile kernel's fold,
+resolve and interpolation, one full-frame shading pass, blend) or, with
+``RenderParams(kbuffer=K)``, the depth-peeled K-buffer (K tile-kernel
+passes and a submission-order replay), and ``to_rgb8`` for present.  The
+vertex and fragment shaders are arguments, the game's by default.
+PyTorch runs it eagerly; the scene stays on the device and the per-frame
+uniforms cross from the host in one copy.
 
 A ``RenderParams`` field or scene key whose feature this package does not
 implement yet raises ``NotImplementedError`` instead of rendering another
@@ -20,7 +23,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from softwarerenderer_tpu.config import DebugMode, DepthTest, RenderParams
+from softwarerenderer_tpu.config import (BlendMode, DebugMode, DepthTest,
+                                         RenderParams)
+from softwarerenderer_tpu_torch import shaders
 from softwarerenderer_tpu_torch.models.convert import scene_to_torch
 from softwarerenderer_tpu_torch.ops import culling, geometry, raster
 from softwarerenderer_tpu_torch.ops import texture as tex_ops
@@ -30,37 +35,20 @@ from softwarerenderer_tpu_torch.utils import mathlib as ml
 F32 = torch.float32
 
 
-def scene_vertex_shader(vin: Dict, uniforms: Dict) -> Dict:
-    """MVP transform + world normal varying (Renderer.cs:830-846), with
-    uniforms["model"] the (V, 4, 4) per-vertex model matrices."""
-    model = uniforms["model"]
-    world = ml.transform(ml.homogenize(vin["position"]), model)
-    view_pos = ml.transform(world, uniforms["view"])
-    clip = ml.transform(view_pos, uniforms["projection"])
-    world_normal = ml.normalize(ml.transform_normal(vin["normal"], model),
-                                eps=1e-30)
-    return {"clip_position": clip, "color": vin["color"], "uv": vin["uv"],
-            "normal": vin["normal"], "data": {"world_normal": world_normal}}
+# The game's vertex shader over a packed scene, whose uniforms["model"]
+# holds (V, 4, 4) per-vertex model matrices: JAX's scene_vertex_shader,
+# which computes what shaders.default_vertex_shader does.
+scene_vertex_shader = shaders.default_vertex_shader
 
 
 def scene_fragment_shader(frag: Dict, uniforms: Dict) -> torch.Tensor:
     """Texture(atlas) × vertex color, half-Lambert max(0.25, N·-L),
     smoothstep fog on clip-space z, alpha unfogged (Renderer.cs:848-860)."""
-    diffuse = ml.dot(frag["data"]["world_normal"],
-                     -uniforms["light_direction"]).clamp(min=0.25)
     tri = frag["tri"]
     tex_color = tex_ops.sample_atlas_region(
         uniforms["atlas_data"], tri["tex_oy"], tri["tex_ox"], tri["tex_h"],
         tri["tex_w"], frag["uv"])
-    base = frag["color"] * tex_color
-    depth = frag["clip_position"][..., 2]
-    fog_end = uniforms["fog_end"]
-    fog = ((fog_end - depth) / (fog_end - uniforms["fog_start"])).clamp(0, 1)
-    fog = fog * fog * (3.0 - 2.0 * fog)
-    lit = base * (0.1 + 0.9 * diffuse[..., None]) * uniforms["light_color"]
-    fog_color = uniforms["fog_color"]
-    rgba = fog_color + (lit - fog_color) * fog[..., None]
-    return torch.cat([rgba[..., :3], base[..., 3:4]], dim=-1)
+    return shaders.lit_and_fogged(frag, uniforms, tex_color)
 
 
 # The same registries as the JAX shader: the varyings it reads (the rest
@@ -69,6 +57,34 @@ def scene_fragment_shader(frag: Dict, uniforms: Dict) -> torch.Tensor:
 scene_fragment_shader.varyings = ("color", "uv", "data.world_normal")
 scene_fragment_shader.tri_extras = ("tex_oy", "tex_ox", "tex_h", "tex_w")
 scene_fragment_shader.alpha_sources = ("color", "texture")
+
+
+def opaque_tri_flags(scene: Dict[str, torch.Tensor], vin: Dict,
+                     fragment_shader: Callable,
+                     params: RenderParams) -> Optional[torch.Tensor]:
+    """Per-triangle 'semantically opaque' flags for the K-buffer peel's
+    short-circuit, int32 ×2 for the clipper's fan slots, or None when
+    unprovable (JAX's opaque_tri_flags).
+
+    A triangle is flagged when the shader's alpha_sources evaluate to
+    exactly 1 from pack-time data: "color" = all three vertex alphas are 1,
+    "texture" = the texture's pack-time min alpha (scene["tex_min_alpha"])
+    is 1.  None unless blend_mode is ALPHA and the shader declares
+    alpha_sources (NONE blending stops on shaded alpha alone; ADDITIVE and
+    MULTIPLY never stop)."""
+    srcs = getattr(fragment_shader, "alpha_sources", None)
+    if srcs is None or params.blend_mode != BlendMode.ALPHA:
+        return None
+    idx = scene["indices"].reshape(-1, 3).long()
+    opq = torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device)
+    if "color" in srcs:
+        a = vin["color"][:, 3][idx]                       # (T, 3)
+        opq &= (a.amin(1) == 1.0) & (a.amax(1) == 1.0)
+    if "texture" in srcs:
+        if "tex_min_alpha" not in scene:
+            return None
+        opq &= scene["tex_min_alpha"][scene["tri_texture_id"].long()] >= 1.0
+    return opq.to(torch.int32).repeat_interleave(2)
 
 
 def default_frame_uniforms(width: int, height: int) -> Dict:
@@ -134,20 +150,44 @@ def _upload_uniforms(uniforms: Dict, width: int, height: int,
     return u
 
 
+# Uniforms the host reads (the camera) or render_frame applies itself; any
+# other key the caller adds (a shader's texture, say) goes to the shaders
+# as device tensors.
+_HOST_UNIFORMS = frozenset(("camera_position", "camera_rotation",
+                            "fov_degrees", "far_clip", "mesh_visible"))
+
+
+def _to_device(v, device):
+    """A uniform, or a dict of them, as device tensors (float64 as
+    float32, the JAX package's default precision)."""
+    if isinstance(v, dict):
+        return {k: _to_device(x, device) for k, x in v.items()}
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    a = np.asarray(v)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 _UNSUPPORTED_SCENE_PREFIXES = ("tangent", "anim_", "morph_", "skin_",
                                "particle_", "tri_lod_level")
 
 
 def check_supported(params: RenderParams, scene_keys=(), uniforms=None):
-    """Raise NotImplementedError for anything outside the opaque default
-    route this package renders."""
+    """Raise NotImplementedError for anything outside the routes this
+    package renders, and JAX's ValueError for kbuffer_stats without a
+    K-buffer."""
+    if params.kbuffer_stats and params.kbuffer <= 1:
+        raise ValueError("kbuffer_stats needs kbuffer > 1 (the stats dict "
+                         "is the K-buffer's third return value)")
     bad = [name for name, off in (
         ("ssaa", params.ssaa != 1),
         ("ssao", params.ssao), ("bloom", params.bloom),
         ("tonemap", params.tonemap is not None), ("fxaa", params.fxaa),
         ("post_fx callables", any(callable(f) for f in params.post_fx)),
-        ("kbuffer", params.kbuffer > 1),
-        ("kbuffer_stats", params.kbuffer_stats),
+        ("kbuffer with a depth_test other than LESS_EQUAL",
+         params.kbuffer > 1 and params.depth_test != DepthTest.LESS_EQUAL),
         ("debug_mode", params.debug_mode != DebugMode.NONE),
         ("deferred", not params.deferred), ("binned", not params.binned),
         ("depth_test", params.depth_test != DepthTest.LESS_EQUAL),
@@ -167,18 +207,22 @@ def check_supported(params: RenderParams, scene_keys=(), uniforms=None):
             f"not implemented in softwarerenderer_tpu_torch yet: {bad}")
 
 
-def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
-                 params: RenderParams, fold: Optional[Callable] = None):
-    """One opaque frame of the game's default shaders over a packed scene
-    already on the device (models.convert.scene_to_torch).  Returns
-    (color (H, W, 4) f32, depth (H, W) f32) on the scene's device.
-
-    fold: the tile fold to run (tile_raster.tile_fold by default)."""
-    check_supported(params, scene.keys(), uniforms)
+def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
+                params: RenderParams,
+                vertex_shader: Callable = scene_vertex_shader,
+                fragment_shader: Callable = scene_fragment_shader) -> Dict:
+    """Everything a tile route takes for one frame: {"tris": the set-up
+    triangles, "uniforms": the device uniforms the shaders read,
+    "per_tri": the per-triangle extras, "fb_color" and "fb_depth": the
+    cleared framebuffer}.  render_frame routes them; a caller may hand
+    them to another route of ops.tile_raster."""
     H, W = params.height, params.width
     dev = scene["position"].device
     with record_function("frame.camera_cull"):
         u = _upload_uniforms(uniforms, W, H, dev)
+        for k, v in uniforms.items():
+            if k not in u and k not in _HOST_UNIFORMS:
+                u[k] = _to_device(v, dev)
         view_proj = ml.transform(u["view"], u["projection"])     # V·P
         visible = culling.spheres_in_frustum(
             scene["bounds_center"], scene["bounds_radius"],
@@ -194,24 +238,62 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
                  atlas_data=scene["atlas_data"])
         vin = {k: scene[k] for k in ("position", "uv", "normal", "color")}
         tris = geometry.build_triangles(
-            scene_vertex_shader, vin, scene["indices"], u, width=W, height=H,
+            vertex_shader, vin, scene["indices"], u, width=W, height=H,
             cull_mode=params.cull_mode, tri_mask=tri_mask,
-            keep_varyings=scene_fragment_shader.varyings)
+            keep_varyings=getattr(fragment_shader, "varyings", None))
 
-    # Per-triangle material channels, ×2 for the clipper's fan slots: the
-    # atlas regions the shader declares in `tri_extras`, resolved per
-    # triangle so its only per-pixel memory access is the texel fetch.
+    # Per-triangle material channels, ×2 for the clipper's fan slots, as
+    # JAX's render_frame packs them: texture and mesh ids and the atlas
+    # regions, resolved per triangle so the shader's only per-pixel memory
+    # access is the texel fetch; pruned to the shader's `tri_extras`.
     with record_function("frame.extras"):
         tid2 = scene["tri_texture_id"].long().repeat_interleave(2)
         aoff, asiz = scene["atlas_offsets"], scene["atlas_sizes"]
-        per_tri = {"tex_oy": aoff[:, 0][tid2], "tex_ox": aoff[:, 1][tid2],
+        per_tri = {"tex_id": tid2, "mesh_id": tri_mesh.repeat_interleave(2),
+                   "tex_oy": aoff[:, 0][tid2], "tex_ox": aoff[:, 1][tid2],
                    "tex_h": asiz[:, 0][tid2], "tex_w": asiz[:, 1][tid2]}
+        keep = getattr(fragment_shader, "tri_extras", None)
+        if keep is not None:
+            per_tri = {k: v for k, v in per_tri.items() if k in keep}
+        if params.kbuffer > 1 and params.kbuffer_short_circuit:
+            # The opaque flags ride the payload so the peel can stop
+            # behind opaque visible winners.
+            opq = opaque_tri_flags(scene, vin, fragment_shader, params)
+            if opq is not None:
+                per_tri["opq"] = opq
 
-    fb_color = u["clear_color"].expand(H, W, 4)
-    fb_depth = torch.full((H, W), raster.DEPTH_CLEAR, dtype=F32, device=dev)
-    return tile_raster.render_tile(tris, scene_fragment_shader, u, params,
-                                   fb_color, fb_depth, per_tri_extra=per_tri,
-                                   fold=fold)
+    return {"tris": tris, "uniforms": u, "per_tri": per_tri,
+            "fb_color": u["clear_color"].expand(H, W, 4),
+            "fb_depth": torch.full((H, W), raster.DEPTH_CLEAR, dtype=F32,
+                                   device=dev)}
+
+
+def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
+                 params: RenderParams,
+                 vertex_shader: Callable = scene_vertex_shader,
+                 fragment_shader: Callable = scene_fragment_shader,
+                 fold: Optional[Callable] = None):
+    """One frame over a packed scene already on the device
+    (models.convert.scene_to_torch), drawn with the given shaders.
+    Returns (color (H, W, 4) f32, depth (H, W) f32) on the scene's device,
+    and with params.kbuffer_stats a third value, {"kbuffer_saturated_px":
+    n}.
+
+    kbuffer > 1 renders the depth-peeled K-buffer
+    (tile_raster.render_tile_kbuffer); otherwise the opaque route
+    (tile_raster.render_tile).  fold: the tile fold the passes run,
+    tile_raster.tile_fold by default; tile_raster.tile_fold_plain renders
+    the same frame through the plain twins."""
+    check_supported(params, scene.keys(), uniforms)
+    f = frame_setup(scene, uniforms, params, vertex_shader, fragment_shader)
+    if params.kbuffer > 1:
+        return tile_raster.render_tile_kbuffer(
+            f["tris"], fragment_shader, f["uniforms"], params,
+            f["fb_color"], f["fb_depth"], per_tri_extra=f["per_tri"],
+            fold=fold, with_stats=params.kbuffer_stats)
+    return tile_raster.render_tile(f["tris"], fragment_shader, f["uniforms"],
+                                   params, f["fb_color"], f["fb_depth"],
+                                   per_tri_extra=f["per_tri"], fold=fold)
 
 
 def to_rgb8(color: torch.Tensor) -> torch.Tensor:
@@ -228,10 +310,14 @@ class Engine(torch.nn.Module):
         color, depth = eng.render(u)   # device tensors
         rgb = eng.present(u)           # uint8 RGB numpy array
 
-    `device` defaults to "cuda"; asking for CUDA where there is none
-    raises, it never renders on the CPU instead."""
+    The shaders are the game's unless given.  `device` defaults to
+    "cuda"; asking for CUDA where there is none raises, it never renders
+    on the CPU instead."""
 
-    def __init__(self, scene: Dict, params: RenderParams, device="cuda"):
+    def __init__(self, scene: Dict, params: RenderParams,
+                 vertex_shader: Callable = scene_vertex_shader,
+                 fragment_shader: Callable = scene_fragment_shader,
+                 device="cuda"):
         super().__init__()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -239,6 +325,8 @@ class Engine(torch.nn.Module):
                                "and none is available")
         check_supported(params, scene.keys())
         self.params = params
+        self.vertex_shader = vertex_shader
+        self.fragment_shader = fragment_shader
         for k, v in scene_to_torch(scene, device).items():
             self.register_buffer(k, v, persistent=False)
         self.uniforms = default_frame_uniforms(params.width, params.height)
@@ -249,7 +337,8 @@ class Engine(torch.nn.Module):
 
     def forward(self, uniforms: Optional[Dict] = None):
         return render_frame(self.scene, uniforms or self.uniforms,
-                            self.params)
+                            self.params, self.vertex_shader,
+                            self.fragment_shader)
 
     def render(self, uniforms: Optional[Dict] = None):
         return self(uniforms)

@@ -1,13 +1,15 @@
 """Nearest/repeat atlas sampling (Texture.cs:42-63).
 
-Counterpart of ``_wrap_uv``, ``unpack_rgba8`` and ``sample_atlas_region``
-in ``softwarerenderer_tpu/ops/texture.py``: u = frac(u) (+1 if negative),
+Counterpart of ``_wrap_uv``, ``unpack_rgba8``, ``sample_nearest`` and
+``sample_atlas_region`` in ``softwarerenderer_tpu/ops/texture.py``: u = frac(u) (+1 if negative),
 x = int(u·w) mod w, inside a per-pixel atlas region (oy, ox, h, w)
 resolved per triangle.  Integer wrap is ``torch.remainder`` (floor mod,
 like ``jnp`` and Python ``%``), never ``fmod``.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -24,6 +26,17 @@ def unpack_rgba8(q: torch.Tensor) -> torch.Tensor:
     The divisor is a tensor on q's device: CUDA divides by a host scalar as
     a multiply by its reciprocal, which is not bytes/255 in every bit."""
     return q.to(torch.float32) / torch.full((), 255.0, device=q.device)
+
+
+def sample_nearest(texture: Dict, uv: torch.Tensor) -> torch.Tensor:
+    """Nearest/repeat sample of one texture's data (h, w, C) at uv
+    (..., 2): x = int(u·w) mod w, y likewise; the texels as stored."""
+    data = texture["data"]
+    h, w = data.shape[0], data.shape[1]
+    st = wrap_uv(uv)
+    x = torch.remainder((st[..., 0] * float(w)).to(torch.int32), w)
+    y = torch.remainder((st[..., 1] * float(h)).to(torch.int32), h)
+    return data.reshape(h * w, data.shape[-1])[(y * w + x).long()]
 
 
 def sample_atlas_region(atlas: torch.Tensor, oy, ox, h, w,

@@ -1,10 +1,14 @@
 """Tile raster: visibility fold + winner resolve + interpolation, then shading.
 
-Counterpart of ``softwarerenderer_tpu/ops/pallas_tile.py`` on the opaque
-route (``render_tile_pallas`` with ``shade_rate == 1``).  Its kernel,
-``pallas_tile._kernel`` with ``peel=False``, becomes the hand-written CUDA
-kernel ``csrc/tile_raster.cu``; ``tile_fold`` launches it for CUDA tensors
-and runs ``tile_fold_plain``, its plain PyTorch twin, for CPU tensors.
+Counterpart of ``softwarerenderer_tpu/ops/pallas_tile.py``: the opaque
+route (``render_tile_pallas`` with ``shade_rate == 1``), the depth-peeled
+K-buffer (``render_tile_pallas_kbuffer``) and its single-pass sibling
+(``render_tile_pallas_kbuffer_single``).  Their kernels become hand-written
+CUDA kernels: ``pallas_tile._kernel`` (``peel=False`` and ``peel=True``) is
+``csrc/tile_raster.cu`` behind ``tile_fold``, and ``_kernel_kdeep`` is
+``csrc/tile_kdeep.cu`` behind ``tile_fold_kdeep``.  Each wrapper launches
+its kernel for CUDA tensors and runs its plain PyTorch twin
+(``tile_fold_plain``, ``tile_fold_kdeep_plain``) for CPU tensors.
 
 ``prepare`` packs what the fold needs, as ``pallas_tile._prepare_ctx``
 does: the per-triangle setup rows (three screen vertices, three depths,
@@ -25,20 +29,25 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.profiler import record_function
 
-from softwarerenderer_tpu.config import DepthTest, RenderParams
+from softwarerenderer_tpu.config import BlendMode, DepthTest, RenderParams
 from softwarerenderer_tpu_torch.ops.binning import bin_triangles, cdiv
 from softwarerenderer_tpu_torch.ops.geometry import unflatten_varyings
-from softwarerenderer_tpu_torch.ops.raster import blend
+from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR, blend
 
 F32 = torch.float32
 I32 = torch.int32
 N_SETUP = 10          # s0x s0y s1x s1y s2x s2y d0 d1 d2 ia
 KINDS = {"pc": 0, "pw": 1, "pw3": 2, "bary": 3, "v0": 4}
-MAX_TILE_PX = 4096    # the kernel's 256 threads × 16 pixels
+MAX_TILE_PX = 4096    # tile_raster.cu's 256 threads × 16 pixels
+MAX_KDEEP = 8         # the deepest K tile_kdeep.cu is instantiated for
 
-# Kernel launches so far; chip_smoke.py resets it and reads it back to show
-# that a frame went through the kernel.
+# Kernel launches so far, one count per kernel: K1 (tile_fold, opaque
+# mode), K2 (tile_fold with prev maps, peel mode) and K3 (tile_fold_kdeep).
+# chip_smoke.py resets them and reads them back to show that a frame went
+# through the kernels.
 LAUNCHES = 0
+PEEL_LAUNCHES = 0
+KDEEP_LAUNCHES = 0
 
 
 def prepare(tris: Dict, params: RenderParams, fb_depth: torch.Tensor,
@@ -149,7 +158,8 @@ def _plan_tensor(plan: tuple, device: torch.device) -> torch.Tensor:
 
 
 def fold_inputs(ctx: Dict):
-    """(args, kwargs) of tile_fold / tile_fold_plain for a prepared ctx."""
+    """(args, kwargs) of tile_fold / tile_fold_plain for a prepared ctx;
+    tile_fold_kdeep takes the same plus K."""
     args = tuple(ctx[k] for k in ("fbd", "setup", "order", "n_global",
                                   "sorted_tri", "starts", "counts",
                                   "payload", "plan"))
@@ -166,40 +176,22 @@ def _check(name, t, dtype, shape, device):
                          f"{t.device}")
 
 
-def _library():
-    from softwarerenderer_tpu_torch.kernels import build
-    lib = build.load("tile_raster")
-    fn = lib.tile_raster_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] \
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
-              payload, plan, *, tile_h, tile_w, kp, kpi, sl_screen, sl_ia,
-              clip_w_off):
-    """Fold + resolve + interpolate every tile.
-
-    plan is a tuple of (kind, lo, hi) with kind one of KINDS, mapping
-    payload columns to G-buffer channels as pallas_tile's interp_plan does.
-    Returns (gbuf (kpi, Hp, Wp) f32, best_d (Hp, Wp) f32, best_i (Hp, Wp)
-    i32).  CUDA tensors launch csrc/tile_raster.cu; CPU tensors run
-    tile_fold_plain.  There is no fallback from one to the other."""
-    global LAUNCHES
+def _check_layout(plan, kp, kpi, sl_screen, sl_ia, clip_w_off):
+    """Raise on a plan or payload slot the kernels would read out of
+    bounds (both devices)."""
     if _plan_channels(plan, kp) > kpi:
         raise ValueError(f"plan writes more than kpi={kpi} channels")
     if min(sl_screen, sl_ia, clip_w_off) < 0 \
             or max(sl_screen + 1, sl_ia, clip_w_off) >= kp:
         raise ValueError(f"payload slots outside the {kp}-column payload")
-    if fbd.device.type == "cpu":
-        return tile_fold_plain(
-            fbd, setup, order, n_global, sorted_tri, starts, counts,
-            payload, plan, tile_h=tile_h, tile_w=tile_w, kp=kp, kpi=kpi,
-            sl_screen=sl_screen, sl_ia=sl_ia, clip_w_off=clip_w_off)
+
+
+def _check_cuda_inputs(name, fbd, setup, order, n_global, sorted_tri,
+                       starts, counts, payload, tile_h, tile_w, kp):
+    """Device, dtype, shape and contiguity of a kernel's inputs; returns
+    (ntx, nty)."""
     if fbd.device.type != "cuda":
-        raise ValueError(f"tile_fold runs on cuda or cpu, not {fbd.device}")
+        raise ValueError(f"{name} runs on cuda or cpu, not {fbd.device}")
     dev = fbd.device
     Hp, Wp = fbd.shape
     if Hp % tile_h or Wp % tile_w or tile_h * tile_w > MAX_TILE_PX:
@@ -214,13 +206,65 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
     _check("starts", starts, I32, (ntx * nty,), dev)
     _check("counts", counts, I32, (ntx * nty,), dev)
     _check("payload", payload, F32, (n, 3 * kp), dev)
+    return ntx, nty
+
+
+def _entry(lib_name: str, fn_name: str, n_ptr_head: int, n_int_tail: int):
+    """The C entry point fn_name of csrc/<lib_name>.cu with its argtypes:
+    n_ptr_head pointers, n_plan, the three output pointers, n_int_tail
+    ints, the stream."""
+    from softwarerenderer_tpu_torch.kernels import build
+    fn = getattr(build.load(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr_head + [ctypes.c_int] \
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int_tail \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
+              payload, plan, *, tile_h, tile_w, kp, kpi, sl_screen, sl_ia,
+              clip_w_off, prev_d=None, prev_i=None):
+    """Fold + resolve + interpolate every tile.
+
+    plan is a tuple of (kind, lo, hi) with kind one of KINDS, mapping
+    payload columns to G-buffer channels as pallas_tile's interp_plan does.
+    With prev_d (Hp, Wp) f32 and prev_i (Hp, Wp) int32, the previous
+    pass's winners, the fold peels: a fragment is admitted only if it ranks
+    strictly below its pixel's (prev_d, prev_i) in the (depth, id) order
+    and is not that winner, and a tile with no prev_i >= 0 folds nothing.
+    Returns (gbuf (kpi, Hp, Wp) f32, best_d (Hp, Wp) f32, best_i (Hp, Wp)
+    i32).  CUDA tensors launch csrc/tile_raster.cu; CPU tensors run
+    tile_fold_plain.  There is no fallback from one to the other."""
+    global LAUNCHES, PEEL_LAUNCHES
+    _check_layout(plan, kp, kpi, sl_screen, sl_ia, clip_w_off)
+    peel = prev_d is not None
+    if peel != (prev_i is not None):
+        raise ValueError("prev_d and prev_i are given together or not at all")
+    if fbd.device.type == "cpu":
+        return tile_fold_plain(
+            fbd, setup, order, n_global, sorted_tri, starts, counts,
+            payload, plan, tile_h=tile_h, tile_w=tile_w, kp=kp, kpi=kpi,
+            sl_screen=sl_screen, sl_ia=sl_ia, clip_w_off=clip_w_off,
+            prev_d=prev_d, prev_i=prev_i)
+    ntx, nty = _check_cuda_inputs(
+        "tile_fold", fbd, setup, order, n_global, sorted_tri, starts,
+        counts, payload, tile_h, tile_w, kp)
+    dev = fbd.device
+    Hp, Wp = fbd.shape
+    prev_ptrs = (None, None)
+    if peel:
+        _check("prev_d", prev_d, F32, (Hp, Wp), dev)
+        _check("prev_i", prev_i, I32, (Hp, Wp), dev)
+        prev_ptrs = (prev_d.data_ptr(), prev_i.data_ptr())
     plan_t = _plan_tensor(plan, dev)
     gbuf = torch.empty((kpi, Hp, Wp), dtype=F32, device=dev)
     best_d = torch.empty((Hp, Wp), dtype=F32, device=dev)
     best_i = torch.empty((Hp, Wp), dtype=I32, device=dev)
-    fn = _library()
+    fn = _entry("tile_raster", "tile_raster_launch", 11, 9)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(fbd.data_ptr(), setup.data_ptr(), order.data_ptr(),
+    err = fn(fbd.data_ptr(), *prev_ptrs, setup.data_ptr(), order.data_ptr(),
              n_global.data_ptr(), sorted_tri.data_ptr(), starts.data_ptr(),
              counts.data_ptr(), payload.data_ptr(), plan_t.data_ptr(),
              len(plan), gbuf.data_ptr(), best_d.data_ptr(),
@@ -229,7 +273,58 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
     if err != 0:
         raise RuntimeError(f"tile_raster kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES += 1
+    if peel:
+        PEEL_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return gbuf, best_d, best_i
+
+
+def tile_fold_kdeep(fbd, setup, order, n_global, sorted_tri, starts, counts,
+                    payload, plan, *, K, tile_h, tile_w, kp, kpi, sl_screen,
+                    sl_ia, clip_w_off):
+    """The K best fragments of every pixel in one fold, each resolved and
+    interpolated.
+
+    Same inputs as tile_fold's opaque mode.  Slot s of a pixel holds its
+    s-th best (depth, id) among the fragments with depth >= fbd, later ids
+    winning ties: the winner of s peel passes without a stop.  Returns
+    (gbuf (K*kpi, Hp, Wp) f32, layer s in planes [s*kpi, (s+1)*kpi),
+    best_d (K, Hp, Wp) f32 with -inf in empty slots, best_i (K, Hp, Wp)
+    i32 with -1 in empty slots).  1 <= K <= MAX_KDEEP.  CUDA tensors
+    launch csrc/tile_kdeep.cu; CPU tensors run tile_fold_kdeep_plain."""
+    global KDEEP_LAUNCHES
+    if not 1 <= K <= MAX_KDEEP:
+        raise ValueError(f"tile_fold_kdeep takes 1 <= K <= {MAX_KDEEP}, "
+                         f"got K={K}")
+    _check_layout(plan, kp, kpi, sl_screen, sl_ia, clip_w_off)
+    if fbd.device.type == "cpu":
+        return tile_fold_kdeep_plain(
+            fbd, setup, order, n_global, sorted_tri, starts, counts,
+            payload, plan, K=K, tile_h=tile_h, tile_w=tile_w, kp=kp,
+            kpi=kpi, sl_screen=sl_screen, sl_ia=sl_ia,
+            clip_w_off=clip_w_off)
+    ntx, nty = _check_cuda_inputs(
+        "tile_fold_kdeep", fbd, setup, order, n_global, sorted_tri, starts,
+        counts, payload, tile_h, tile_w, kp)
+    dev = fbd.device
+    Hp, Wp = fbd.shape
+    plan_t = _plan_tensor(plan, dev)
+    gbuf = torch.empty((K * kpi, Hp, Wp), dtype=F32, device=dev)
+    best_d = torch.empty((K, Hp, Wp), dtype=F32, device=dev)
+    best_i = torch.empty((K, Hp, Wp), dtype=I32, device=dev)
+    fn = _entry("tile_kdeep", "tile_kdeep_launch", 9, 10)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(fbd.data_ptr(), setup.data_ptr(), order.data_ptr(),
+             n_global.data_ptr(), sorted_tri.data_ptr(), starts.data_ptr(),
+             counts.data_ptr(), payload.data_ptr(), plan_t.data_ptr(),
+             len(plan), gbuf.data_ptr(), best_d.data_ptr(),
+             best_i.data_ptr(), ntx, nty, tile_h, tile_w, kp, kpi,
+             sl_screen, sl_ia, clip_w_off, K, stream)
+    if err != 0:
+        raise RuntimeError(f"tile_kdeep kernel launch failed: CUDA error "
+                           f"{err}")
+    KDEEP_LAUNCHES += 1
     return gbuf, best_d, best_i
 
 
@@ -245,13 +340,16 @@ def _order_key(d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
                     payload, plan, *, tile_h, tile_w, kp, kpi, sl_screen,
-                    sl_ia, clip_w_off):
+                    sl_ia, clip_w_off, prev_d=None, prev_i=None):
     """tile_fold in plain PyTorch: same inputs, same outputs, same rounding.
 
     Every (tile, triangle) pair is expanded over the tile's pixels in
     chunks, each fragment becomes an int64 (depth, id) key and a
     scatter-amax keeps the lexicographic max per pixel; the resolve then
-    gathers each pixel's winner row and interpolates."""
+    gathers each pixel's winner row and interpolates.  With prev maps a
+    fragment is admitted only if its key is below its pixel's
+    (prev_d, prev_i) key and its id is not prev_i, and the pairs of tiles
+    with no prev_i >= 0 are dropped, as the kernel skips those tiles."""
     dev = fbd.device
     Hp, Wp = fbd.shape
     nty, ntx = Hp // tile_h, Wp // tile_w
@@ -278,6 +376,14 @@ def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
         return t.reshape(nty, ntx, tile_h, tile_w).permute(0, 2, 1, 3) \
             .reshape(Hp, Wp)
 
+    peel = prev_d is not None
+    if peel:
+        prev_i_t = to_tiles(prev_i).long()
+        prev_key = _order_key(to_tiles(prev_d), prev_i_t)
+        live = (prev_i_t.reshape(ntiles, tpx) >= 0).any(1)
+        keep = live[pair_tile]
+        pair_tile, pair_tri = pair_tile[keep], pair_tri[keep]
+
     fbd_t = to_tiles(fbd)
     keys = _order_key(fbd_t, torch.full_like(fbd_t, -1, dtype=torch.long))
     never = torch.iinfo(torch.long).min
@@ -298,16 +404,32 @@ def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
                  ((w0 <= 0) & (w1 <= 0) & (w2 <= 0))
         d = d0 * (w0 * ia) + d1 * (w1 * ia) + d2 * (w2 * ia)
         ok = inside & (d > float("-inf"))       # NaN and -inf never win
-        key = torch.where(ok, _order_key(d, tri[:, None]), never)
-        keys.scatter_reduce_(0, (tl[:, None] * tpx + lane).reshape(-1),
-                             key.reshape(-1), reduce="amax")
+        key = _order_key(d, tri[:, None])
+        pix = (tl[:, None] * tpx + lane).reshape(-1)
+        if peel:
+            # "strictly below (pd, pi)" is key < key(pd, pi), with -0.0
+            # and +0.0 one depth as in the kernel's float compares.
+            ok &= (tri[:, None] != prev_i_t[pix].reshape(ok.shape)) \
+                & (key < prev_key[pix].reshape(ok.shape))
+        key = torch.where(ok, key, never)
+        keys.scatter_reduce_(0, pix, key.reshape(-1), reduce="amax")
 
     best_i_t = (keys & 0xFFFFFFFF) - 1
     hi = keys >> 32
     bits = torch.where(hi < 0, hi ^ 0x7FFFFFFF, hi).to(I32).view(F32)
     best_d = to_image(torch.where(best_i_t >= 0, bits, fbd_t))
     best_i = to_image(best_i_t).to(I32)
+    return _resolve_plain(payload, plan, best_i, kp, kpi, sl_screen, sl_ia,
+                          clip_w_off), best_d, best_i
 
+
+def _resolve_plain(payload, plan, best_i, kp, kpi, sl_screen, sl_ia,
+                   clip_w_off):
+    """The (kpi, Hp, Wp) G-buffer of the winners best_i (Hp, Wp): each
+    pixel's payload row gathered and interpolated, zeros where best_i is
+    -1."""
+    dev = payload.device
+    Hp, Wp = best_i.shape
     bi = best_i.reshape(-1).long()
     has = bi >= 0
     rows = payload[bi.clamp(min=0)]
@@ -356,12 +478,34 @@ def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
             chans.append(r(0, lo))
     zero = torch.zeros(Hp * Wp, dtype=F32, device=dev)
     chans += [zero] * (kpi - len(chans))
-    gbuf = torch.where(has, torch.stack(chans), 0.0).reshape(kpi, Hp, Wp)
-    return gbuf, best_d, best_i
+    return torch.where(has, torch.stack(chans), 0.0).reshape(kpi, Hp, Wp)
+
+
+def tile_fold_kdeep_plain(fbd, setup, order, n_global, sorted_tri, starts,
+                          counts, payload, plan, *, K, tile_h, tile_w, kp,
+                          kpi, sl_screen, sl_ia, clip_w_off):
+    """tile_fold_kdeep in plain PyTorch: tile_fold_plain, then K - 1 peel
+    rounds of it, each taking the previous round's winners unstopped; layer
+    s is the best fragment strictly below layer s - 1, which is the K-deep
+    fold's slot s.  Empty slots get depth -inf, as the kernel's."""
+    kwargs = dict(tile_h=tile_h, tile_w=tile_w, kp=kp, kpi=kpi,
+                  sl_screen=sl_screen, sl_ia=sl_ia, clip_w_off=clip_w_off)
+    args = (fbd, setup, order, n_global, sorted_tri, starts, counts,
+            payload, plan)
+    gbufs, depths, ids = [], [], []
+    prev = {}
+    for _ in range(K):
+        gbuf, best_d, best_i = tile_fold_plain(*args, **kwargs, **prev)
+        gbufs.append(gbuf)
+        depths.append(torch.where(best_i >= 0, best_d, float("-inf")))
+        ids.append(best_i)
+        prev = dict(prev_d=best_d, prev_i=best_i)
+    return torch.cat(gbufs), torch.stack(depths), torch.stack(ids)
 
 
 def frag_from_planes(ctx: Dict, planes: torch.Tensor) -> Dict:
-    """The fragment shader's input dict from (kpi, H, W) G-buffer planes."""
+    """The fragment shader's input dict from (kpi, A, B) G-buffer planes:
+    a full (H, W) frame or a block of (segments, pixels)."""
     gb_slices = ctx["gb_slices"]
     flat = {k: planes[lo:hi].permute(1, 2, 0)
             for k, (lo, hi) in gb_slices.items() if not k.startswith("tri.")}
@@ -380,6 +524,15 @@ def frag_from_planes(ctx: Dict, planes: torch.Tensor) -> Dict:
     return frag
 
 
+def _prepare_for(tris, fragment_shader, params, fb_depth, per_tri_extra):
+    if params.depth_test != DepthTest.LESS_EQUAL:
+        raise NotImplementedError("the tile kernels support LESS_EQUAL only")
+    gb_keep = getattr(fragment_shader, "varyings", None)
+    with record_function("tile.bin_pack"):
+        return prepare(tris, params, fb_depth, per_tri_extra,
+                       None if gb_keep is None else frozenset(gb_keep))
+
+
 def render_tile(tris: Dict, fragment_shader: Callable, uniforms: Dict,
                 params: RenderParams, fb_color: torch.Tensor,
                 fb_depth: torch.Tensor, per_tri_extra: Optional[Dict] = None,
@@ -389,12 +542,8 @@ def render_tile(tris: Dict, fragment_shader: Callable, uniforms: Dict,
     fold: tile_fold (the default) or tile_fold_plain, which lets a check
     on the card render the same frame through the plain twin.
     Returns (color (H, W, 4), depth (H, W))."""
-    if params.depth_test != DepthTest.LESS_EQUAL:
-        raise NotImplementedError("the tile kernel supports LESS_EQUAL only")
-    gb_keep = getattr(fragment_shader, "varyings", None)
-    with record_function("tile.bin_pack"):
-        ctx = prepare(tris, params, fb_depth, per_tri_extra,
-                      None if gb_keep is None else frozenset(gb_keep))
+    ctx = _prepare_for(tris, fragment_shader, params, fb_depth,
+                       per_tri_extra)
     args, kwargs = fold_inputs(ctx)
     with record_function("tile.fold"):
         gbuf, best_d, best_i = (fold or tile_fold)(*args, **kwargs)
@@ -408,3 +557,207 @@ def render_tile(tris: Dict, fragment_shader: Callable, uniforms: Dict,
                             fb_color)
         out_d = torch.where(written, best_d[:H, :W], fb_depth)
     return out_c, out_d
+
+
+def _compaction(params: RenderParams):
+    """(seg, seg_cap) of segment-compacted layer shading
+    (params.kbuffer_compact_rows, pallas_tile.py:1197-1206), or None when
+    the frame is not compactable."""
+    H, W = params.height, params.width
+    seg = 128
+    while seg > 8 and W % seg:
+        seg //= 2
+    frac = params.kbuffer_compact_rows
+    if not (frac > 0 and W % seg == 0):
+        return None
+    nseg = W // seg
+    seg_cap = int(H * nseg * frac)
+    seg_cap = min(H * nseg, max(8, -(-seg_cap // 8) * 8))
+    return (seg, seg_cap) if seg_cap < H * nseg else None
+
+
+def render_tile_kbuffer(tris: Dict, fragment_shader: Callable,
+                        uniforms: Dict, params: RenderParams,
+                        fb_color: torch.Tensor, fb_depth: torch.Tensor,
+                        per_tri_extra: Optional[Dict] = None,
+                        fold: Optional[Callable] = None,
+                        with_stats: bool = False):
+    """K-buffer via depth peeling: pass 0 through tile_fold's opaque mode,
+    passes 1..K-1 through its peel mode, each keeping the best fragment
+    strictly below the previous pass's winner, then the reference's
+    sequential shade-blend replayed over the layers in submission order
+    (replay_layers).  Counterpart of pallas_tile.render_tile_pallas_kbuffer,
+    with its exactness contract (ops/kbuffer.py's docstring); LESS_EQUAL
+    only.
+
+    Between passes, as pallas_tile.py:1128-1168 does: with
+    params.kbuffer_short_circuit a pixel stops peeling behind a visible
+    winner flagged opaque (per_tri_extra["opq"], ALPHA blending) or any
+    visible winner (NONE blending); pixels of the tile grid's pad band stop
+    too; and a pass whose previous winners are all stopped ends the
+    peeling.  Passes 1..K-1 shade only the row segments holding a winner
+    when they fit params.kbuffer_compact_rows of the frame (bit-exact: the
+    shader works per pixel).
+
+    The TPU program makes three choices on the device (lax.cond).  Here
+    two are host reads: the empty-pass test before each peel pass (a dead
+    pass costs neither a launch nor a shading pass) and each live pass's
+    segment list (torch.nonzero; its length decides whether compaction
+    fits).  The third, whether the replay needs its deeper rounds, is
+    known on the host: it runs one round per pass run.  So a frame
+    synchronises at most 2 (K - 1) times beyond the uniform upload.
+
+    fold: tile_fold (the default) or tile_fold_plain.  Returns (color
+    (H, W, 4), depth (H, W)), and a stats dict
+    {"kbuffer_saturated_px": pixels whose K-th layer holds a fragment}
+    third when with_stats."""
+    K = params.kbuffer
+    ctx = _prepare_for(tris, fragment_shader, params, fb_depth,
+                       per_tri_extra)
+    fold = fold or tile_fold
+    H, W, Hp, Wp = ctx["H"], ctx["W"], ctx["Hp"], ctx["Wp"]
+    use_opq = (params.kbuffer_short_circuit and "opq" in ctx["extra_keys"]
+               and params.blend_mode == BlendMode.ALPHA)
+    none_stop = (params.kbuffer_short_circuit
+                 and params.blend_mode == BlendMode.NONE)
+
+    def shade(frag):
+        col = fragment_shader(frag, uniforms)
+        if use_opq:
+            return col, (frag["tri"]["opq"] > 0) & (col[..., 3] > 0)
+        if none_stop:
+            return col, col[..., 3] > 0
+        return col, None
+
+    compact = _compaction(params)
+
+    def shade_layer(gbuf, bi):
+        """Shade a peel pass's layer: the live row segments only, when
+        they fit; else the whole frame."""
+        if compact is not None:
+            seg, seg_cap = compact
+            nseg = W // seg
+            live_seg = (bi[:H, :W] >= 0).reshape(H * nseg, seg).any(1)
+            # torch.nonzero's size is dynamic, so this is a host sync; it
+            # has no fill entries, so index_copy_ below writes each live
+            # segment once and no segment twice.
+            idx = torch.nonzero(live_seg).squeeze(1)
+            if idx.numel() <= seg_cap:
+                kpi = gbuf.shape[0]
+                first = (idx // nseg) * Wp + (idx % nseg) * seg
+                offs = first[:, None] + torch.arange(seg, device=idx.device)
+                sub = gbuf.reshape(kpi, Hp * Wp)[:, offs]   # one gather
+                col_s, opq_s = shade(frag_from_planes(ctx, sub))
+                col = col_s.new_zeros((H * nseg, seg, 4)).index_copy_(
+                    0, idx, col_s).reshape(H, W, 4)
+                opq = None
+                if opq_s is not None:
+                    opq = opq_s.new_zeros((H * nseg, seg)).index_copy_(
+                        0, idx, opq_s).reshape(H, W)
+                return col, opq
+        return shade(frag_from_planes(ctx, gbuf[:, :H, :W]))
+
+    args, kwargs = fold_inputs(ctx)
+    with record_function("tile.fold"):
+        gbuf, bd, bi = fold(*args, **kwargs)
+    with record_function("tile.shade"):
+        col, opq = shade(frag_from_planes(ctx, gbuf[:, :H, :W]))
+    colors, depths, ids = [col], [bd[:H, :W]], [bi[:H, :W]]
+    pad_stop = torch.ones((Hp, Wp), dtype=torch.bool, device=bd.device)
+    pad_stop[:H, :W] = False
+    for _ in range(1, K):
+        with record_function("tile.peel_prev"):
+            stop = pad_stop
+            if opq is not None:
+                stop = pad_stop.clone()
+                stop[:H, :W] |= opq
+            prev_d = torch.where(stop, DEPTH_CLEAR, bd)
+            prev_i = torch.where(stop, -1, bi)
+            if not bool((prev_i >= 0).any()):      # host sync
+                break
+        with record_function("tile.peel_fold"):
+            gbuf, bd, bi = fold(*args, **kwargs, prev_d=prev_d,
+                                prev_i=prev_i)
+        with record_function("tile.peel_shade"):
+            col, opq = shade_layer(gbuf, bi)
+        colors.append(col)
+        depths.append(bd[:H, :W])
+        ids.append(bi[:H, :W])
+    with record_function("tile.replay"):
+        return replay_layers(torch.stack(colors), torch.stack(depths),
+                             torch.stack(ids), fb_color, fb_depth, params,
+                             with_stats)
+
+
+def render_tile_kbuffer_single(tris: Dict, fragment_shader: Callable,
+                               uniforms: Dict, params: RenderParams,
+                               fb_color: torch.Tensor,
+                               fb_depth: torch.Tensor,
+                               per_tri_extra: Optional[Dict] = None,
+                               fold: Optional[Callable] = None,
+                               with_stats: bool = False):
+    """K-buffer via the single-pass K-deep fold: one tile_fold_kdeep
+    launch for all K layers, each shaded over the whole frame, then the
+    same replay as render_tile_kbuffer.  Counterpart of
+    pallas_tile.render_tile_pallas_kbuffer_single; equal to the peel route
+    without the short-circuit's stops (and within one blend ulp of it with
+    them).  K <= MAX_KDEEP; LESS_EQUAL only.
+
+    fold: tile_fold_kdeep (the default) or tile_fold_kdeep_plain."""
+    K = params.kbuffer
+    if not 1 <= K <= MAX_KDEEP:
+        raise ValueError(f"the K-deep fold takes 1 <= K <= {MAX_KDEEP}, "
+                         f"got kbuffer={K}")
+    ctx = _prepare_for(tris, fragment_shader, params, fb_depth,
+                       per_tri_extra)
+    H, W, kpi = ctx["H"], ctx["W"], ctx["kpi"]
+    args, kwargs = fold_inputs(ctx)
+    with record_function("tile.fold"):
+        gbuf, bd, bi = (fold or tile_fold_kdeep)(*args, K=K, **kwargs)
+    with record_function("tile.shade"):
+        src = torch.stack([
+            fragment_shader(frag_from_planes(
+                ctx, gbuf[s * kpi:(s + 1) * kpi, :H, :W]), uniforms)
+            for s in range(K)])
+    with record_function("tile.replay"):
+        return replay_layers(src, bd[:, :H, :W], bi[:, :H, :W], fb_color,
+                             fb_depth, params, with_stats)
+
+
+def replay_layers(src: torch.Tensor, sd: torch.Tensor, si: torch.Tensor,
+                  fb_color: torch.Tensor, fb_depth: torch.Tensor,
+                  params: RenderParams, with_stats: bool = False):
+    """Submission-order replay of shaded layers (Rasterizer.cs:509-523 +
+    Blend :57-65), the counterpart of pallas_tile._replay_layers.
+
+    src (n, H, W, 4) shaded colors, sd (n, H, W) depths, si (n, H, W) int32
+    triangle ids (-1: no fragment) of the n <= params.kbuffer layers
+    computed; a pixel's ids are distinct.  Round r takes each pixel's r-th
+    smallest id and applies the reference's depth test (new >= old),
+    alpha > 0 discard and blend against the running buffer.  Rounds past
+    the n layers would find no fragment, so there are n of them.
+    with_stats adds {"kbuffer_saturated_px": pixels whose K-th layer holds
+    a fragment} (0 unless all K layers were computed)."""
+    n = si.shape[0]
+    K = params.kbuffer
+    none = torch.iinfo(I32).max
+    key = torch.where(si >= 0, si, none)
+    cur_c, cur_d = fb_color, fb_depth
+    for r in range(n):
+        # Each pixel's smallest id not replayed yet: a masked minimum over
+        # the layers, as pallas_tile's K-way selects (a per-pixel sort of
+        # the layer axis costs far more on the card).
+        sel, pick = key.min(dim=0, keepdim=True)
+        if r + 1 < n:
+            key = key.scatter(0, pick, none)
+        sel_d = sd.gather(0, pick)[0]
+        sel_c = src.gather(0, pick[..., None].expand(1, *src.shape[1:]))[0]
+        written = (sel[0] != none) & (sel_d >= cur_d) & (sel_c[..., 3] > 0)
+        cur_c = torch.where(written[..., None],
+                            blend(sel_c, cur_c, params.blend_mode), cur_c)
+        cur_d = torch.where(written, sel_d, cur_d)
+    if not with_stats:
+        return cur_c, cur_d
+    saturated = (si[K - 1] >= 0).sum(dtype=I32) if n >= K \
+        else torch.zeros((), dtype=I32, device=si.device)
+    return cur_c, cur_d, {"kbuffer_saturated_px": saturated}

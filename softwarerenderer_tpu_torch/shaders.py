@@ -1,0 +1,91 @@
+"""Shaders as PyTorch functions over tensors, leading dimensions broadcast.
+
+Counterpart of ``softwarerenderer_tpu/shaders.py``:
+
+  vertex_shader(vin: dict, uniforms: dict) -> dict
+      vin:  {"position": (..., 3), "uv": (..., 2), "normal": (..., 3),
+             "color": (..., 4)}
+      out:  {"clip_position": (..., 4), "color", "uv", "normal",
+             "data": {name: (..., K)}}
+
+  fragment_shader(frag: dict, uniforms: dict) -> rgba (..., 4)
+      Discard by returning alpha <= 0.
+
+A fragment shader carries the JAX package's registries as attributes:
+``varyings`` (the flat varyings it reads; the rest are pruned from the tile
+payload), ``tri_extras`` (the per-triangle channels it reads, in
+``frag["tri"]``) and ``alpha_sources`` (where its alpha comes from, which
+lets the K-buffer stop peeling behind opaque winners).  A shader without a
+registry gets everything and never short-circuits.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from softwarerenderer_tpu_torch.ops import texture as tex_ops
+from softwarerenderer_tpu_torch.utils import mathlib as ml
+
+
+def default_vertex_shader(vin: Dict, uniforms: Dict) -> Dict:
+    """The game's vertex shader (Renderer.cs:830-846): MVP transform plus a
+    world-space normal in the `data` varying, with uniforms["model"] one
+    (4, 4) matrix or (V, 4, 4) per-vertex matrices."""
+    model = uniforms["model"]
+    world = ml.transform(ml.homogenize(vin["position"]), model)
+    view_pos = ml.transform(world, uniforms["view"])
+    clip = ml.transform(view_pos, uniforms["projection"])
+    world_normal = ml.normalize(ml.transform_normal(vin["normal"], model),
+                                eps=1e-30)
+    return {"clip_position": clip, "color": vin["color"], "uv": vin["uv"],
+            "normal": vin["normal"], "data": {"world_normal": world_normal}}
+
+
+def lit_and_fogged(frag: Dict, uniforms: Dict,
+                   tex_color: torch.Tensor) -> torch.Tensor:
+    """Texture color × vertex color, half-Lambert max(0.25, N·-L),
+    smoothstep fog on clip-space z, alpha unfogged (Renderer.cs:848-860)."""
+    diffuse = ml.dot(frag["data"]["world_normal"],
+                     -uniforms["light_direction"]).clamp(min=0.25)
+    base = frag["color"] * tex_color
+    depth = frag["clip_position"][..., 2]
+    fog_end = uniforms["fog_end"]
+    fog = ((fog_end - depth) / (fog_end - uniforms["fog_start"])).clamp(0, 1)
+    fog = fog * fog * (3.0 - 2.0 * fog)
+    lit = base * (0.1 + 0.9 * diffuse[..., None]) * uniforms["light_color"]
+    fog_color = uniforms["fog_color"]
+    rgba = fog_color + (lit - fog_color) * fog[..., None]
+    return torch.cat([rgba[..., :3], base[..., 3:4]], dim=-1)
+
+
+def default_fragment_shader(frag: Dict, uniforms: Dict) -> torch.Tensor:
+    """The game's fragment shader (Renderer.cs:848-860): texture (the
+    nearest sample of uniforms["texture"], white without one) × vertex
+    color, lit and fogged."""
+    texture = uniforms.get("texture")
+    uv = frag["uv"]
+    if texture is not None:
+        tex_color = tex_ops.sample_nearest(texture, uv)
+    else:
+        tex_color = torch.ones(uv.shape[:-1] + (4,), dtype=uv.dtype,
+                               device=uv.device)
+    return lit_and_fogged(frag, uniforms, tex_color)
+
+
+def flat_color_fragment_shader(frag: Dict, uniforms: Dict) -> torch.Tensor:
+    """Minimal unlit shader: interpolated vertex color only."""
+    return frag["color"]
+
+
+def textured_fragment_shader(frag: Dict, uniforms: Dict) -> torch.Tensor:
+    """Texture × vertex color, no lighting or fog."""
+    return frag["color"] * tex_ops.sample_nearest(uniforms["texture"],
+                                                  frag["uv"])
+
+
+# The JAX shaders' registries, the same values.
+default_fragment_shader.varyings = ("color", "uv", "data.world_normal")
+flat_color_fragment_shader.varyings = ("color",)
+textured_fragment_shader.varyings = ("color", "uv")

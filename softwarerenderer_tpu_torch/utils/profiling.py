@@ -1,14 +1,17 @@
 """Where the time of one frame goes, on a CUDA card.
 
     python -m softwarerenderer_tpu_torch.utils.profiling [--frames N]
-        [--width W] [--height H] [--out DIR]
+        [--width W] [--height H] [--kbuffer K] [--out DIR]
 
 Renders ``bench.build_scene()`` through ``Engine(scene, RenderParams(W, H),
-device="cuda")`` with ``bench.camera_uniforms(u, i)`` and prints:
+device="cuda")`` with ``bench.camera_uniforms(u, i)``, or with --kbuffer K
+the K-buffer frame of ``chip_smoke.translucent_scene()`` (the bench soup
+with six glass panes) through ``RenderParams(W, H, kbuffer=K,
+cull_mode=0)``, and prints:
 
   * the scene's binning statistics at frame 0 (valid clip-fan slots, global
     triangles, binned (tile, triangle) pairs, the busiest tile, the share
-    of the frame covered);
+    of the frame covered by each pass);
   * the frame time without the profiler, back to back and synchronised
     after every frame;
   * from a torch.profiler trace of N frames, per frame: each
@@ -37,23 +40,24 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SPANS = ("frame.camera_cull", "frame.geometry", "frame.extras",
-         "tile.bin_pack", "tile.fold", "tile.shade")
+         "tile.bin_pack", "tile.fold", "tile.shade", "tile.peel_prev",
+         "tile.peel_fold", "tile.peel_shade", "tile.replay")
 
 
 def scene_stats(eng, uniforms) -> Dict:
-    """Binning statistics of one frame, read from the tile fold's inputs."""
+    """Binning statistics of one frame, read from the tile fold's inputs,
+    and the share of the frame each pass covers."""
     from softwarerenderer_tpu_torch.engine import render_frame
     from softwarerenderer_tpu_torch.ops import tile_raster
-    seen = {}
+    seen = []
 
     def capture(*args, **kwargs):
-        seen["args"] = args
         out = tile_raster.tile_fold(*args, **kwargs)
-        seen["best_i"] = out[2]
+        seen.append((args, out[2]))
         return out
 
     render_frame(eng.scene, uniforms, eng.params, fold=capture)
-    _, setup, _, n_global, _, _, counts, _, _ = seen["args"]
+    _, setup, _, n_global, _, _, counts, _, _ = seen[0][0]
     H, W = eng.params.height, eng.params.width
     ng = int(n_global[0])
     return {
@@ -64,7 +68,8 @@ def scene_stats(eng, uniforms) -> Dict:
         "binned_pairs": int(counts.sum()),
         "busiest_tile_segment": int(counts.max()),
         "busiest_tile_folded": ng + int(counts.max()),
-        "covered": float((seen["best_i"][:H, :W] >= 0).float().mean()),
+        "covered_per_pass": [float((bi[:H, :W] >= 0).float().mean())
+                             for _, bi in seen],
     }
 
 
@@ -136,6 +141,7 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--kbuffer", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   "profile"))
     a = ap.parse_args(argv)
@@ -147,8 +153,14 @@ def main(argv=None) -> int:
     from softwarerenderer_tpu.config import RenderParams
     from softwarerenderer_tpu_torch.engine import Engine
 
-    eng = Engine(bench.build_scene(), RenderParams(a.width, a.height),
-                 device="cuda")
+    if a.kbuffer > 1:
+        import chip_smoke
+        eng = Engine(chip_smoke.translucent_scene(),
+                     RenderParams(a.width, a.height, kbuffer=a.kbuffer,
+                                  cull_mode=0), device="cuda")
+    else:
+        eng = Engine(bench.build_scene(), RenderParams(a.width, a.height),
+                     device="cuda")
 
     def uniforms_at(i):
         return bench.camera_uniforms(eng.uniforms, i)
@@ -171,7 +183,8 @@ def main(argv=None) -> int:
         summary = trace_summary(json.load(f), a.frames)
     idle = 1.0 - summary["kernel_ms"] / synced
     result = {"device": torch.cuda.get_device_name(0),
-              "size": [a.width, a.height], "scene": stats,
+              "size": [a.width, a.height], "kbuffer": a.kbuffer,
+              "scene": stats,
               "frame_ms_back_to_back": back_to_back,
               "frame_ms_synchronised": synced,
               "profiled_frames": a.frames, **summary,

@@ -83,3 +83,35 @@ def test_engine_matches_jax_render_frame(case):
     rgb = eng.present(u)
     assert rgb.dtype == np.uint8 and rgb.shape == (params.height,
                                                     params.width, 3)
+
+
+@pytest.mark.parametrize("name", ["default_fragment_shader",
+                                  "flat_color_fragment_shader",
+                                  "textured_fragment_shader"])
+def test_engine_takes_the_shaders_as_arguments(name):
+    """A fragment shader other than the scene's renders through the port's
+    Engine (and so render_frame) and matches JAX's render_frame with the
+    JAX shader of the same name; the texture the shaders sample is a
+    uniform, moved to the device with the rest."""
+    from softwarerenderer_tpu import shaders as jsh
+    from softwarerenderer_tpu_torch import shaders as tsh
+    make, params, cam, allowed_d, allowed_c = CASES["cubes_136x92"]
+    scene = make()
+    u = jr.default_frame_uniforms(params.width, params.height)
+    u["camera_position"] = cam
+    # a texture unlike the scene's atlas, so each shader's image differs
+    # from the scene shader's
+    u["texture"] = tex_np.checkerboard(8, 2, (1.0, 0.2, 0.2, 1.0),
+                                       (0.2, 0.2, 1.0, 1.0))
+    jc, jd = map(np.asarray, jax.jit(functools.partial(
+        jr.render_frame, params=params.replace(use_pallas=False),
+        vertex_shader=jsh.default_vertex_shader,
+        fragment_shader=getattr(jsh, name)))(scene, u))
+    eng = Engine(scene, params, vertex_shader=tsh.default_vertex_shader,
+                 fragment_shader=getattr(tsh, name), device="cpu")
+    c, d = (t.numpy() for t in eng.render(u))
+    assert (np.abs(d - jd) > 1e-5).mean() <= allowed_d
+    assert (np.abs(c - jc).max(-1) > 1e-5).mean() <= allowed_c
+    # the shader did render: not the scene shader's image
+    sc, _ = (t.numpy() for t in Engine(scene, params, device="cpu").render(u))
+    assert (np.abs(c - sc).max(-1) > 1e-3).mean() > 0.1

@@ -89,13 +89,39 @@ def test_engine_cuda_without_a_card_raises(monkeypatch):
 
 
 def test_tile_fold_has_no_fallback_for_other_devices():
-    """The wrapper runs the plain version only for CPU tensors."""
+    """The wrappers run the plain versions only for CPU tensors."""
     fbd = torch.empty((32, 128), device="meta")
     i = torch.empty(1, dtype=torch.int32, device="meta")
+    args = (fbd, fbd, i, i, i, i, i, fbd, (("v0", 0, 0),))
+    kw = dict(tile_h=32, tile_w=128, kp=4, kpi=1, sl_screen=0, sl_ia=2,
+              clip_w_off=3)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        tile_raster.tile_fold(fbd, fbd, i, i, i, i, i, fbd, (("v0", 0, 0),),
-                              tile_h=32, tile_w=128, kp=4, kpi=1,
-                              sl_screen=0, sl_ia=2, clip_w_off=3)
+        tile_raster.tile_fold(*args, **kw)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tile_raster.tile_fold(*args, **kw, prev_d=fbd, prev_i=fbd)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tile_raster.tile_fold_kdeep(*args, **kw, K=4)
+
+
+@pytest.mark.parametrize("K", [0, tile_raster.MAX_KDEEP + 1])
+def test_tile_fold_kdeep_rejects_k_out_of_range(K):
+    fbd = torch.zeros((2, 4))
+    i = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"K <= {tile_raster.MAX_KDEEP}"):
+        tile_raster.tile_fold_kdeep(fbd, torch.zeros((1, 10)), i, i, i, i,
+                                    i, torch.zeros((1, 12)), (("v0", 0, 0),),
+                                    K=K, tile_h=2, tile_w=4, kp=4, kpi=1,
+                                    sl_screen=0, sl_ia=2, clip_w_off=3)
+
+
+def test_tile_fold_needs_both_prev_maps():
+    fbd = torch.zeros((2, 4))
+    i = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="together"):
+        tile_raster.tile_fold(fbd, torch.zeros((1, 10)), i, i, i, i, i,
+                              torch.zeros((1, 12)), (("v0", 0, 0),),
+                              tile_h=2, tile_w=4, kp=4, kpi=1, sl_screen=0,
+                              sl_ia=2, clip_w_off=3, prev_d=fbd)
 
 
 @pytest.mark.parametrize("plan,kpi,match", [
@@ -122,8 +148,19 @@ def test_tile_fold_rejects_a_bad_plan(plan, kpi, match):
     ("use_mipmaps", True), ("shade_rate", 2), ("active_cap_stats", True),
 ])
 def test_unsupported_params_raise(field, value):
-    params = RenderParams(64, 48).replace(**{field: value})
+    # kbuffer > 1 renders on its LESS_EQUAL route; with any other depth
+    # test it is still refused.
+    also = {"kbuffer": {"depth_test": DepthTest.GREATER}}.get(field, {})
+    params = RenderParams(64, 48).replace(**{field: value}, **also)
     with pytest.raises(NotImplementedError, match=field):
+        Engine(small_scene(), params, device="cpu")
+
+
+@pytest.mark.parametrize("kbuffer", [0, 1])
+def test_kbuffer_stats_without_kbuffer_raises(kbuffer):
+    """As in JAX's render_frame: the stats dict is the K-buffer's."""
+    params = RenderParams(64, 48, kbuffer=kbuffer, kbuffer_stats=True)
+    with pytest.raises(ValueError, match="kbuffer_stats needs kbuffer > 1"):
         Engine(small_scene(), params, device="cpu")
 
 

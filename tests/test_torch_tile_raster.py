@@ -182,3 +182,106 @@ def test_plain_fold_edge_depths_match_chip_smoke_expectation():
     assert torch.equal(best_i, want_i)
     assert (best_d == want_d).all()
     assert torch.equal(gbuf[0], torch.where(want_i >= 0, want_i, 0).float())
+
+
+def _jax_and_port_ctx(params, keep=KEEP):
+    """The cubes scene's JAX-built triangles, prepared by both packages, on
+    a clear framebuffer: (JAX ctx, port ctx)."""
+    scene, cam = cubes_scene()
+    tris, extra = prepared(scene, cam, params, keep)
+    fbd = np.full((params.height, params.width), DEPTH_CLEAR, np.float32)
+    ctx = pallas_tile._prepare_ctx(tris, params, fbd, extra, 0, gb_keep=keep)
+    tt = {k: torch.tensor(tris[k]) for k in ("screen", "depth", "inv_area",
+                                              "valid", "bbox")}
+    tt["attrs"] = {k: torch.tensor(v) for k, v in tris["attrs"].items()}
+    tctx = tile_raster.prepare(tt, params, torch.tensor(fbd),
+                               {k: torch.tensor(v) for k, v in extra.items()},
+                               keep)
+    return ctx, tctx
+
+
+# Culling off: the cubes' back faces and the floor behind them give most
+# covered pixels two or more layers to peel.
+PEEL = SMALL.replace(cull_mode=CullMode.NONE)
+
+
+@pytest.mark.parametrize("peel_pass", [1, 2])
+def test_plain_peel_matches_jax_kernel(peel_pass):
+    """K2's plain twin (tile_fold_plain with prev maps) against the JAX
+    kernel's peel mode in interpret mode: both get the same prepared
+    triangles and the same prev maps, the JAX kernel's previous pass."""
+    ctx, tctx = _jax_and_port_ctx(PEEL)
+    args, kwargs = tile_raster.fold_inputs(tctx)
+    _, jd, ji = pallas_tile._run_pass(ctx, interpret=True, raw=True)
+    for _ in range(peel_pass):
+        prev_d, prev_i = jd, ji
+        jg, jd, ji = pallas_tile._run_pass(
+            ctx, True, prev_d, prev_i.astype(np.float32), raw=True)
+    jg, jd, ji = map(np.asarray, (jg, jd, ji))
+    gbuf, best_d, best_i = (t.numpy() for t in tile_raster.tile_fold_plain(
+        *args, **kwargs, prev_d=torch.tensor(np.asarray(prev_d)),
+        prev_i=torch.tensor(np.asarray(prev_i))))
+    # test_plain_fold_matches_jax_kernel's tolerance, for its reason: XLA
+    # on the CPU contracts the interpret run's multiply-adds.
+    same = best_i == ji
+    assert (ji >= 0).mean() > 0.01
+    assert same.mean() >= 0.999
+    np.testing.assert_allclose(best_d[same], jd[same], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(np.where(same, gbuf, 0),
+                               np.where(same, jg[:tctx["kpi"]], 0),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_plain_kdeep_matches_jax_kernel():
+    """K3's plain twin against the JAX K-deep kernel in interpret mode, on
+    the same prepared triangles, every layer: winners, depths (-inf in
+    empty slots in both) and the shader's inputs built from each layer's
+    G-buffer, at test_plain_fold_matches_jax_kernel's tolerance."""
+    K = 3
+    params = PEEL.replace(kbuffer=K)
+    ctx, tctx = _jax_and_port_ctx(params)
+    frags, jd, ji = pallas_tile._run_pass_kdeep(ctx, K, interpret=True)
+    jd, ji = np.asarray(jd), np.asarray(ji)
+    args, kwargs = tile_raster.fold_inputs(tctx)
+    gbuf, best_d, best_i = tile_raster.tile_fold_kdeep_plain(*args, **kwargs,
+                                                             K=K)
+    best_d, best_i = best_d.numpy(), best_i.numpy()
+    assert (ji[1] >= 0).mean() > 0.01          # a second layer exists
+    assert ((best_i < 0) == (best_d == -np.inf)).all()
+    h, w, kpi = params.height, params.width, tctx["kpi"]
+    for s in range(K):
+        same = best_i[s] == ji[s]
+        assert same.mean() >= 0.999
+        np.testing.assert_allclose(best_d[s][same], jd[s][same], rtol=1e-5,
+                                   atol=0)
+        frag = tile_raster.frag_from_planes(
+            tctx, gbuf[s * kpi:(s + 1) * kpi, :h, :w])
+        on = same[:h, :w]
+        for name in ("color", "uv"):
+            np.testing.assert_allclose(
+                frag[name].numpy()[on], np.asarray(frags[s][name])[on],
+                rtol=1e-5, atol=1e-5, err_msg=f"layer {s} {name}")
+        np.testing.assert_allclose(
+            frag["data"]["world_normal"].numpy()[on],
+            np.asarray(frags[s]["data"]["world_normal"])[on], rtol=1e-5,
+            atol=1e-5)
+        for name, v in frag["tri"].items():
+            np.testing.assert_array_equal(
+                v.numpy()[on], np.asarray(frags[s]["tri"][name])[on])
+
+
+def test_plain_peel_edge_case_matches_chip_smoke_expectation():
+    """The peel edge case chip_smoke.py runs through K2 on the card (a tie
+    at the previous winner's depth with ids below, equal to and above it,
+    -0.0 against +0.0, a tile with no eligible pixel) gives the expected
+    winners in the plain twin."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import peel_edge_case_inputs
+    args, kwargs, want_i, want_d = peel_edge_case_inputs("cpu")
+    gbuf, best_d, best_i = tile_raster.tile_fold(*args, **kwargs)
+    assert torch.equal(best_i, want_i)
+    assert torch.equal(best_d, want_d)       # -0.0 == +0.0, as the fold
+    assert torch.equal(gbuf[0], torch.where(want_i >= 0, want_i, 0).float())
