@@ -163,7 +163,7 @@ def assert_frame_matches_jax(name, pallas):
     assert np.isfinite(c).all() and np.isfinite(d).all()
     if shader == "scene":
         # Textured: a texel edge under a pixel centre can go either way
-        # under XLA's contraction (PERF.md, PR 1).
+        # under XLA's contraction (PERF.md, the CPU parity notes).
         assert (np.abs(c - jc).max(-1) > 1e-5).mean() <= 1e-3
         assert (np.abs(d - jd) > 1e-5).mean() <= 1e-3
     else:
