@@ -1,11 +1,13 @@
 """Frame engine: packed scene + camera -> one frame on the device.
 
 Counterpart of ``softwarerenderer_tpu/engine/renderer.py`` on its tile
-routes: camera and frustum culling, vertex shading, near clip and setup,
-tile binning, then either the opaque route (the tile kernel's fold,
-resolve and interpolation, one full-frame shading pass, blend) or, with
-``RenderParams(kbuffer=K)``, the depth-peeled K-buffer (K tile-kernel
-passes and a submission-order replay), and ``to_rgb8`` for present.  The
+routes (and, through ``Engine(frame_fn=...)``, of any frame function such
+as ``ops.raytrace.render_frame_raytraced``): camera and frustum culling,
+vertex shading, near clip and setup, tile binning, then either the opaque
+route (the tile kernel's fold, resolve and interpolation, one full-frame
+shading pass, blend) or, with ``RenderParams(kbuffer=K)``, the
+depth-peeled K-buffer (K tile-kernel passes and a submission-order
+replay), and ``to_rgb8`` for present.  The
 vertex and fragment shaders are arguments, the game's by default.
 PyTorch runs it eagerly; the scene stays on the device and the per-frame
 uniforms cross from the host in one copy.
@@ -23,8 +25,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from softwarerenderer_tpu.config import (BlendMode, DebugMode, DepthTest,
-                                         RenderParams)
+from softwarerenderer_tpu_torch.config import (BlendMode, DebugMode,
+                                               DepthTest, RenderParams)
 from softwarerenderer_tpu_torch import shaders
 from softwarerenderer_tpu_torch.models.convert import scene_to_torch
 from softwarerenderer_tpu_torch.ops import culling, geometry, raster
@@ -128,6 +130,7 @@ def camera_matrices(uniforms: Dict, width: int, height: int):
 
 # Uniforms the frame reads on the device, packed into one host->device copy.
 _DEVICE_UNIFORMS = (("view", (4, 4)), ("projection", (4, 4)),
+                    ("camera_position", (3,)),
                     ("light_direction", (3,)), ("light_color", (4,)),
                     ("fog_color", (4,)), ("clear_color", (4,)),
                     ("fog_start", ()), ("fog_end", ()), ("near_clip", ()))
@@ -168,6 +171,18 @@ def _to_device(v, device):
     if a.dtype == np.float64:
         a = a.astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def device_uniforms(uniforms: Dict, width: int, height: int,
+                    device) -> Dict[str, torch.Tensor]:
+    """The uniforms the frame reads on the device: the camera matrices and
+    shading uniforms in one host->device copy, and every other key the
+    caller added (a shader's texture, say) as device tensors."""
+    u = _upload_uniforms(uniforms, width, height, device)
+    for k, v in uniforms.items():
+        if k not in u and k not in _HOST_UNIFORMS:
+            u[k] = _to_device(v, device)
+    return u
 
 
 _UNSUPPORTED_SCENE_PREFIXES = ("tangent", "anim_", "morph_", "skin_",
@@ -219,10 +234,7 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
     H, W = params.height, params.width
     dev = scene["position"].device
     with record_function("frame.camera_cull"):
-        u = _upload_uniforms(uniforms, W, H, dev)
-        for k, v in uniforms.items():
-            if k not in u and k not in _HOST_UNIFORMS:
-                u[k] = _to_device(v, dev)
+        u = device_uniforms(uniforms, W, H, dev)
         view_proj = ml.transform(u["view"], u["projection"])     # V·P
         visible = culling.spheres_in_frustum(
             scene["bounds_center"], scene["bounds_radius"],
@@ -312,12 +324,16 @@ class Engine(torch.nn.Module):
 
     The shaders are the game's unless given.  `device` defaults to
     "cuda"; asking for CUDA where there is none raises, it never renders
-    on the CPU instead."""
+    on the CPU instead.  frame_fn: a render_frame-compatible callable,
+    called as frame_fn(scene, uniforms, params=..., vertex_shader=...,
+    fragment_shader=...) in place of render_frame (for example
+    functools.partial(ops.raytrace.render_frame_raytraced,
+    cluster_cap=24)); render and present both go through it."""
 
     def __init__(self, scene: Dict, params: RenderParams,
                  vertex_shader: Callable = scene_vertex_shader,
                  fragment_shader: Callable = scene_fragment_shader,
-                 device="cuda"):
+                 device="cuda", frame_fn: Optional[Callable] = None):
         super().__init__()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -327,6 +343,7 @@ class Engine(torch.nn.Module):
         self.params = params
         self.vertex_shader = vertex_shader
         self.fragment_shader = fragment_shader
+        self.frame_fn = frame_fn or render_frame
         for k, v in scene_to_torch(scene, device).items():
             self.register_buffer(k, v, persistent=False)
         self.uniforms = default_frame_uniforms(params.width, params.height)
@@ -336,9 +353,10 @@ class Engine(torch.nn.Module):
         return dict(self.named_buffers())
 
     def forward(self, uniforms: Optional[Dict] = None):
-        return render_frame(self.scene, uniforms or self.uniforms,
-                            self.params, self.vertex_shader,
-                            self.fragment_shader)
+        return self.frame_fn(self.scene, uniforms or self.uniforms,
+                             params=self.params,
+                             vertex_shader=self.vertex_shader,
+                             fragment_shader=self.fragment_shader)
 
     def render(self, uniforms: Optional[Dict] = None):
         return self(uniforms)

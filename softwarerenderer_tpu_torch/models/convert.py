@@ -1,9 +1,9 @@
 """Packed scene buffers -> device tensors.
 
-``softwarerenderer_tpu.models.scene.build_scene_buffers`` packs a scene into
-numpy arrays (it imports no JAX).  Both packages render those same arrays:
-the JAX engine ``device_put``s them, the port moves them here.  Dtypes are
-kept as packed: the RGBA8 atlas stays uint8, ids stay int32, floats stay
+``models.scene.build_scene_buffers`` (the port's copy of the JAX
+package's) packs a scene into numpy arrays.  Both packages render the same
+arrays: the JAX engine ``device_put``s them, the port moves them here.
+Dtypes are kept as packed: the RGBA8 atlas stays uint8, ids stay int32, floats stay
 float32.
 """
 

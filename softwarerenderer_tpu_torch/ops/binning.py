@@ -20,7 +20,7 @@ from typing import Dict
 
 import torch
 
-from softwarerenderer_tpu.config import RenderParams
+from softwarerenderer_tpu_torch.config import RenderParams
 
 
 def cdiv(a: int, b: int) -> int:

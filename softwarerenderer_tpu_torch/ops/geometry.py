@@ -23,7 +23,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from softwarerenderer_tpu.config import EPSILON, CullMode
+from softwarerenderer_tpu_torch.config import EPSILON, CullMode
 
 # Sutherland–Hodgman emission table (the JAX module's _CLIP_TABLE): for each
 # 3-bit inside mask an ordered polygon of up to 4 sources.  Sources 0-2 are

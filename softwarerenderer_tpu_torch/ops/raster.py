@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from softwarerenderer_tpu.config import BlendMode
+from softwarerenderer_tpu_torch.config import BlendMode
 
 # float.MinValue (MainWindow.cs:434): the depth buffer's clear value.
 DEPTH_CLEAR = torch.finfo(torch.float32).min

@@ -29,7 +29,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.profiler import record_function
 
-from softwarerenderer_tpu.config import BlendMode, DepthTest, RenderParams
+from softwarerenderer_tpu_torch.config import BlendMode, DepthTest, RenderParams
 from softwarerenderer_tpu_torch.ops.binning import bin_triangles, cdiv
 from softwarerenderer_tpu_torch.ops.geometry import unflatten_varyings
 from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR, blend

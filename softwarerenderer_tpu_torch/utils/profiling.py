@@ -1,17 +1,21 @@
 """Where the time of one frame goes, on a CUDA card.
 
     python -m softwarerenderer_tpu_torch.utils.profiling [--frames N]
-        [--width W] [--height H] [--kbuffer K] [--out DIR]
+        [--width W] [--height H] [--kbuffer K | --raytrace CAP] [--out DIR]
 
-Renders ``bench.build_scene()`` through ``Engine(scene, RenderParams(W, H),
-device="cuda")`` with ``bench.camera_uniforms(u, i)``, or with --kbuffer K
-the K-buffer frame of ``chip_smoke.translucent_scene()`` (the bench soup
-with six glass panes) through ``RenderParams(W, H, kbuffer=K,
-cull_mode=0)``, and prints:
+Renders the bench scene (``scenes.bench_scene()``) through ``Engine(scene,
+RenderParams(W, H), device="cuda")`` with ``scenes.camera_uniforms(u, i)``;
+with --kbuffer K the K-buffer frame of ``scenes.translucent_scene()`` (the
+bench soup with six glass panes) through ``RenderParams(W, H, kbuffer=K,
+cull_mode=0)``; with --raytrace CAP the ray-traced frame with hard shadows,
+``Engine(..., frame_fn=functools.partial(render_frame_raytraced,
+cluster_cap=CAP))``.  It prints:
 
-  * the scene's binning statistics at frame 0 (valid clip-fan slots, global
-    triangles, binned (tile, triangle) pairs, the busiest tile, the share
-    of the frame covered by each pass);
+  * the scene's statistics at frame 0: for a raster frame its binning
+    (valid clip-fan slots, global triangles, binned (tile, triangle) pairs,
+    the busiest tile, the share of the frame covered by each pass); for the
+    ray-traced frame each K4 cast's bundles, rays, listed (bundle, cluster)
+    pairs, clusters swept before the early exits, and rays that hit;
   * the frame time without the profiler, back to back and synchronised
     after every frame;
   * from a torch.profiler trace of N frames, per frame: each
@@ -41,7 +45,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SPANS = ("frame.camera_cull", "frame.geometry", "frame.extras",
          "tile.bin_pack", "tile.fold", "tile.shade", "tile.peel_prev",
-         "tile.peel_fold", "tile.peel_shade", "tile.replay")
+         "tile.peel_fold", "tile.peel_shade", "tile.replay",
+         "rt.world", "rt.accel", "rt.prep", "rt.sweep_nearest",
+         "rt.sweep_any", "rt.winner", "rt.shade", "rt.brute_cast",
+         "rt.composite")
 
 
 def scene_stats(eng, uniforms) -> Dict:
@@ -71,6 +78,32 @@ def scene_stats(eng, uniforms) -> Dict:
         "covered_per_pass": [float((bi[:H, :W] >= 0).float().mean())
                              for _, bi in seen],
     }
+
+
+def raytrace_stats(eng, uniforms, cap: int) -> Dict:
+    """Each K4 cast of one ray-traced frame: bundles, rays per bundle,
+    listed (bundle, cluster) pairs, the clusters the kernel swept before
+    its early exits, and the rays that hit."""
+    from softwarerenderer_tpu_torch.ops import rt_sweep
+    from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
+    casts = []
+
+    def sweep(*args, **kwargs):
+        swept = torch.zeros_like(args[3])
+        t, g = rt_sweep.rt_sweep(*args, **kwargs, swept=swept)
+        hit = (g > 0) if kwargs["any_hit"] else (g < rt_sweep.NOTRI)
+        casts.append({"mode": "any_hit" if kwargs["any_hit"] else "nearest",
+                      "bundles": int(args[0].shape[0]),
+                      "rays_per_bundle": int(args[0].shape[2]),
+                      "clusters": int(args[1].shape[1]) // rt_sweep.GROUP,
+                      "listed_pairs": int(args[3].sum()),
+                      "swept_clusters": int(swept.sum()),
+                      "rays_hit": int(hit.sum())})
+        return t, g
+
+    render_frame_raytraced(eng.scene, uniforms, eng.params, cluster_cap=cap,
+                           sweep=sweep)
+    return {"casts": casts}
 
 
 def _wall_ms(eng, frames, uniforms_at, sync_each: bool) -> float:
@@ -142,30 +175,41 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--kbuffer", type=int, default=0)
+    ap.add_argument("--raytrace", type=int, default=0, metavar="CAP")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   "profile"))
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
-    import bench
-    from softwarerenderer_tpu.config import RenderParams
+    from softwarerenderer_tpu_torch import scenes
+    from softwarerenderer_tpu_torch.config import RenderParams
     from softwarerenderer_tpu_torch.engine import Engine
 
+    if a.kbuffer > 1 and a.raytrace:
+        print("profiling: --kbuffer and --raytrace are two frames; pick one",
+              file=sys.stderr)
+        return 1
     if a.kbuffer > 1:
-        import chip_smoke
-        eng = Engine(chip_smoke.translucent_scene(),
+        eng = Engine(scenes.translucent_scene(),
                      RenderParams(a.width, a.height, kbuffer=a.kbuffer,
                                   cull_mode=0), device="cuda")
+    elif a.raytrace:
+        import functools
+        from softwarerenderer_tpu_torch.ops.raytrace import (
+            render_frame_raytraced)
+        eng = Engine(scenes.bench_scene(), RenderParams(a.width, a.height),
+                     device="cuda", frame_fn=functools.partial(
+                         render_frame_raytraced, cluster_cap=a.raytrace))
     else:
-        eng = Engine(bench.build_scene(), RenderParams(a.width, a.height),
+        eng = Engine(scenes.bench_scene(), RenderParams(a.width, a.height),
                      device="cuda")
 
     def uniforms_at(i):
-        return bench.camera_uniforms(eng.uniforms, i)
+        return scenes.camera_uniforms(eng.uniforms, i)
 
-    stats = scene_stats(eng, uniforms_at(0))
+    stats = (raytrace_stats(eng, uniforms_at(0), a.raytrace) if a.raytrace
+             else scene_stats(eng, uniforms_at(0)))
     _wall_ms(eng, 3, uniforms_at, True)                  # warm-up
     back_to_back = _wall_ms(eng, 30, uniforms_at, False)
     synced = _wall_ms(eng, 30, uniforms_at, True)
@@ -184,6 +228,7 @@ def main(argv=None) -> int:
     idle = 1.0 - summary["kernel_ms"] / synced
     result = {"device": torch.cuda.get_device_name(0),
               "size": [a.width, a.height], "kbuffer": a.kbuffer,
+              "raytrace": a.raytrace,
               "scene": stats,
               "frame_ms_back_to_back": back_to_back,
               "frame_ms_synchronised": synced,

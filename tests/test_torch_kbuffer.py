@@ -7,7 +7,6 @@ peel kernel in interpret mode."""
 
 import functools
 import os
-import sys
 
 import jax
 import numpy as np
@@ -340,8 +339,7 @@ def test_kdeep_route_refuses_k_above_its_maximum():
 def kbuffer_golden_scene():
     """scripts/make_goldens.py's feature_kbuffer frame: (scene, params,
     uniforms)."""
-    sys.path.insert(0, REPO)
-    from chip_smoke import kbuffer_golden_frame
+    from softwarerenderer_tpu_torch.scenes import kbuffer_golden_frame
     return kbuffer_golden_frame()
 
 

@@ -32,36 +32,233 @@ def small_scene():
                                texture=checker)])
 
 
-def test_port_never_imports_jax():
-    """Import every module of the port and chip_smoke.py, render a CPU
-    frame, and find neither JAX nor a JAX module of the JAX package."""
-    code = """
-import importlib, pkgutil, sys
+_IMPORTS = {
+    "package": """
+import importlib, pkgutil
 import softwarerenderer_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
-import chip_smoke
-import bench
-from softwarerenderer_tpu_torch import RenderParams
+""",
+    "chip_smoke": "import chip_smoke\n",
+}
+
+_RENDER_AND_CHECK = """
+import functools, sys
+from softwarerenderer_tpu_torch import RenderParams, scenes
 from softwarerenderer_tpu_torch.engine import Engine
-eng = Engine(bench.build_scene(), RenderParams(64, 48), device="cpu")
-rgb = eng.present(bench.camera_uniforms(eng.uniforms, 0))
-assert rgb.shape == (48, 64, 3), rgb.shape
-# the shared host layer (bench.build_scene's checkerboard included) is
-# numpy-only; every other ops/engine/parallel/sim module imports jax
-host = {"softwarerenderer_tpu.ops", "softwarerenderer_tpu.ops.texture"}
-bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
-       or (m.startswith(tuple("softwarerenderer_tpu." + p for p in
-                              ("ops", "engine", "parallel", "sim")))
-           and m not in host)]
+from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
+for fn in (None, functools.partial(render_frame_raytraced, cluster_cap=24)):
+    eng = Engine(scenes.bench_scene(), RenderParams(64, 48), device="cpu",
+                 frame_fn=fn)
+    rgb = eng.present(scenes.camera_uniforms(eng.uniforms, 0))
+    assert rgb.shape == (48, 64, 3), rgb.shape
+bad = [m for m in sys.modules
+       if m in ("jax", "jaxlib", "bench", "scripts", "softwarerenderer_tpu")
+       or m.startswith(("jax.", "jaxlib.", "scripts.",
+                        "softwarerenderer_tpu."))]
 assert not bad, bad
 print("ok")
 """
+
+
+@pytest.mark.parametrize("what", sorted(_IMPORTS))
+def test_port_never_imports_jax(what):
+    """Import every module of the port (or chip_smoke.py), render a raster
+    and a ray-traced CPU frame of the port's own bench scene, and find
+    neither JAX, nor bench or scripts, nor any module of the JAX package
+    (``softwarerenderer_tpu_torch`` itself only shares its prefix)."""
+    code = _IMPORTS[what] + _RENDER_AND_CHECK
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_render_params_match_jax():
+    """The port's copy of config.py: RenderParams' field names and
+    defaults, and every enum's names and values, equal to the source."""
+    import dataclasses
+    from softwarerenderer_tpu import config as jax_config
+    from softwarerenderer_tpu_torch import config
+
+    def fields(cls):
+        return [(f.name, f.default, f.default_factory)
+                for f in dataclasses.fields(cls)]
+
+    assert fields(config.RenderParams) == fields(jax_config.RenderParams)
+    assert config.RenderParams(64, 48) == config.RenderParams(64, 48).replace()
+    for name in ("DepthTest", "BlendMode", "CullMode", "DebugMode"):
+        got, want = getattr(config, name), getattr(jax_config, name)
+        assert [(m.name, int(m)) for m in got] == \
+            [(m.name, int(m)) for m in want], name
+        assert all(getattr(got, m.name) == m for m in want)
+
+
+def _host_modules(port: bool):
+    """(primitives, scene, texture, mathlib): the port's host layer or the
+    JAX package's."""
+    if port:
+        from softwarerenderer_tpu_torch.models import primitives as p
+        from softwarerenderer_tpu_torch.models import scene as s
+        from softwarerenderer_tpu_torch.ops import texture as t
+        from softwarerenderer_tpu_torch.utils import mathlib as m
+    else:
+        from softwarerenderer_tpu.models import primitives as p
+        from softwarerenderer_tpu.models import scene as s
+        from softwarerenderer_tpu.ops import texture as t
+        from softwarerenderer_tpu.utils import mathlib as m
+    return p, s, t, m
+
+
+def _package_scene(p, s, t, m):
+    """small_scene above."""
+    checker = np.asarray(t.checkerboard(16, 4)["data"])
+    return [s.MeshInstance(p.cube(1.0), m.translation([0, 0, -3]),
+                           texture=checker),
+            s.MeshInstance(p.random_triangle_soup(40, seed=2),
+                           texture=checker)]
+
+
+def _raytrace_scene(p, s, t, m):
+    """tests/test_torch_raytrace.py's frame scene, with a rotated, scaled
+    cube (its _mesh_scene) added."""
+    checker = np.asarray(t.checkerboard(16, 4)["data"])
+    rot = (m.matrix_from_yaw_pitch_roll(0.5, 0.3, 0.1)
+           @ np.diag(np.float32([1.5, 0.7, 1.2, 1.0]))
+           @ m.translation([0.2, 0.1, -3.0])).astype(np.float32)
+    return [s.MeshInstance(p.cube(1.0), m.translation([0.0, 0.0, -3.0]),
+                           texture=checker),
+            s.MeshInstance(p.plane(20.0), m.translation([0.0, -1.0, 0.0])),
+            s.MeshInstance(p.cube(1.0), rot, texture=checker)]
+
+
+def _kbuffer_scene(p, s, t, m):
+    """tests/test_torch_kbuffer.py's kind of scene: a glass cube in front
+    of a textured one, vertex colors with alpha, a sphere."""
+    checker = np.asarray(t.checkerboard(32, 4)["data"])
+    glass = np.zeros((8, 8, 4), np.float32)
+    glass[...] = (0.3, 0.5, 1.0, 0.45)
+    pane = dict(p.plane(1.6))
+    pane["color"] = np.full((pane["position"].shape[0], 4), 0.5, np.float32)
+    return [s.MeshInstance(p.cube(1.0), m.translation([0, 0, -4]),
+                           texture=checker),
+            s.MeshInstance(p.cube(1.4), m.translation([0, 0, -2.2]),
+                           texture=glass),
+            s.MeshInstance(pane, m.matrix_from_yaw_pitch_roll(
+                0.0, np.pi / 2, 0.0) @ m.translation([0, 1, 1])),
+            s.MeshInstance(p.uv_sphere(0.7, rings=10, sectors=16),
+                           m.translation([1.4, 0.3, -4]))]
+
+
+def _assert_same_scene(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.dtype == w.dtype, (k, g.dtype, w.dtype)
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+@pytest.mark.parametrize("build", [_package_scene, _raytrace_scene,
+                                   _kbuffer_scene],
+                         ids=["package", "raytrace", "kbuffer"])
+def test_build_scene_buffers_match_jax(build):
+    """The port's models.scene, models.primitives, texture.checkerboard and
+    numpy mathlib give the packed scene the JAX package's give, key for
+    key, dtype for dtype and value for value."""
+    got = _host_modules(True)[1].build_scene_buffers(
+        build(*_host_modules(True)))
+    want = _host_modules(False)[1].build_scene_buffers(
+        build(*_host_modules(False)))
+    _assert_same_scene(got, want)
+
+
+def test_bench_scene_matches_bench():
+    import bench
+    from softwarerenderer_tpu_torch import scenes
+    assert not os.path.exists(bench.DUST2)
+    _assert_same_scene(scenes.bench_scene(), bench.build_scene())
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_golden_config_matches_bench(n):
+    import bench
+    from scripts.make_goldens import GOLDEN_SIZES
+    from softwarerenderer_tpu.models import scene as scene_mod
+    from softwarerenderer_tpu_torch import scenes
+    from softwarerenderer_tpu_torch.models.scene import build_scene_buffers
+    assert scenes.GOLDEN_SIZES[n] == GOLDEN_SIZES[n]
+    _assert_same_scene(
+        build_scene_buffers(scenes.golden_config(n)),
+        scene_mod.build_scene_buffers(bench.config_workload(n)[0]))
+
+
+def _translucent_source(p, s, t, m):
+    """scripts/profile_translucent.py:52-63's six glass panes over the
+    bench soup (bench.build_scene's fallback) in place of Dust2."""
+    tex = np.asarray(t.checkerboard(
+        64, 8, (0.8, 0.75, 0.6, 1.0), (0.55, 0.5, 0.4, 1.0))["data"])
+    insts = [s.MeshInstance(p.random_triangle_soup(9061, seed=0),
+                            texture=tex)]
+    rng = np.random.default_rng(3)
+    for i in range(6):
+        pane = dict(p.plane(1.6))
+        col = np.ones((pane["position"].shape[0], 4), np.float32)
+        col[:, 3] = 0.5
+        col[:, :3] = rng.uniform(0.4, 1.0, 3)
+        pane["color"] = col
+        mat = (m.matrix_from_yaw_pitch_roll(0.0, np.pi / 2, 0.0)
+               @ m.translation([-3.0 + 1.4 * i, 2.0, 2.0 + 0.4 * (i % 3)])
+               ).astype(np.float32)
+        insts.append(s.MeshInstance(pane, mat))
+    return insts
+
+
+def _kbuffer_golden_source(p, s, t, m):
+    """scripts/make_goldens.py:render_feature("kbuffer")'s instances."""
+    checker = np.asarray(t.checkerboard(32, 4)["data"])
+    glass = np.zeros((8, 8, 4), np.float32)
+    glass[...] = (0.3, 0.5, 1.0, 0.45)
+    return [s.MeshInstance(p.plane(20.0), m.translation([0, -1, 0]),
+                           texture=checker),
+            s.MeshInstance(p.cube(1.0), m.translation([0, 0, -4]),
+                           texture=checker),
+            s.MeshInstance(p.cube(1.4), m.translation([0, 0, -2.2]),
+                           texture=glass)]
+
+
+@pytest.mark.parametrize("which", ["translucent", "kbuffer_golden"])
+def test_kbuffer_scenes_match_their_sources(which):
+    from softwarerenderer_tpu import CullMode as JaxCullMode
+    from softwarerenderer_tpu.models import scene as scene_mod
+    from softwarerenderer_tpu_torch import scenes
+    if which == "translucent":
+        got = scenes.translucent_scene()
+        source = _translucent_source
+    else:
+        got, params, u = scenes.kbuffer_golden_frame()
+        assert (params.width, params.height, params.kbuffer,
+                params.cull_mode) == (320, 240, 4, JaxCullMode.BACK)
+        np.testing.assert_array_equal(u["camera_position"],
+                                      np.float32([0, 0.8, 2.0]))
+        source = _kbuffer_golden_source
+    _assert_same_scene(got, scene_mod.build_scene_buffers(
+        source(*_host_modules(False))))
+
+
+@pytest.mark.parametrize("frame", [0, 29])
+def test_camera_uniforms_match_bench(frame):
+    import bench
+    from softwarerenderer_tpu.engine.renderer import default_frame_uniforms
+    from softwarerenderer_tpu_torch import scenes
+    base = default_frame_uniforms(64, 48)
+    got = scenes.camera_uniforms(base, frame)
+    want = bench.camera_uniforms(base, frame)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.dtype == w.dtype, k
+        np.testing.assert_array_equal(g, w, err_msg=k)
 
 
 def test_scene_to_torch_round_trips_every_key():
