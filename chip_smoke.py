@@ -748,6 +748,13 @@ def check_sweep_kernel(card, device, size) -> dict:
                                              swept=plain_swept)
             diff_g = int((kg != pg).sum())
             diff_t = int((kt.view(torch.int32) != pt.view(torch.int32)).sum())
+            # Any-hit: the largest flag difference; nearest: the largest
+            # |t| difference over rays that both hit.
+            if kwargs["any_hit"]:
+                err = float((kg - pg).abs().amax())
+            else:
+                both = (kg < rt_sweep.NOTRI) & (pg < rt_sweep.NOTRI)
+                err = float(torch.where(both, (kt - pt).abs(), 0.0).amax())
             ms = cuda_ms(lambda: rt_sweep.rt_sweep(*args, **kwargs),
                          KERNEL_RUNS)
             plain_ms = cuda_ms(lambda: rt_sweep.rt_sweep_plain(*args,
@@ -762,7 +769,8 @@ def check_sweep_kernel(card, device, size) -> dict:
                 f"rays, {hits} hit; {n_pairs} listed (bundle, cluster) "
                 f"pairs, {n_swept} cluster sweeps by the kernel (twin "
                 f"{int(plain_swept.sum())}); tri/flag differs on {diff_g}, "
-                f"t on {diff_t} rays; kernel {ms:.3f} ms (median of "
+                f"t on {diff_t} rays (max abs err {err}); kernel "
+                f"{ms:.3f} ms (median of "
                 f"{KERNEL_RUNS}), plain {plain_ms:.3f} ms (median of "
                 f"{RT_PLAIN_RUNS}); bound {b['bound_ms']:.4f} ms "
                 f"({b['bound_by']}, {b['tests']:.4g} tests) [{card}]")
@@ -770,7 +778,8 @@ def check_sweep_kernel(card, device, size) -> dict:
             check(diff_t == 0, f"K4 {view} {cast}: t differs on {diff_t}")
             check(hits > 0, f"K4 {view} {cast}: no ray hits")
             if view == "bench view":
-                out[cast] = dict(b, ms=ms, plain_ms=plain_ms, max_abs_err=0.0)
+                out[cast] = dict(b, ms=ms, plain_ms=plain_ms,
+                                 max_abs_err=err)
     return out
 
 

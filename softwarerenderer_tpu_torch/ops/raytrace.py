@@ -46,6 +46,9 @@ from softwarerenderer_tpu_torch.utils import mathlib as ml
 F32 = torch.float32
 I64 = torch.int64
 HIT_KEYS = ("hit", "distance", "point", "normal", "tri", "u", "v")
+# (rows, columns) of pixels in one ray bundle of the bundle route: K4 sweeps
+# each bundle's 1,024 rays in one block (csrc/rt_sweep.cu).
+BUNDLE = (32, 32)
 
 
 def build_rt_world(scene: Dict[str, torch.Tensor], uniforms: Dict) -> Dict:
@@ -143,7 +146,7 @@ def render_frame_raytraced(scene: Dict[str, torch.Tensor], uniforms: Dict,
                            fragment_shader: Optional[Callable] = None,
                            shadows: bool = True, shadow_samples: int = 1,
                            reflections: bool = False, cluster_cap: int = 0,
-                           cluster_group: int = 64, pair_tile=(32, 32),
+                           cluster_group: int = 64,
                            rt_white_colors: bool = False,
                            sweep: Optional[Callable] = None):
     """Engine-compatible frame function (``Engine(scene, params,
@@ -171,7 +174,6 @@ def render_frame_raytraced(scene: Dict[str, torch.Tensor], uniforms: Dict,
                             fragment_shader=fragment_shader, shadows=shadows,
                             shadow_samples=shadow_samples,
                             reflections=reflections, cluster_cap=cluster_cap,
-                            pair_tile=pair_tile,
                             rt_white_colors=rt_white_colors, sweep=sweep)
 
 
@@ -181,7 +183,7 @@ def trace_pixel_rows(scene: Dict[str, torch.Tensor], uniforms: Dict,
                      fragment_shader: Optional[Callable] = None,
                      shadows: bool = True, shadow_samples: int = 1,
                      reflections: bool = False, cluster_cap: int = 0,
-                     pair_tile=(32, 32), rt_white_colors: bool = False,
+                     rt_white_colors: bool = False,
                      sweep: Optional[Callable] = None):
     """Trace an (h, W) block of pixel rays: `dirs` (h, W, 3) world ray
     directions, `ray_ids` (h, W) int32 global ray indices (they seed the
@@ -240,7 +242,7 @@ def trace_pixel_rows(scene: Dict[str, torch.Tensor], uniforms: Dict,
     if cluster_cap:
         color, depth = _bundle_route(
             world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
-            rt_white_colors, shadows, S, reflections, pair_tile, sweep,
+            rt_white_colors, shadows, S, reflections, sweep,
             (light, lt1, lt2, sradius), mix_reflection, shade_lit)
     else:
         color, depth = _brute_route(
@@ -255,27 +257,18 @@ def trace_pixel_rows(scene: Dict[str, torch.Tensor], uniforms: Dict,
     return color, depth
 
 
-def _brute_cast(o, d, world, tri_mask):
-    """raycast_batch over flat (N, 3) rays plus the winner's barycentrics
-    from the same Möller–Trumbore expressions the sweep uses."""
-    with record_function("rt.brute_cast"):
-        hits = rc.raycast_batch(o, d, world, face_mask=rc.FACE_MASK_NONE,
-                                tri_mask=tri_mask)
-        tri = hits["tri"].long()
-        v0 = world["v0"][tri]
-        _ok, _t, hits["u"], hits["v"] = rc.mt_block(
-            o, ml.safe_normalize(d), v0, world["v1"][tri] - v0,
-            world["v2"][tri] - v0, rc.FACE_MASK_NONE)
-    return hits
-
-
 def _brute_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
                  white, shadows, S, reflections, light_basis,
                  mix_reflection, shade_lit):
     h, W = dirs.shape[0], dirs.shape[1]
     d = dirs.reshape(-1, 3)
     ids = ray_ids.reshape(-1)
-    hits = _brute_cast(eye.expand_as(d), d, world, tri_mask)
+
+    def cast(o, dd):
+        with record_function("rt.brute_cast"):
+            return rc.raycast_batch_bary(o, dd, world, rc.FACE_MASK_NONE,
+                                         tri_mask)
+    hits = cast(eye.expand_as(d), d)
     with record_function("rt.shade"):
         rgba, depth = _shade_hits(hits, world, u, fragment_shader, white)
         off = hits["point"] + hits["normal"] * 1e-3
@@ -283,7 +276,7 @@ def _brute_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
         with record_function("rt.shade"):
             n = hits["normal"]
             rdir = d - 2.0 * ml.dot(d, n)[:, None] * n
-        rh = _brute_cast(off, rdir, world, tri_mask)
+        rh = cast(off, rdir)
         with record_function("rt.shade"):
             rgba = mix_reflection(rgba, rh)
     if shadows:
@@ -291,8 +284,7 @@ def _brute_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
         for s in range(S):
             with record_function("rt.shade"):
                 sdir = _shadow_dir(ids, s, *light_basis)
-            occl = occl + _brute_cast(off, sdir, world,
-                                      tri_mask)["hit"].to(F32)
+            occl = occl + cast(off, sdir)["hit"].to(F32)
         with record_function("rt.shade"):
             rgba = shade_lit(rgba, occl)
     ok = hits["hit"]
@@ -301,11 +293,11 @@ def _brute_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
 
 
 def _bundle_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
-                  white, shadows, S, reflections, pair_tile, sweep,
+                  white, shadows, S, reflections, sweep,
                   light_basis, mix_reflection, shade_lit):
     h, W = dirs.shape[0], dirs.shape[1]
     dev = dirs.device
-    th, tw = min(pair_tile[0], h), min(pair_tile[1], W)
+    th, tw = min(BUNDLE[0], h), min(BUNDLE[1], W)
     hp, Wp = cdiv(h, th) * th, cdiv(W, tw) * tw
     nth, ntw = hp // th, Wp // tw
     B, R = nth * ntw, th * tw

@@ -236,21 +236,6 @@ def _masks(accel: Dict, tri_mask):
     return slot_mask
 
 
-def _brute_nearest(o, d, world, face_mask, tri_mask):
-    """raycast_batch over every ray of every bundle, with the winner's
-    barycentrics recomputed (JAX's brute_path)."""
-    B, R = o.shape[:2]
-    res = rc.raycast_batch(o.reshape(-1, 3), d.reshape(-1, 3), world,
-                           face_mask=face_mask, tri_mask=tri_mask)
-    tri = res["tri"].long()
-    wv0 = world["v0"][tri]
-    _ok, _t, u, v = rc.mt_block(o.reshape(-1, 3), d.reshape(-1, 3), wv0,
-                                world["v1"][tri] - wv0,
-                                world["v2"][tri] - wv0, face_mask)
-    res.update(u=u, v=v)
-    return {k: x.reshape((B, R) + x.shape[1:]) for k, x in res.items()}
-
-
 def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
                             *, capb=None, face_mask: int = rc.FACE_MASK_NONE,
                             tri_mask=None, sweep: Optional[Callable] = None):
@@ -265,7 +250,10 @@ def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
         (o, d, rays, stream, lists, counts, t0q,
          overflow) = _prep(origins, directions, accel, slot_mask, capb)
     if capb is not None and bool(overflow):
-        out = _brute_nearest(o, d, world, face_mask, tri_mask)
+        B, R = o.shape[:2]
+        res = rc.raycast_batch_bary(o.reshape(-1, 3), d.reshape(-1, 3),
+                                    world, face_mask, tri_mask)
+        out = {k: x.reshape((B, R) + x.shape[1:]) for k, x in res.items()}
     else:
         with record_function("rt.sweep_nearest"):
             tbest, g = sweep(rays, stream, lists, counts, t0q, any_hit=False,

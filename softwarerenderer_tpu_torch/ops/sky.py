@@ -17,7 +17,7 @@ F32 = np.float32
 
 
 def pixel_ray_directions(uniforms, width: int, height: int,
-                         device="cpu") -> torch.Tensor:
+                         device) -> torch.Tensor:
     """World-space view ray direction per pixel, (H, W, 3) float32 on
     `device`, matching the raster projection: pixel centres at integer
     coordinates, Y-down screen to Y-up NDC, the vertical FOV of the .NET

@@ -128,3 +128,21 @@ def raycast_batch(origins: torch.Tensor, directions: torch.Tensor,
         "normal": torch.where(hit[:, None], normal, 0.0),
         "tri": tri.to(torch.int32),
     }
+
+
+def raycast_batch_bary(origins: torch.Tensor, directions: torch.Tensor,
+                       world: Dict, face_mask: int,
+                       tri_mask: Optional[torch.Tensor] = None) -> Dict:
+    """raycast_batch plus the winner's barycentrics "u"/"v", recomputed by
+    mt_block on the winning triangle's corners along the normalized
+    direction the cast used (JAX's brute_path in rt_pallas).  The brute
+    route of the ray-traced frame and the bundle casts' overflow fallback
+    shade at these."""
+    res = raycast_batch(origins, directions, world, face_mask=face_mask,
+                        tri_mask=tri_mask)
+    tri = res["tri"].long()
+    v0 = world["v0"][tri]
+    _ok, _t, res["u"], res["v"] = mt_block(
+        origins.to(F32), ml.safe_normalize(directions.to(F32)), v0,
+        world["v1"][tri] - v0, world["v2"][tri] - v0, face_mask)
+    return res

@@ -340,7 +340,7 @@ def test_pixel_ray_directions_match_jax():
     u["camera_rotation"] = np.asarray(
         jml.quat_from_yaw_pitch_roll(0.4, -0.2, 0.05), np.float32)
     u["fov_degrees"] = np.float32(75.0)
-    got = sky.pixel_ray_directions(u, 70, 46).numpy()
+    got = sky.pixel_ray_directions(u, 70, 46, "cpu").numpy()
     want = np.asarray(jax_sky.pixel_ray_directions(u, 70, 46, xp=jnp))
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-6)
 
