@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel) and
-drives the port's three paths at 1080p:
+drives the port's four paths at 1080p:
 
   * the opaque frame (``Engine(scene, RenderParams(1920, 1080),
     device="cuda")``): K1, the tile kernel, against its plain PyTorch twin
@@ -23,7 +23,15 @@ drives the port's three paths at 1080p:
     against its twin on the primary (nearest) and shadow (any-hit) casts of
     two frames; 30 counted frames with hard shadows, frame 0 against the
     twin's frame; one soft-shadow and one reflection frame against the
-    twin; the bundle route against the brute route at 320x180.
+    twin; the bundle route against the brute route at 320x180;
+  * the deferred route (``RenderParams(1920, 1080, use_pallas=False)``):
+    K5, the visibility fold, against its twin and against K1's winners on
+    the bench frame's bins, at 64-row tiles and on its edge cases (phase
+    14); 30 counted frames, frame 0 against the plain path and the tile
+    route (phase 15); and at 320x180 the brute and binned routes of LESS,
+    GREATER, GREATER_EQUAL and ALWAYS, the forward route for EQUAL, the
+    wireframe, overdraw and depth views, each against the same call on
+    the CPU (phase 16).
 
 Any failed check raises and exits non-zero.  The last three lines of
 standard output are the card's name and power limit, a JSON line with the
@@ -63,6 +71,7 @@ LIVE_SECOND_LAYER_MIN = 0.01
 RT_CAP = 24                # the game's --raytrace CAP (bench.py's row)
 RT_PLAIN_RUNS = 3          # the sweep's plain twin at 1080p is slow
 RT_BRUTE_SIZE = (320, 180)
+SMALL_ROUTES_SIZE = (320, 180)   # phase 16: brute routes cost T x H x W
 # The least time the card could take (NVIDIA's H100 SXM data sheet, dense,
 # at its 700 W limit): FP32 outside the tensor cores and HBM3 bandwidth.
 PEAK_FP32 = 67e12
@@ -196,6 +205,80 @@ def peel_edge_case_inputs(device):
     return args, kwargs, best_i, best_d
 
 
+def _vis_case(tris, globs, segs, fbd, tile_h, tile_w, row_offset, device):
+    """vis_fold's (args, kwargs) for triangles [(screen corners, depth)]
+    with constant depth, `globs` the global ids and `segs` each tile's
+    segment.  1/area is 1 over the sum of the edge functions, so each
+    weight is exact for the dyadic corners used here."""
+    rows = []
+    for (x0, y0), (x1, y1), (x2, y2), d in tris:
+        area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+        rows.append([x0, y0, x1, y1, x2, y2, d, d, d, 1.0 / area])
+    i32 = torch.int32
+    counts = [len(s) for s in segs]
+    starts = np.cumsum([0] + counts[:-1]).tolist()
+    args = tuple(t.to(device) for t in (
+        fbd, torch.tensor(rows, dtype=torch.float32).reshape(-1, 10),
+        torch.tensor(globs + [t for t in range(len(tris)) if t not in globs],
+                     dtype=i32),
+        torch.tensor([len(globs)], dtype=i32),
+        torch.tensor([t for s in segs for t in s], dtype=i32),
+        torch.tensor(starts, dtype=i32), torch.tensor(counts, dtype=i32)))
+    return args, dict(tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
+
+
+def vis_fold_edge_cases(device):
+    """K5's edge cases as [(name, args, kwargs, expected best_i, expected
+    best_d)], the expectations on the CPU.  Frames of 2x8 pixels are two
+    2x4 tiles; "big" covers them with every weight > 0.
+
+    -inf seed: a -inf fragment (global) takes a -inf seed, since its id
+    beats -1, and a NaN one (tile 0's segment) never wins.  ties: a
+    global at the seed's depth -0.5 takes tile 0 and ties a later segment
+    triangle, which wins; in tile 1 a -0.0 fragment ties a +0.0 seed and a
+    +0.0 fragment, wins as the later id and is written +0.0.  row_offset:
+    the band starts at screen row 4 and a triangle ends at screen row 4.5,
+    so only band row 0 is covered.  tile_h > 32: one 64x32 tile (two
+    blocks of 1,024 pixels) where a nearer triangle covers rows 40-63.
+    empty frame: no triangle, the seed everywhere."""
+    big = ((-8.0, -8.0), (24.0, -8.0), (-8.0, 24.0))
+    nan, inf = float("nan"), float("inf")
+    clear = torch.finfo(torch.float32).min
+    cases = []
+    args, kw = _vis_case([big + (-inf,), big + (nan,)], [0], [[1], []],
+                         torch.full((2, 8), -inf), 2, 4, 0, device)
+    cases.append(("-inf seed, NaN fragment", args, kw,
+                  torch.zeros((2, 8), dtype=torch.int32),
+                  torch.full((2, 8), -inf)))
+    fbd = torch.full((2, 8), -0.5)
+    fbd[:, 4:] = 0.0
+    args, kw = _vis_case([big + (-0.5,), big + (-0.5,), big + (0.0,),
+                          big + (-0.0,)], [0], [[1], [2, 3]], fbd, 2, 4, 0,
+                         device)
+    want_i = torch.tensor([[1] * 4 + [3] * 4] * 2, dtype=torch.int32)
+    cases.append(("ties at the seed, global vs segment, -0.0 vs +0.0",
+                  args, kw, want_i, torch.where(want_i == 1, -0.5, 0.0)))
+    strip = ((-16.0, 4.5), (48.0, 4.5), (16.0, -59.5), -0.25)
+    args, kw = _vis_case([strip], [], [[0], [0]], torch.full((2, 8), clear),
+                         2, 4, 4, device)
+    want_i = torch.tensor([[0] * 8, [-1] * 8], dtype=torch.int32)
+    cases.append(("row_offset 4", args, kw, want_i,
+                  torch.where(want_i == 0, -0.25, clear)))
+    whole = ((-64.0, -64.0), (192.0, -64.0), (-64.0, 192.0), -0.5)
+    low = ((-16.0, 39.5), (48.0, 39.5), (16.0, 103.5), -0.25)
+    args, kw = _vis_case([whole, low], [0], [[1]],
+                         torch.full((64, 32), clear), 64, 32, 0, device)
+    want_i = torch.zeros((64, 32), dtype=torch.int32)
+    want_i[40:] = 1
+    cases.append(("tile_h 64 > 32", args, kw, want_i,
+                  torch.where(want_i == 1, -0.25, -0.5)))
+    fbd = torch.linspace(-1.0, 0.0, 16).reshape(2, 8)
+    args, kw = _vis_case([], [], [[], []], fbd, 2, 4, 0, device)
+    cases.append(("empty frame", args, kw,
+                  torch.full((2, 8), -1, dtype=torch.int32), fbd))
+    return cases
+
+
 def nbytes(*values) -> int:
     """Bytes of every tensor among values (other values count 0)."""
     return sum(v.numel() * v.element_size() for v in values
@@ -212,11 +295,11 @@ def bound(n_bytes: int, ops: float) -> dict:
 
 
 def fold_bound(args, kwargs, outputs) -> dict:
-    """Bound of one tile fold (K1, K2, K3) on these inputs: each tile that
-    folds at all (in peel mode, a tile with an eligible pixel) tests its
-    binned triangles and the globals against each of its pixels; every
+    """Bound of one tile fold (K1, K2, K3, K5) on these inputs: each tile
+    that folds at all (in peel mode, a tile with an eligible pixel) tests
+    its binned triangles and the globals against each of its pixels; every
     input is read once and every output written once."""
-    _, _, _, n_global, _, _, counts, _, _ = args
+    n_global, counts = args[3], args[6]
     th, tw = kwargs["tile_h"], kwargs["tile_w"]
     folds = torch.ones_like(counts, dtype=torch.bool)
     if kwargs.get("prev_i") is not None:
@@ -256,6 +339,7 @@ def report_ptxas(output: str) -> None:
     instantiation; fail on a spill."""
     names = {"tile_raster_kernelILb0E": "K1 tile_raster_kernel<false>",
              "tile_raster_kernelILb1E": "K2 tile_raster_kernel<true>",
+             "vis_fold_kernel": "K5 vis_fold_kernel",
              "rt_sweep_kernelILb0E": "K4 rt_sweep_kernel<nearest>",
              "rt_sweep_kernelILb1E": "K4 rt_sweep_kernel<any-hit>"}
     fn = "?"
@@ -917,6 +1001,212 @@ def check_bundle_vs_brute(card, device, size) -> None:
               f"bundle vs brute route, {name}")
 
 
+def check_vis_fold_kernel(card, k1_args, k1_kwargs, k1_out,
+                          device) -> dict:
+    """Phase 14: K5 against its plain twin on the bench frame's bins (the
+    K1 fold's own inputs, 32x128 tiles): best_i equal on every pixel and
+    best_d bit for bit, and equal to K1's winners and depths on the same
+    bins; the same at 64x128 tiles (two blocks a tile); the edge cases.
+    Returns K5's timing, bound and largest difference."""
+    from softwarerenderer_tpu_torch.ops import binning, vis_fold
+    args = k1_args[:7]
+    kwargs = dict(tile_h=k1_kwargs["tile_h"], tile_w=k1_kwargs["tile_w"],
+                  row_offset=0)
+    kd, ki = vis_fold.vis_fold(*args, **kwargs)
+    pd, pi = vis_fold.visibility_fold_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    diff_i = int((ki != pi).sum())
+    diff_d = int((kd.view(torch.int32) != pd.view(torch.int32)).sum())
+    _, k1_d, k1_i = k1_out
+    diff_k1_i = int((ki != k1_i).sum())
+    diff_k1_d = int((kd != k1_d).sum())
+    d_err = float((kd - pd).abs().max())
+    n_cov = int((ki >= 0).sum())
+    ms = cuda_ms(lambda: vis_fold.vis_fold(*args, **kwargs), KERNEL_RUNS)
+    plain_ms = cuda_ms(lambda: vis_fold.visibility_fold_plain(*args,
+                                                              **kwargs),
+                       PLAIN_RUNS)
+    b = fold_bound(args, kwargs, (kd, ki))
+    Hp, Wp = args[0].shape
+    log(f"phase 14 K5 vs plain @{Wp}x{Hp} padded, {kwargs['tile_h']}x"
+        f"{kwargs['tile_w']} tiles: {n_cov} covered pixels; best_i differs "
+        f"on {diff_i}, best_d (bits) on {diff_d} pixels; vs K1 on the same "
+        f"bins: best_i differs on {diff_k1_i}, best_d on {diff_k1_d}; kernel "
+        f"{ms:.3f} ms (median of {KERNEL_RUNS}), plain {plain_ms:.3f} ms "
+        f"(median of {PLAIN_RUNS}); bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}, {b['tests']} tests) [{card}]")
+    check(n_cov > 0.05 * ki.numel(), f"K5 covers only {n_cov} pixels")
+    check(diff_i == 0 and diff_d == 0,
+          f"K5 vs twin: best_i {diff_i}, best_d {diff_d}")
+    check(diff_k1_i == 0 and diff_k1_d == 0,
+          f"K5 vs K1: best_i {diff_k1_i}, best_d {diff_k1_d}")
+
+    # Tiles of 64 rows: the bins of the tile_h the deferred route takes
+    # uncapped, each tile split over two blocks.
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import Engine, frame_setup
+    eng = Engine(scenes.bench_scene(), RenderParams(W, H), device=device)
+    params = RenderParams(W, H)
+    f = frame_setup(eng.scene, scenes.camera_uniforms(eng.uniforms, 0),
+                    params)
+    a64, kw64 = binning.fold_inputs(f["tris"], params, 64, params.tile_w,
+                                    params.span_cap)
+    d64, i64 = vis_fold.vis_fold(*a64, **kw64)
+    q64, j64 = vis_fold.visibility_fold_plain(*a64, **kw64)
+    n64 = int((i64 != j64).sum()) + int(
+        (d64.view(torch.int32) != q64.view(torch.int32)).sum())
+    same64 = int((i64[:H, :W] != ki[:H, :W]).sum())
+    log(f"phase 14 K5 at 64x128 tiles: kernel vs plain differ on {n64} "
+        f"values; winners differ from the 32-row tiles' on {same64} pixels")
+    check(n64 == 0 and same64 == 0, "K5 at 64-row tiles")
+
+    for name, e_args, e_kwargs, want_i, want_d in vis_fold_edge_cases(device):
+        for who, fold in (("kernel", vis_fold.vis_fold),
+                          ("plain", vis_fold.visibility_fold_plain)):
+            d, i = fold(*e_args, **e_kwargs)
+            check(torch.equal(i.cpu(), want_i),
+                  f"K5 edge case {name} {who} best_i {i.cpu().tolist()}")
+            check(torch.equal(d.cpu().view(torch.int32),
+                              want_d.view(torch.int32)),
+                  f"K5 edge case {name} {who} best_d {d.cpu().tolist()}")
+    log("phase 14 K5 edge cases (a -inf seed and a NaN fragment, ties at "
+        "the seed and between the lists, -0.0 vs +0.0, row_offset 4, "
+        "tile_h 64, an empty frame): kernel and plain equal the expected "
+        "winners, depth bit for bit")
+    return dict(b, ms=ms, plain_ms=plain_ms, max_abs_err=d_err)
+
+
+def check_deferred_frames(card, device, size, frames) -> dict:
+    """Phase 15: the deferred main path, Engine(bench scene,
+    RenderParams(use_pallas=False)): 30 frames with one K5 launch each;
+    frame 0 against the plain path (K5's twin) and against the tile
+    route's frame (K1), within 1e-5 on every covered pixel."""
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import (Engine, frame_setup,
+                                                   render_frame,
+                                                   scene_fragment_shader)
+    from softwarerenderer_tpu_torch.ops import raster, vis_fold
+    w, h = size
+    params = RenderParams(w, h, use_pallas=False)
+    eng = Engine(scenes.bench_scene(), params, device=device)
+
+    def u_at(i):
+        return scenes.camera_uniforms(eng.uniforms, i)
+
+    vis_fold.VIS_LAUNCHES = 0
+    frame_ms, per_frame, finite = [], [], True
+    for i in range(frames):
+        n0 = vis_fold.VIS_LAUNCHES
+        t = time.perf_counter()
+        color, depth = eng.render(u_at(i))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        per_frame.append(vis_fold.VIS_LAUNCHES - n0)
+        finite &= bool(torch.isfinite(color).all()
+                       and torch.isfinite(depth).all())
+        check(color.shape == (h, w, 4) and depth.shape == (h, w),
+              f"frame shapes {tuple(color.shape)} {tuple(depth.shape)}")
+        if i == 0:
+            first = (color, depth)
+    launches = vis_fold.VIS_LAUNCHES
+    check(finite, "non-finite deferred output")
+    check(launches == frames and all(n == 1 for n in per_frame),
+          f"K5 launches per frame {per_frame}")
+    syncs = host_syncs(lambda i: eng.render(u_at(i)), 3)
+    f = frame_setup(eng.scene, u_at(0), params)
+    plain = raster.render_deferred(
+        f["tris"], scene_fragment_shader, f["uniforms"], params,
+        f["fb_color"], f["fb_depth"], per_tri_extra=f["per_tri"],
+        visibility_fn=vis_fold.make_visibility_fold(
+            vis_fold.visibility_fold_plain))
+    tile = render_frame(eng.scene, u_at(0), params.replace(use_pallas=True))
+    steady = statistics.median(frame_ms[1:])
+    out = {"launches": launches, "frame_ms": steady}
+    cov = (first[1] != raster.DEPTH_CLEAR)
+    n_cov = int(cov.sum())
+    parts = []
+    for name, other in (("plain path", plain), ("tile route (K1)", tile)):
+        both = cov | (other[1] != raster.DEPTH_CLEAR)
+        c_err = float((first[0] - other[0]).abs().amax(-1)[both].max())
+        d_err = float((first[1] - other[1])[both].abs().max())
+        n_c, n_d, n_rgb = _frame_diff(first, other)
+        parts.append(f"vs the {name}: color max abs diff {c_err:.3g}, "
+                     f"depth {d_err:.3g}; {n_c} pixels differ > 1e-5 in "
+                     f"color, {n_d} in depth, {n_rgb} in to_rgb8")
+        check(c_err <= 1e-5 and d_err <= 1e-5,
+              f"deferred frame 0 vs the {name}: color {c_err}, depth "
+              f"{d_err}")
+    log(f"phase 15 deferred main path @{w}x{h} (use_pallas=False): "
+        f"{frames} frames, K5 launches {launches} (per frame "
+        f"{min(per_frame)}-{max(per_frame)}), {syncs:.1f} host syncs per "
+        f"frame, first frame {frame_ms[0]:.1f} ms, median frame "
+        f"{steady:.3f} ms = {w * h / steady / 1e3:.1f} Mpixels/s; frame 0 "
+        f"({n_cov} covered pixels) {'; '.join(parts)} [{card}]")
+    check(n_cov > 0.05 * w * h, f"only {n_cov} deferred pixels covered")
+    return out
+
+
+# Phase 16 holds the card's frame against the CPU's: the same PyTorch code
+# on two devices, which may sum a reduction in another order, so it takes
+# PERF.md section 2's D5 share of the frame; 0 pixels are expected.
+CPU_FRAME_MISMATCH_MAX = 5e-3
+
+
+def check_small_routes(card, size, device="cuda") -> None:
+    """Phase 16: the depth tests and views at 320x180 on the card, each
+    against the same call on the CPU: the brute and binned routes for
+    LESS, GREATER and GREATER_EQUAL (over a MaxValue depth buffer) and
+    ALWAYS; the forward route for EQUAL (additive, over each device's own
+    LESS_EQUAL frame); the deferred wireframe; the overdraw and depth
+    views."""
+    from softwarerenderer_tpu_torch import (BlendMode, DebugMode, DepthTest,
+                                            RenderParams, scenes)
+    from softwarerenderer_tpu_torch.engine import Engine, render_frame
+    w, h = size
+    scene = scenes.bench_scene()
+    engs = {"card": Engine(scene, RenderParams(w, h), device=device),
+            "cpu": Engine(scene, RenderParams(w, h), device="cpu")}
+    u = scenes.camera_uniforms(engs["cpu"].uniforms, 0)
+    fmax = torch.finfo(torch.float32).max
+    cases = []
+    for mode in (DepthTest.LESS, DepthTest.GREATER, DepthTest.GREATER_EQUAL,
+                 DepthTest.ALWAYS):
+        seed = "max" if mode in (DepthTest.GREATER,
+                                 DepthTest.GREATER_EQUAL) else None
+        for binned in (True, False):
+            cases.append((f"{mode.name} {'binned' if binned else 'brute'}",
+                          dict(depth_test=mode, binned=binned), seed))
+    cases += [("EQUAL forward, additive", dict(
+        depth_test=DepthTest.EQUAL, blend_mode=BlendMode.ADDITIVE), "frame"),
+              ("wireframe", dict(debug_mode=DebugMode.WIREFRAME), None),
+              ("overdraw", dict(debug_mode=DebugMode.OVERDRAW), None),
+              ("depth view", dict(debug_mode=DebugMode.DEPTH), None)]
+    for name, fields, seed in cases:
+        params = RenderParams(w, h, **fields)
+        out = {}
+        for dev, eng in engs.items():
+            fb = None
+            if seed == "max":
+                fb = (torch.zeros((h, w, 4)), torch.full((h, w), fmax))
+            elif seed == "frame":
+                fb = render_frame(eng.scene, u, RenderParams(
+                    w, h, use_pallas=False))
+            out[dev] = tuple(x.cpu() for x in render_frame(
+                eng.scene, u, params, fb=fb))
+        n_c, n_d, n_rgb = _frame_diff(out["card"], out["cpu"])
+        drawn = int((out["card"][1] != out["card"][1][0, 0]).sum()) \
+            if name in ("overdraw", "depth view") \
+            else int((out["card"][0] != out["card"][0][0, 0]).any(-1).sum())
+        log(f"phase 16 {name} @{w}x{h}, card vs CPU: {n_c} pixels differ "
+            f"> 1e-5 in color, {n_d} in depth, {n_rgb} in to_rgb8; "
+            f"{drawn} pixels differ from the top-left one [{card}]")
+        limit = CPU_FRAME_MISMATCH_MAX * w * h
+        check(n_c <= limit and n_d <= limit,
+              f"phase 16 {name}: {n_c} color, {n_d} depth pixels differ")
+        check(torch.isfinite(out["card"][0]).all() and drawn > 0,
+              f"phase 16 {name}: nothing drawn")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -939,7 +1229,8 @@ def main() -> int:
 
     # ---- phase 2: build the kernels from the checkout's sources ---------
     t0 = time.perf_counter()
-    libs = build.build_all(["tile_raster", "tile_kdeep", "rt_sweep"])
+    libs = build.build_all(["tile_raster", "tile_kdeep", "rt_sweep",
+                            "vis_fold"])
     build_s = time.perf_counter() - t0
     log(f"phase 2 build: {', '.join(p.name for p in libs.values())} in "
         f"{build_s:.2f} s (one nvcc per source, in parallel)")
@@ -1091,6 +1382,11 @@ def main() -> int:
     rt = check_raytraced_frames(card, "cuda", (W, H), FRAMES)
     check_bundle_vs_brute(card, "cuda", RT_BRUTE_SIZE)
 
+    # ---- phases 14-16: K5 and the deferred route -----------------------
+    k5 = check_vis_fold_kernel(card, args, kwargs, (kg, kd, ki), "cuda")
+    deferred = check_deferred_frames(card, "cuda", (W, H), FRAMES)
+    check_small_routes(card, SMALL_ROUTES_SIZE)
+
     def entry(name, source, replaces, launches, numbers):
         return {"name": name, "route": "cuda",
                 "source": f"softwarerenderer_tpu_torch/csrc/{source}",
@@ -1112,7 +1408,9 @@ def main() -> int:
         entry("rt_sweep_nearest", "rt_sweep.cu", "ops/rt_pallas.py:59",
               rt["launches"]["nearest"], sweep["primary"]),
         entry("rt_sweep_any_hit", "rt_sweep.cu", "ops/rt_pallas.py:59",
-              rt["launches"]["any_hit"], sweep["shadow"])]}))
+              rt["launches"]["any_hit"], sweep["shadow"]),
+        entry("vis_fold", "vis_fold.cu", "ops/pallas_raster.py:67",
+              deferred["launches"], k5)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,10 +11,13 @@ checked scenes in ``scenes``); nothing here imports JAX or any module of
 the JAX package.
 
 What renders today is the frame of ``engine.Engine`` with any shaders of
-the ``shaders`` ABI: the opaque route, with ``RenderParams(kbuffer=K)`` the
-depth-peeled K-buffer (LESS_EQUAL depth), and with
-``frame_fn=ops.raytrace.render_frame_raytraced`` the ray-traced frame;
-every option outside them raises ``NotImplementedError``.
+the ``shaders`` ABI: the opaque tile route, the deferred route
+(``RenderParams(use_pallas=False)``, every monotone depth test,
+``binned=False``), the exact forward route (``deferred=False``, EQUAL and
+NOT_EQUAL), the wireframe, overdraw and depth views, with
+``RenderParams(kbuffer=K)`` the depth-peeled K-buffer (LESS_EQUAL depth),
+and with ``frame_fn=ops.raytrace.render_frame_raytraced`` the ray-traced
+frame; every option outside them raises ``NotImplementedError``.
 """
 
 from softwarerenderer_tpu_torch.config import (  # noqa: F401

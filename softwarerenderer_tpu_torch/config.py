@@ -5,8 +5,12 @@ nothing of the JAX package; keep the two equal (tests/test_torch_package.py
 holds the field names, defaults and enum values to the source).  The enums
 are IntEnums, so values compare equal across the two packages; the port
 reads RenderParams fields and never checks its class, so callers may pass
-either package's.  The TPU-only fields (tile_group, chunk, use_pallas,
-pallas_interpret, ...) are kept and ignored by the port.
+either package's.  The TPU-only fields (tile_group, chunk,
+pallas_interpret, ...) are kept and ignored by the port.  use_pallas=False
+selects the deferred route (ops.raster.render_deferred, whose visibility
+pass is the visibility-fold kernel) for a binned LESS_EQUAL frame, as it
+selects the non-Pallas route in JAX; a K-buffer frame keeps its tile
+routes either way.
 
 Mirrors the reference pipeline's state vocabulary (Rasterizer.cs:25-50 of
 the C# reference: BlendMode/DepthTest/CullMode enums, NearClip/FarClip

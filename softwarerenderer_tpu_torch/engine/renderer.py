@@ -1,16 +1,31 @@
 """Frame engine: packed scene + camera -> one frame on the device.
 
-Counterpart of ``softwarerenderer_tpu/engine/renderer.py`` on its tile
-routes (and, through ``Engine(frame_fn=...)``, of any frame function such
-as ``ops.raytrace.render_frame_raytraced``): camera and frustum culling,
-vertex shading, near clip and setup, tile binning, then either the opaque
-route (the tile kernel's fold, resolve and interpolation, one full-frame
-shading pass, blend) or, with ``RenderParams(kbuffer=K)``, the
-depth-peeled K-buffer (K tile-kernel passes and a submission-order
-replay), and ``to_rgb8`` for present.  The
-vertex and fragment shaders are arguments, the game's by default.
-PyTorch runs it eagerly; the scene stays on the device and the per-frame
-uniforms cross from the host in one copy.
+Counterpart of ``softwarerenderer_tpu/engine/renderer.py`` (and, through
+``Engine(frame_fn=...)``, of any frame function such as
+``ops.raytrace.render_frame_raytraced``): camera and frustum culling,
+vertex shading, near clip and setup, then the route ``render_frame``
+picks as JAX's ``_dispatch`` does:
+
+  * the OVERDRAW and DEPTH debug views (ops.debugviz); WIREFRAME through
+    the deferred wireframe, or the forward route under EQUAL / NOT_EQUAL
+    or with ``deferred=False``;
+  * ``deferred=False``, EQUAL or NOT_EQUAL: the exact forward route
+    (ops.forward);
+  * binned LESS_EQUAL frames with ``kbuffer > 1``: the depth-peeled
+    K-buffer (K tile-kernel passes and a submission-order replay),
+    whatever ``use_pallas`` says;
+  * binned LESS_EQUAL frames with ``use_pallas=True`` (the default): the
+    opaque tile route (the tile kernel's fold, resolve and interpolation,
+    one full-frame shading pass, blend);
+  * every other frame: the deferred route (ops.raster.render_deferred),
+    whose visibility pass is the visibility-fold kernel for binned
+    LESS_EQUAL frames (``use_pallas=False``), the binned fold for the
+    other monotone depth tests and the brute force with ``binned=False``;
+
+and ``to_rgb8`` for present.  The vertex and fragment shaders are
+arguments, the game's by default; ``fb=(color, depth)`` seeds the
+framebuffer, so passes stack.  PyTorch runs it eagerly; the scene stays on
+the device and the per-frame uniforms cross from the host in one copy.
 
 A ``RenderParams`` field or scene key whose feature this package does not
 implement yet raises ``NotImplementedError`` instead of rendering another
@@ -29,7 +44,8 @@ from softwarerenderer_tpu_torch.config import (BlendMode, DebugMode,
                                                DepthTest, RenderParams)
 from softwarerenderer_tpu_torch import shaders
 from softwarerenderer_tpu_torch.models.convert import scene_to_torch
-from softwarerenderer_tpu_torch.ops import culling, geometry, raster
+from softwarerenderer_tpu_torch.ops import (culling, debugviz, forward,
+                                            geometry, raster)
 from softwarerenderer_tpu_torch.ops import texture as tex_ops
 from softwarerenderer_tpu_torch.ops import tile_raster
 from softwarerenderer_tpu_torch.utils import mathlib as ml
@@ -192,10 +208,12 @@ _UNSUPPORTED_SCENE_PREFIXES = ("tangent", "anim_", "morph_", "skin_",
 def check_supported(params: RenderParams, scene_keys=(), uniforms=None):
     """Raise NotImplementedError for anything outside the routes this
     package renders, and JAX's ValueError for kbuffer_stats without a
-    K-buffer."""
-    if params.kbuffer_stats and params.kbuffer <= 1:
-        raise ValueError("kbuffer_stats needs kbuffer > 1 (the stats dict "
-                         "is the K-buffer's third return value)")
+    binned deferred K-buffer."""
+    if params.kbuffer_stats and (params.kbuffer <= 1 or not (
+            params.binned and params.deferred)):
+        raise ValueError("kbuffer_stats needs kbuffer > 1 on the binned "
+                         "deferred route (the stats dict is the K-buffer's "
+                         "third return value)")
     bad = [name for name, off in (
         ("ssaa", params.ssaa != 1),
         ("ssao", params.ssao), ("bloom", params.bloom),
@@ -203,9 +221,6 @@ def check_supported(params: RenderParams, scene_keys=(), uniforms=None):
         ("post_fx callables", any(callable(f) for f in params.post_fx)),
         ("kbuffer with a depth_test other than LESS_EQUAL",
          params.kbuffer > 1 and params.depth_test != DepthTest.LESS_EQUAL),
-        ("debug_mode", params.debug_mode != DebugMode.NONE),
-        ("deferred", not params.deferred), ("binned", not params.binned),
-        ("depth_test", params.depth_test != DepthTest.LESS_EQUAL),
         ("active_cap", bool(params.active_cap)),
         ("active_cap_stats", params.active_cap_stats),
         ("geom_cap", bool(params.geom_cap)),
@@ -225,12 +240,14 @@ def check_supported(params: RenderParams, scene_keys=(), uniforms=None):
 def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
                 params: RenderParams,
                 vertex_shader: Callable = scene_vertex_shader,
-                fragment_shader: Callable = scene_fragment_shader) -> Dict:
-    """Everything a tile route takes for one frame: {"tris": the set-up
+                fragment_shader: Callable = scene_fragment_shader,
+                fb: Optional[tuple] = None) -> Dict:
+    """Everything a route takes for one frame: {"tris": the set-up
     triangles, "uniforms": the device uniforms the shaders read,
     "per_tri": the per-triangle extras, "fb_color" and "fb_depth": the
-    cleared framebuffer}.  render_frame routes them; a caller may hand
-    them to another route of ops.tile_raster."""
+    framebuffer, fb = (color (H, W, 4), depth (H, W)) or cleared}.
+    render_frame routes them; a caller may hand them to another route of
+    ops.tile_raster or ops.raster."""
     H, W = params.height, params.width
     dev = scene["position"].device
     with record_function("frame.camera_cull"):
@@ -274,38 +291,60 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
             if opq is not None:
                 per_tri["opq"] = opq
 
+    if fb is None:
+        fb_color = u["clear_color"].expand(H, W, 4)
+        fb_depth = torch.full((H, W), raster.DEPTH_CLEAR, dtype=F32,
+                              device=dev)
+    else:
+        fb_color, fb_depth = (torch.as_tensor(x, dtype=F32, device=dev)
+                              for x in fb)
     return {"tris": tris, "uniforms": u, "per_tri": per_tri,
-            "fb_color": u["clear_color"].expand(H, W, 4),
-            "fb_depth": torch.full((H, W), raster.DEPTH_CLEAR, dtype=F32,
-                                   device=dev)}
+            "fb_color": fb_color, "fb_depth": fb_depth}
 
 
 def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
                  params: RenderParams,
                  vertex_shader: Callable = scene_vertex_shader,
                  fragment_shader: Callable = scene_fragment_shader,
-                 fold: Optional[Callable] = None):
+                 fold: Optional[Callable] = None,
+                 fb: Optional[tuple] = None):
     """One frame over a packed scene already on the device
-    (models.convert.scene_to_torch), drawn with the given shaders.
-    Returns (color (H, W, 4) f32, depth (H, W) f32) on the scene's device,
-    and with params.kbuffer_stats a third value, {"kbuffer_saturated_px":
-    n}.
+    (models.convert.scene_to_torch), drawn with the given shaders over
+    fb = (color (H, W, 4), depth (H, W)), the cleared framebuffer by
+    default.  Returns (color (H, W, 4) f32, depth (H, W) f32) on the
+    scene's device, and with params.kbuffer_stats a third value,
+    {"kbuffer_saturated_px": n}.  The route is the module docstring's.
 
-    kbuffer > 1 renders the depth-peeled K-buffer
-    (tile_raster.render_tile_kbuffer); otherwise the opaque route
-    (tile_raster.render_tile).  fold: the tile fold the passes run,
-    tile_raster.tile_fold by default; tile_raster.tile_fold_plain renders
-    the same frame through the plain twins."""
+    fold: the tile fold the tile routes run, tile_raster.tile_fold by
+    default; tile_raster.tile_fold_plain renders the same frame through
+    the plain twins."""
     check_supported(params, scene.keys(), uniforms)
-    f = frame_setup(scene, uniforms, params, vertex_shader, fragment_shader)
-    if params.kbuffer > 1:
-        return tile_raster.render_tile_kbuffer(
-            f["tris"], fragment_shader, f["uniforms"], params,
-            f["fb_color"], f["fb_depth"], per_tri_extra=f["per_tri"],
-            fold=fold, with_stats=params.kbuffer_stats)
-    return tile_raster.render_tile(f["tris"], fragment_shader, f["uniforms"],
-                                   params, f["fb_color"], f["fb_depth"],
-                                   per_tri_extra=f["per_tri"], fold=fold)
+    f = frame_setup(scene, uniforms, params, vertex_shader, fragment_shader,
+                    fb)
+    args = (f["tris"], fragment_shader, f["uniforms"], params,
+            f["fb_color"], f["fb_depth"])
+    order_dependent = params.depth_test in (DepthTest.EQUAL,
+                                            DepthTest.NOT_EQUAL)
+    if params.debug_mode == DebugMode.OVERDRAW:
+        return debugviz.render_overdraw(f["tris"], params)
+    if params.debug_mode == DebugMode.DEPTH:
+        return debugviz.render_depth_view(f["tris"], params, f["fb_depth"])
+    if params.debug_mode == DebugMode.WIREFRAME and params.deferred \
+            and not order_dependent:
+        return raster.render_wireframe_deferred(*args,
+                                                per_tri_extra=f["per_tri"])
+    if params.debug_mode == DebugMode.WIREFRAME or not params.deferred \
+            or order_dependent:
+        return forward.render_forward(*args, per_tri_extra=f["per_tri"])
+    if params.binned and params.depth_test == DepthTest.LESS_EQUAL:
+        if params.kbuffer > 1:
+            return tile_raster.render_tile_kbuffer(
+                *args, per_tri_extra=f["per_tri"], fold=fold,
+                with_stats=params.kbuffer_stats)
+        if params.use_pallas:
+            return tile_raster.render_tile(*args, per_tri_extra=f["per_tri"],
+                                           fold=fold)
+    return raster.render_deferred(*args, per_tri_extra=f["per_tri"])
 
 
 def to_rgb8(color: torch.Tensor) -> torch.Tensor:
@@ -352,14 +391,19 @@ class Engine(torch.nn.Module):
     def scene(self) -> Dict[str, torch.Tensor]:
         return dict(self.named_buffers())
 
-    def forward(self, uniforms: Optional[Dict] = None):
+    def forward(self, uniforms: Optional[Dict] = None,
+                fb: Optional[tuple] = None):
+        kw = {} if fb is None else {"fb": fb}
         return self.frame_fn(self.scene, uniforms or self.uniforms,
                              params=self.params,
                              vertex_shader=self.vertex_shader,
-                             fragment_shader=self.fragment_shader)
+                             fragment_shader=self.fragment_shader, **kw)
 
-    def render(self, uniforms: Optional[Dict] = None):
-        return self(uniforms)
+    def render(self, uniforms: Optional[Dict] = None,
+               fb: Optional[tuple] = None):
+        """One frame, over fb = (color, depth) when given (render_frame's
+        seed)."""
+        return self(uniforms, fb)
 
     def present(self, uniforms: Optional[Dict] = None) -> np.ndarray:
         return to_rgb8(self.render(uniforms)[0]).cpu().numpy()

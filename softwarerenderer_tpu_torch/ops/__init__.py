@@ -1,1 +1,2 @@
-"""Tensor ops of the frame path; tile_raster holds the CUDA kernel."""
+"""Tensor ops of the frame paths; tile_raster, vis_fold and rt_sweep wrap
+the CUDA kernels."""

@@ -1,6 +1,7 @@
 """Tile binning: sort-middle rasterization without locks.
 
-Counterpart of ``bin_triangles`` in ``softwarerenderer_tpu/ops/binning.py``.
+Counterpart of ``bin_triangles``, ``visibility_binned`` and
+``make_binned_visibility`` in ``softwarerenderer_tpu/ops/binning.py``.
 Every valid triangle emits (tile, triangle) pairs for the screen tiles its
 clamped bbox overlaps (up to `span_cap` of them); the pairs are sorted by
 tile with the triangle id as the tiebreak (submission order inside a tile)
@@ -12,6 +13,14 @@ global/binned split changes no pixel.
 The sort key is tile << tri_bits | tri in int64: torch on the CPU has no
 ``>>`` for uint32, and 64 bits never overflow where the JAX package needs a
 two-key sort.
+
+``visibility_binned`` folds every tile's globals and segment under any
+monotone depth test (ops.raster's keys) for the contiguous band of rows at
+``row_offset``.  The JAX function's ``tile_row_map`` and ``tile_map``
+modes, which let a device own an arbitrary set of tiles, belong to the
+multi-device port (``parallel/``) and are not here; ``render_binned_fused``,
+a one-hot-matmul TPU shape of the same fold, resolve and shade, is not
+ported: the tile kernel and ops.raster.render_deferred cover its frame.
 """
 
 from __future__ import annotations
@@ -20,7 +29,8 @@ from typing import Dict
 
 import torch
 
-from softwarerenderer_tpu_torch.config import RenderParams
+from softwarerenderer_tpu_torch.config import DepthTest, RenderParams
+from softwarerenderer_tpu_torch.ops import raster
 
 
 def cdiv(a: int, b: int) -> int:
@@ -28,8 +38,12 @@ def cdiv(a: int, b: int) -> int:
 
 
 def bin_triangles(tris: Dict, params: RenderParams, tile_h: int,
-                  tile_w: int, span_cap: int) -> Dict:
+                  tile_w: int, span_cap: int, row_offset: int = 0) -> Dict:
     """The sorted (tile, triangle) pair table and the global list.
+
+    params.height is the band's height and row_offset its first screen
+    row: bbox rows are shifted by it, and a triangle outside the band
+    emits nothing.
 
     Returns a dict of int32 tensors:
       order      (N,)            triangle ids, globals first, each class in
@@ -45,12 +59,12 @@ def bin_triangles(tris: Dict, params: RenderParams, tile_h: int,
     n = bbox.shape[0]
     dev = bbox.device
 
-    overlap = (bbox[:, 3] >= 0) & (bbox[:, 1] <= H - 1)
-    valid = tris["valid"] & overlap
+    by0, by1 = bbox[:, 1] - row_offset, bbox[:, 3] - row_offset
+    valid = tris["valid"] & (by1 >= 0) & (by0 <= H - 1)
     tx0 = bbox[:, 0] // tile_w
-    ty0 = bbox[:, 1].clamp(0, H - 1) // tile_h
+    ty0 = by0.clamp(0, H - 1) // tile_h
     tx1 = bbox[:, 2] // tile_w
-    ty1 = bbox[:, 3].clamp(0, H - 1) // tile_h
+    ty1 = by1.clamp(0, H - 1) // tile_h
     span_w = tx1 - tx0 + 1
     span = span_w * (ty1 - ty0 + 1)
     is_global = valid & (span > span_cap)
@@ -92,3 +106,126 @@ def bin_triangles(tris: Dict, params: RenderParams, tile_h: int,
         "counts": (ends - starts).to(i32),
         "ntx": ntx, "nty": nty,
     }
+
+
+def tile_pairs(order, n_global, sorted_tri, starts, counts):
+    """Every (tile, triangle) pair a tile fold evaluates: each tile with
+    every global (order[:n_global]), then with its own segment of
+    sorted_tri.  Returns (pair_tile, pair_tri) int64."""
+    counts = counts.long()
+    ntiles = counts.numel()
+    dev = counts.device
+    tiles = torch.arange(ntiles, device=dev)
+    ng = int(n_global[0])
+    seg_tile = tiles.repeat_interleave(counts)
+    first = counts.cumsum(0) - counts
+    seg_pos = starts.long()[seg_tile] + torch.arange(
+        seg_tile.numel(), device=dev) - first[seg_tile]
+    return (torch.cat([tiles.repeat_interleave(ng), seg_tile]),
+            torch.cat([order[:ng].long().repeat(ntiles),
+                       sorted_tri.long()[seg_pos]]))
+
+
+def to_tiles(img: torch.Tensor, tile_h: int, tile_w: int) -> torch.Tensor:
+    """(Hp, Wp) -> flat, tile by tile, each tile row-major."""
+    Hp, Wp = img.shape
+    return img.reshape(Hp // tile_h, tile_h, Wp // tile_w, tile_w) \
+        .permute(0, 2, 1, 3).reshape(-1)
+
+
+def to_image(t: torch.Tensor, Hp: int, Wp: int, tile_h: int,
+             tile_w: int) -> torch.Tensor:
+    """The inverse of to_tiles."""
+    return t.reshape(Hp // tile_h, Wp // tile_w, tile_h, tile_w) \
+        .permute(0, 2, 1, 3).reshape(Hp, Wp)
+
+
+def fold_binned(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
+                tile_h: int, tile_w: int, row_offset: int = 0,
+                mode: DepthTest = DepthTest.LESS_EQUAL):
+    """The binned per-pixel winner under `mode` over padded (Hp, Wp)
+    tiles: each pixel's seed fbd, then every tile's globals and segment.
+
+    setup: (N, 10) set-up rows (raster.setup_rows), indexed by triangle
+    id.  Pixel (x, y) of the band is evaluated at screen row
+    y + row_offset.  Pairs are expanded over their tile's pixels at most
+    raster.MAX_CHUNK_ELEMS at a time, each fragment becomes a
+    raster.fold_keys key and a scatter-amax keeps each pixel's largest.
+    Returns (best_d (Hp, Wp) f32, best_i (Hp, Wp) i32)."""
+    dev = fbd.device
+    Hp, Wp = fbd.shape
+    ntx, tpx = Wp // tile_w, tile_h * tile_w
+    lane = torch.arange(tpx, device=dev)
+    lx, ly = lane % tile_w, lane // tile_w + row_offset
+    pair_tile, pair_tri = tile_pairs(order, n_global, sorted_tri, starts,
+                                     counts)
+    seed = to_tiles(fbd, tile_h, tile_w)
+    keys = raster.fold_keys(seed, torch.full_like(
+        seed, raster.NO_TRI, dtype=torch.long), mode)
+    step = max(1, raster.MAX_CHUNK_ELEMS // tpx)
+    for c0 in range(0, pair_tile.numel(), step):
+        tl = pair_tile[c0:c0 + step]
+        tri = pair_tri[c0:c0 + step]
+        px = (((tl % ntx) * tile_w)[:, None] + lx).to(torch.float32)
+        py = (((tl // ntx) * tile_h)[:, None] + ly).to(torch.float32)
+        inside, d = raster.fragments(setup[tri], px, py)
+        key = torch.where(raster.admitted(inside, d, mode),
+                          raster.fold_keys(d, tri[:, None], mode),
+                          raster.NEVER)
+        pix = (tl[:, None] * tpx + lane).reshape(-1)
+        keys.scatter_reduce_(0, pix, key.reshape(-1), reduce="amax")
+    best_d, best_i = raster.decode_keys(keys, seed, mode)
+    return (to_image(best_d, Hp, Wp, tile_h, tile_w),
+            to_image(best_i, Hp, Wp, tile_h, tile_w))
+
+
+def fold_inputs(tris: Dict, params: RenderParams, tile_h: int, tile_w: int,
+                span_cap: int, init_depth=None, row_offset: int = 0):
+    """(args, kwargs) of fold_binned (and of K5, vis_fold.vis_fold) for a
+    frame: the seed init_depth (DEPTH_CLEAR by default) padded to whole
+    tiles, the set-up rows and the bins."""
+    H, W = params.height, params.width
+    nty, ntx = cdiv(H, tile_h), cdiv(W, tile_w)
+    if init_depth is None:
+        init_depth = torch.full((H, W), raster.DEPTH_CLEAR,
+                                dtype=torch.float32,
+                                device=tris["screen"].device)
+    fbd = torch.nn.functional.pad(init_depth,
+                                  (0, ntx * tile_w - W, 0, nty * tile_h - H))
+    bins = bin_triangles(tris, params, tile_h, tile_w, span_cap, row_offset)
+    args = (fbd.contiguous(), raster.setup_rows(tris), bins["order"],
+            bins["n_global"], bins["sorted_tri"], bins["starts"],
+            bins["counts"])
+    return args, dict(tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
+
+
+def visibility_binned(tris: Dict, params: RenderParams, chunk: int = 32,
+                      init_depth=None, row_offset: int = 0, *,
+                      tile_h: int = 32, tile_w: int = 128,
+                      span_cap: int = 16, tile_group: int = 8):
+    """Binned per-pixel (depth, triangle id) winner under any monotone
+    depth test: the contract of raster.visibility_brute_force, with work
+    proportional to the triangle-tile overlap.
+
+    The frame is the band of params.height rows starting at screen row
+    row_offset.  chunk and tile_group are the JAX package's working-set
+    sizes and change nothing here.  Returns (best_depth (H, W) f32,
+    best_tri (H, W) i32)."""
+    mode = params.depth_test
+    raster.reduce_rules(mode)
+    args, kwargs = fold_inputs(tris, params, tile_h, tile_w, span_cap,
+                               init_depth, row_offset)
+    best_d, best_i = fold_binned(*args, **kwargs, mode=mode)
+    return best_d[:params.height, :params.width], \
+        best_i[:params.height, :params.width]
+
+
+def make_binned_visibility(tile_h: int = 32, tile_w: int = 128,
+                           span_cap: int = 16, tile_group: int = 8):
+    """A visibility_fn for raster.render_deferred: visibility_binned with
+    this tiling."""
+    def fn(tris, params, chunk=32, init_depth=None, row_offset=0):
+        return visibility_binned(tris, params, chunk, init_depth, row_offset,
+                                 tile_h=tile_h, tile_w=tile_w,
+                                 span_cap=span_cap, tile_group=tile_group)
+    return fn

@@ -30,9 +30,13 @@ import torch
 from torch.profiler import record_function
 
 from softwarerenderer_tpu_torch.config import BlendMode, DepthTest, RenderParams
-from softwarerenderer_tpu_torch.ops.binning import bin_triangles, cdiv
+from softwarerenderer_tpu_torch.ops.binning import (bin_triangles, cdiv,
+                                                   tile_pairs, to_image,
+                                                   to_tiles)
 from softwarerenderer_tpu_torch.ops.geometry import unflatten_varyings
-from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR, blend
+from softwarerenderer_tpu_torch.ops import raster
+from softwarerenderer_tpu_torch.ops.raster import (DEPTH_CLEAR, blend,
+                                                  setup_rows)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -67,9 +71,7 @@ def prepare(tris: Dict, params: RenderParams, fb_depth: torch.Tensor,
 
     screen, valid = tris["screen"], tris["valid"]
     n = screen.shape[0]
-    inv_area = torch.where(valid, tris["inv_area"], 0.0)
-    setup = torch.cat([screen.reshape(n, 6), tris["depth"],
-                       inv_area[:, None]], dim=1).contiguous()
+    setup = setup_rows(tris)
 
     prune_clip = gb_keep is not None and "clip_position" not in gb_keep
     keys = sorted(tris["attrs"].keys())
@@ -168,7 +170,7 @@ def fold_inputs(ctx: Dict):
     return args, kwargs
 
 
-def _check(name, t, dtype, shape, device):
+def check_tensor(name, t, dtype, shape, device):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or t.device != device or not t.is_contiguous():
         raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} "
@@ -198,14 +200,14 @@ def _check_cuda_inputs(name, fbd, setup, order, n_global, sorted_tri,
         raise ValueError(f"bad tiling {tile_h}x{tile_w} for {Hp}x{Wp}")
     ntx, nty = Wp // tile_w, Hp // tile_h
     n = setup.shape[0]
-    _check("fbd", fbd, F32, (Hp, Wp), dev)
-    _check("setup", setup, F32, (n, N_SETUP), dev)
-    _check("order", order, I32, (n,), dev)
-    _check("n_global", n_global, I32, (1,), dev)
-    _check("sorted_tri", sorted_tri, I32, sorted_tri.shape, dev)
-    _check("starts", starts, I32, (ntx * nty,), dev)
-    _check("counts", counts, I32, (ntx * nty,), dev)
-    _check("payload", payload, F32, (n, 3 * kp), dev)
+    check_tensor("fbd", fbd, F32, (Hp, Wp), dev)
+    check_tensor("setup", setup, F32, (n, N_SETUP), dev)
+    check_tensor("order", order, I32, (n,), dev)
+    check_tensor("n_global", n_global, I32, (1,), dev)
+    check_tensor("sorted_tri", sorted_tri, I32, sorted_tri.shape, dev)
+    check_tensor("starts", starts, I32, (ntx * nty,), dev)
+    check_tensor("counts", counts, I32, (ntx * nty,), dev)
+    check_tensor("payload", payload, F32, (n, 3 * kp), dev)
     return ntx, nty
 
 
@@ -255,8 +257,8 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
     Hp, Wp = fbd.shape
     prev_ptrs = (None, None)
     if peel:
-        _check("prev_d", prev_d, F32, (Hp, Wp), dev)
-        _check("prev_i", prev_i, I32, (Hp, Wp), dev)
+        check_tensor("prev_d", prev_d, F32, (Hp, Wp), dev)
+        check_tensor("prev_i", prev_i, I32, (Hp, Wp), dev)
         prev_ptrs = (prev_d.data_ptr(), prev_i.data_ptr())
     plan_t = _plan_tensor(plan, dev)
     gbuf = torch.empty((kpi, Hp, Wp), dtype=F32, device=dev)
@@ -328,24 +330,15 @@ def tile_fold_kdeep(fbd, setup, order, n_global, sorted_tri, starts, counts,
     return gbuf, best_d, best_i
 
 
-def _order_key(d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """int64 keys whose order is the lexicographic (depth, id) order.
-
-    -0.0 becomes +0.0 first (the fold compares them equal); the float bits
-    are mapped to an int32 of the same order and shifted above idx + 1."""
-    bits = (d + 0.0).view(I32).long()
-    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    return bits * (1 << 32) + (idx + 1)
-
-
 def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
                     payload, plan, *, tile_h, tile_w, kp, kpi, sl_screen,
                     sl_ia, clip_w_off, prev_d=None, prev_i=None):
     """tile_fold in plain PyTorch: same inputs, same outputs, same rounding.
 
     Every (tile, triangle) pair is expanded over the tile's pixels in
-    chunks, each fragment becomes an int64 (depth, id) key and a
-    scatter-amax keeps the lexicographic max per pixel; the resolve then
+    chunks, each fragment becomes an int64 (depth, id) key
+    (raster.fold_keys) and a scatter-amax keeps the lexicographic max per
+    pixel; the resolve then
     gathers each pixel's winner row and interpolates.  With prev maps a
     fragment is admitted only if its key is below its pixel's
     (prev_d, prev_i) key and its id is not prev_i, and the pairs of tiles
@@ -356,69 +349,47 @@ def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
     ntiles, tpx = nty * ntx, tile_h * tile_w
     lane = torch.arange(tpx, device=dev)
     lx, ly = lane % tile_w, lane // tile_w
-    tiles = torch.arange(ntiles, device=dev)
+    pair_tile, pair_tri = tile_pairs(order, n_global, sorted_tri, starts,
+                                     counts)
 
-    ng = int(n_global[0])
-    counts = counts.long()
-    seg_tile = tiles.repeat_interleave(counts)
-    first = counts.cumsum(0) - counts
-    seg_pos = starts.long()[seg_tile] + torch.arange(
-        seg_tile.numel(), device=dev) - first[seg_tile]
-    pair_tile = torch.cat([tiles.repeat_interleave(ng), seg_tile])
-    pair_tri = torch.cat([order[:ng].long().repeat(ntiles),
-                          sorted_tri.long()[seg_pos]])
+    def tiled(img):
+        return to_tiles(img, tile_h, tile_w)
 
-    def to_tiles(img):
-        return img.reshape(nty, tile_h, ntx, tile_w).permute(0, 2, 1, 3) \
-            .reshape(-1)
+    def to_image_(t):
+        return to_image(t, Hp, Wp, tile_h, tile_w)
 
-    def to_image(t):
-        return t.reshape(nty, ntx, tile_h, tile_w).permute(0, 2, 1, 3) \
-            .reshape(Hp, Wp)
-
+    le = DepthTest.LESS_EQUAL
     peel = prev_d is not None
     if peel:
-        prev_i_t = to_tiles(prev_i).long()
-        prev_key = _order_key(to_tiles(prev_d), prev_i_t)
+        prev_i_t = tiled(prev_i).long()
+        prev_key = raster.fold_keys(tiled(prev_d), prev_i_t, le)
         live = (prev_i_t.reshape(ntiles, tpx) >= 0).any(1)
         keep = live[pair_tile]
         pair_tile, pair_tri = pair_tile[keep], pair_tri[keep]
 
-    fbd_t = to_tiles(fbd)
-    keys = _order_key(fbd_t, torch.full_like(fbd_t, -1, dtype=torch.long))
-    never = torch.iinfo(torch.long).min
-    step = max(1, (1 << 22) // tpx)
+    fbd_t = tiled(fbd)
+    keys = raster.fold_keys(fbd_t, torch.full_like(
+        fbd_t, raster.NO_TRI, dtype=torch.long), le)
+    step = max(1, raster.MAX_CHUNK_ELEMS // tpx)
     for c0 in range(0, pair_tile.numel(), step):
         tl = pair_tile[c0:c0 + step]
         tri = pair_tri[c0:c0 + step]
-        px = ((tl % ntx) * tile_w)[:, None] + lx
-        py = ((tl // ntx) * tile_h)[:, None] + ly
-        px, py = px.to(F32), py.to(F32)
-        s = setup[tri]
-        s0x, s0y, s1x, s1y, s2x, s2y, d0, d1, d2, ia = (
-            s[:, k:k + 1] for k in range(N_SETUP))
-        w0 = (s1y - s2y) * (px - s1x) + (s2x - s1x) * (py - s1y)
-        w1 = (s2y - s0y) * (px - s2x) + (s0x - s2x) * (py - s2y)
-        w2 = (s0y - s1y) * (px - s0x) + (s1x - s0x) * (py - s0y)
-        inside = ((w0 >= 0) & (w1 >= 0) & (w2 >= 0)) | \
-                 ((w0 <= 0) & (w1 <= 0) & (w2 <= 0))
-        d = d0 * (w0 * ia) + d1 * (w1 * ia) + d2 * (w2 * ia)
+        px = (((tl % ntx) * tile_w)[:, None] + lx).to(F32)
+        py = (((tl // ntx) * tile_h)[:, None] + ly).to(F32)
+        inside, d = raster.fragments(setup[tri], px, py)
         ok = inside & (d > float("-inf"))       # NaN and -inf never win
-        key = _order_key(d, tri[:, None])
+        key = raster.fold_keys(d, tri[:, None], le)
         pix = (tl[:, None] * tpx + lane).reshape(-1)
         if peel:
             # "strictly below (pd, pi)" is key < key(pd, pi), with -0.0
             # and +0.0 one depth as in the kernel's float compares.
             ok &= (tri[:, None] != prev_i_t[pix].reshape(ok.shape)) \
                 & (key < prev_key[pix].reshape(ok.shape))
-        key = torch.where(ok, key, never)
+        key = torch.where(ok, key, raster.NEVER)
         keys.scatter_reduce_(0, pix, key.reshape(-1), reduce="amax")
 
-    best_i_t = (keys & 0xFFFFFFFF) - 1
-    hi = keys >> 32
-    bits = torch.where(hi < 0, hi ^ 0x7FFFFFFF, hi).to(I32).view(F32)
-    best_d = to_image(torch.where(best_i_t >= 0, bits, fbd_t))
-    best_i = to_image(best_i_t).to(I32)
+    best_d, best_i = raster.decode_keys(keys, fbd_t, le)
+    best_d, best_i = to_image_(best_d), to_image_(best_i)
     return _resolve_plain(payload, plan, best_i, kp, kpi, sl_screen, sl_ia,
                           clip_w_off), best_d, best_i
 

@@ -1,0 +1,132 @@
+"""The binned visibility fold of the deferred route, K5.
+
+Counterpart of ``softwarerenderer_tpu/ops/pallas_raster.py``: for every
+pixel, the (depth, triangle id) winner under LESS_EQUAL (the largest
+depth, later ids winning ties, a fragment at exactly the seed's depth
+beating the seed) over the tile's global list and then its binned segment,
+seeded with the framebuffer depth, with no payload and no resolve.
+``pallas_raster._fold_kernel`` becomes the hand-written CUDA kernel
+``csrc/vis_fold.cu`` behind ``vis_fold``, which launches it for CUDA
+tensors and runs the plain PyTorch twin ``visibility_fold_plain`` for CPU
+tensors; there is no fallback from one to the other.
+
+``visibility_fold`` is a visibility_fn of ``raster.render_deferred``
+(``pallas_raster.visibility_pallas``'s contract): it bins the triangles
+with ``params.tile_h`` (uncapped, unlike the tile kernel's 32) and
+``params.tile_w``, takes the set-up rows of ``raster.setup_rows`` (1/area
+zeroed for invalid slots) and folds them.  A NaN fragment never wins,
+where the TPU kernel's chunk-wide max lets one void its whole 128-lane
+chunk at that pixel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict, Optional
+
+import torch
+
+from softwarerenderer_tpu_torch.config import DepthTest, RenderParams
+from softwarerenderer_tpu_torch.ops import binning
+from softwarerenderer_tpu_torch.ops.tile_raster import N_SETUP, check_tensor
+
+F32 = torch.float32
+I32 = torch.int32
+
+# K5 launches so far; chip_smoke.py resets and reads it to show that a
+# frame went through the kernel.
+VIS_LAUNCHES = 0
+
+
+def visibility_fold_plain(fbd, setup, order, n_global, sorted_tri, starts,
+                          counts, *, tile_h, tile_w, row_offset=0):
+    """vis_fold in plain PyTorch: same inputs, same outputs, same rounding
+    (binning.fold_binned under LESS_EQUAL)."""
+    return binning.fold_binned(fbd, setup, order, n_global, sorted_tri,
+                               starts, counts, tile_h=tile_h, tile_w=tile_w,
+                               row_offset=row_offset,
+                               mode=DepthTest.LESS_EQUAL)
+
+
+def _entry():
+    from softwarerenderer_tpu_torch.kernels import build
+    fn = build.load("vis_fold").vis_fold_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def vis_fold(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
+             tile_h, tile_w, row_offset=0):
+    """The LESS_EQUAL winner of every pixel of the padded (Hp, Wp) tiles.
+
+    fbd (Hp, Wp) f32 seeds each pixel at id -1; setup (N, 10) f32 set-up
+    rows; order (N,) i32 with the n_global (1,) i32 globals first;
+    sorted_tri (L,), starts and counts (ntiles,) i32 each tile's segment
+    (binning.bin_triangles).  Returns (best_d (Hp, Wp) f32, best_i
+    (Hp, Wp) i32, -1 where the seed kept the pixel).  CUDA tensors launch
+    csrc/vis_fold.cu; CPU tensors run visibility_fold_plain."""
+    global VIS_LAUNCHES
+    if fbd.device.type == "cpu":
+        return visibility_fold_plain(fbd, setup, order, n_global,
+                                     sorted_tri, starts, counts,
+                                     tile_h=tile_h, tile_w=tile_w,
+                                     row_offset=row_offset)
+    if fbd.device.type != "cuda":
+        raise ValueError(f"vis_fold runs on cuda or cpu, not {fbd.device}")
+    dev = fbd.device
+    Hp, Wp = fbd.shape
+    if tile_h <= 0 or tile_w <= 0 or Hp % tile_h or Wp % tile_w:
+        raise ValueError(f"bad tiling {tile_h}x{tile_w} for {Hp}x{Wp}")
+    ntx, nty = Wp // tile_w, Hp // tile_h
+    n = setup.shape[0]
+    check_tensor("fbd", fbd, F32, (Hp, Wp), dev)
+    check_tensor("setup", setup, F32, (n, N_SETUP), dev)
+    check_tensor("order", order, I32, (n,), dev)
+    check_tensor("n_global", n_global, I32, (1,), dev)
+    check_tensor("sorted_tri", sorted_tri, I32, sorted_tri.shape, dev)
+    check_tensor("starts", starts, I32, (ntx * nty,), dev)
+    check_tensor("counts", counts, I32, (ntx * nty,), dev)
+    best_d = torch.empty((Hp, Wp), dtype=F32, device=dev)
+    best_i = torch.empty((Hp, Wp), dtype=I32, device=dev)
+    err = _entry()(fbd.data_ptr(), setup.data_ptr(), order.data_ptr(),
+                   n_global.data_ptr(), sorted_tri.data_ptr(),
+                   starts.data_ptr(), counts.data_ptr(), best_d.data_ptr(),
+                   best_i.data_ptr(), ntx, nty, tile_h, tile_w, row_offset,
+                   torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"vis_fold kernel launch failed: CUDA error {err}")
+    VIS_LAUNCHES += 1
+    return best_d, best_i
+
+
+def visibility_fold(tris: Dict, params: RenderParams,
+                    chunk: Optional[int] = None,
+                    init_depth: Optional[torch.Tensor] = None,
+                    row_offset=0, *, fold: Optional[Callable] = None):
+    """A visibility_fn of raster.render_deferred running K5: (best_depth
+    (H, W) f32, best_tri (H, W) i32) of the band of params.height rows at
+    screen row row_offset, seeded with init_depth.  LESS_EQUAL only.
+    chunk is the TPU kernel's DMA size and changes nothing here.  fold:
+    vis_fold (the default) or visibility_fold_plain."""
+    if params.depth_test != DepthTest.LESS_EQUAL:
+        raise NotImplementedError("the visibility fold supports LESS_EQUAL; "
+                                  "binning.visibility_binned folds the "
+                                  "other monotone depth tests")
+    args, kwargs = binning.fold_inputs(tris, params, params.tile_h,
+                                       params.tile_w, params.span_cap,
+                                       init_depth, row_offset)
+    best_d, best_i = (fold or vis_fold)(*args, **kwargs)
+    H, W = params.height, params.width
+    return best_d[:H, :W], best_i[:H, :W]
+
+
+def make_visibility_fold(fold: Optional[Callable] = None):
+    """visibility_fold as a visibility_fn, through `fold` (vis_fold by
+    default; visibility_fold_plain renders through the twin)."""
+    def fn(tris, params, chunk=None, init_depth=None, row_offset=0):
+        return visibility_fold(tris, params, chunk, init_depth, row_offset,
+                               fold=fold)
+    return fn

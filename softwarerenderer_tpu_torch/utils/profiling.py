@@ -1,7 +1,8 @@
 """Where the time of one frame goes, on a CUDA card.
 
     python -m softwarerenderer_tpu_torch.utils.profiling [--frames N]
-        [--width W] [--height H] [--kbuffer K | --raytrace CAP] [--out DIR]
+        [--width W] [--height H] [--kbuffer K | --raytrace CAP | --deferred]
+        [--out DIR]
 
 Renders the bench scene (``scenes.bench_scene()``) through ``Engine(scene,
 RenderParams(W, H), device="cuda")`` with ``scenes.camera_uniforms(u, i)``;
@@ -9,7 +10,9 @@ with --kbuffer K the K-buffer frame of ``scenes.translucent_scene()`` (the
 bench soup with six glass panes) through ``RenderParams(W, H, kbuffer=K,
 cull_mode=0)``; with --raytrace CAP the ray-traced frame with hard shadows,
 ``Engine(..., frame_fn=functools.partial(render_frame_raytraced,
-cluster_cap=CAP))``.  It prints:
+cluster_cap=CAP))``; with --deferred the deferred route's frame,
+``RenderParams(W, H, use_pallas=False)`` (K5, then the full-frame
+interpolation and shading).  It prints:
 
   * the scene's statistics at frame 0: for a raster frame its binning
     (valid clip-fan slots, global triangles, binned (tile, triangle) pairs,
@@ -48,7 +51,7 @@ SPANS = ("frame.camera_cull", "frame.geometry", "frame.extras",
          "tile.peel_fold", "tile.peel_shade", "tile.replay",
          "rt.world", "rt.accel", "rt.prep", "rt.sweep_nearest",
          "rt.sweep_any", "rt.winner", "rt.shade", "rt.brute_cast",
-         "rt.composite")
+         "rt.composite", "vis.fold", "deferred.interp", "deferred.shade")
 
 
 def scene_stats(eng, uniforms) -> Dict:
@@ -78,6 +81,27 @@ def scene_stats(eng, uniforms) -> Dict:
         "covered_per_pass": [float((bi[:H, :W] >= 0).float().mean())
                              for _, bi in seen],
     }
+
+
+def deferred_stats(eng, uniforms) -> Dict:
+    """Binning statistics of one deferred frame, read from K5's inputs,
+    and the share of the frame it covers."""
+    from softwarerenderer_tpu_torch.engine import frame_setup
+    from softwarerenderer_tpu_torch.ops import binning, vis_fold
+    p = eng.params
+    f = frame_setup(eng.scene, uniforms, p)
+    args, kwargs = binning.fold_inputs(f["tris"], p, p.tile_h, p.tile_w,
+                                       p.span_cap)
+    _, bi = vis_fold.vis_fold(*args, **kwargs)
+    _, setup, _, n_global, _, _, counts = args
+    H, W = eng.params.height, eng.params.width
+    ng = int(n_global[0])
+    return {"slots": int(setup.shape[0]),
+            "valid_slots": int((setup[:, 9] != 0).sum()),
+            "global_triangles": ng, "tiles": int(counts.numel()),
+            "binned_pairs": int(counts.sum()),
+            "busiest_tile_folded": ng + int(counts.max()),
+            "covered": float((bi[:H, :W] >= 0).float().mean())}
 
 
 def raytrace_stats(eng, uniforms, cap: int) -> Dict:
@@ -176,6 +200,7 @@ def main(argv=None) -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--kbuffer", type=int, default=0)
     ap.add_argument("--raytrace", type=int, default=0, metavar="CAP")
+    ap.add_argument("--deferred", action="store_true")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   "profile"))
     a = ap.parse_args(argv)
@@ -186,9 +211,9 @@ def main(argv=None) -> int:
     from softwarerenderer_tpu_torch.config import RenderParams
     from softwarerenderer_tpu_torch.engine import Engine
 
-    if a.kbuffer > 1 and a.raytrace:
-        print("profiling: --kbuffer and --raytrace are two frames; pick one",
-              file=sys.stderr)
+    if sum((a.kbuffer > 1, bool(a.raytrace), a.deferred)) > 1:
+        print("profiling: --kbuffer, --raytrace and --deferred are "
+              "different frames; pick one", file=sys.stderr)
         return 1
     if a.kbuffer > 1:
         eng = Engine(scenes.translucent_scene(),
@@ -202,14 +227,20 @@ def main(argv=None) -> int:
                      device="cuda", frame_fn=functools.partial(
                          render_frame_raytraced, cluster_cap=a.raytrace))
     else:
-        eng = Engine(scenes.bench_scene(), RenderParams(a.width, a.height),
+        eng = Engine(scenes.bench_scene(),
+                     RenderParams(a.width, a.height,
+                                  use_pallas=not a.deferred),
                      device="cuda")
 
     def uniforms_at(i):
         return scenes.camera_uniforms(eng.uniforms, i)
 
-    stats = (raytrace_stats(eng, uniforms_at(0), a.raytrace) if a.raytrace
-             else scene_stats(eng, uniforms_at(0)))
+    if a.raytrace:
+        stats = raytrace_stats(eng, uniforms_at(0), a.raytrace)
+    elif a.deferred:
+        stats = deferred_stats(eng, uniforms_at(0))
+    else:
+        stats = scene_stats(eng, uniforms_at(0))
     _wall_ms(eng, 3, uniforms_at, True)                  # warm-up
     back_to_back = _wall_ms(eng, 30, uniforms_at, False)
     synced = _wall_ms(eng, 30, uniforms_at, True)
@@ -228,7 +259,7 @@ def main(argv=None) -> int:
     idle = 1.0 - summary["kernel_ms"] / synced
     result = {"device": torch.cuda.get_device_name(0),
               "size": [a.width, a.height], "kbuffer": a.kbuffer,
-              "raytrace": a.raytrace,
+              "raytrace": a.raytrace, "deferred": a.deferred,
               "scene": stats,
               "frame_ms_back_to_back": back_to_back,
               "frame_ms_synchronised": synced,

@@ -47,9 +47,14 @@ import functools, sys
 from softwarerenderer_tpu_torch import RenderParams, scenes
 from softwarerenderer_tpu_torch.engine import Engine
 from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
-for fn in (None, functools.partial(render_frame_raytraced, cluster_cap=24)):
-    eng = Engine(scenes.bench_scene(), RenderParams(64, 48), device="cpu",
-                 frame_fn=fn)
+from softwarerenderer_tpu_torch.config import DebugMode
+for fn, kw in ((None, {}), (None, {"use_pallas": False}),
+               (None, {"deferred": False}),
+               (None, {"debug_mode": DebugMode.DEPTH}),
+               (functools.partial(render_frame_raytraced, cluster_cap=24),
+                {})):
+    eng = Engine(scenes.bench_scene(), RenderParams(64, 48, **kw),
+                 device="cpu", frame_fn=fn)
     rgb = eng.present(scenes.camera_uniforms(eng.uniforms, 0))
     assert rgb.shape == (48, 64, 3), rgb.shape
 bad = [m for m in sys.modules
@@ -64,7 +69,9 @@ print("ok")
 @pytest.mark.parametrize("what", sorted(_IMPORTS))
 def test_port_never_imports_jax(what):
     """Import every module of the port (or chip_smoke.py), render a raster
-    and a ray-traced CPU frame of the port's own bench scene, and find
+    frame through the tile route, the deferred route (K5's twin), the
+    forward route and a debug view, and a ray-traced CPU frame of the
+    port's own bench scene, and find
     neither JAX, nor bench or scripts, nor any module of the JAX package
     (``softwarerenderer_tpu_torch`` itself only shares its prefix)."""
     code = _IMPORTS[what] + _RENDER_AND_CHECK
@@ -338,9 +345,7 @@ def test_tile_fold_rejects_a_bad_plan(plan, kpi, match):
 
 @pytest.mark.parametrize("field,value", [
     ("ssaa", 2), ("ssao", True), ("bloom", True), ("tonemap", "aces"),
-    ("fxaa", True), ("kbuffer", 4), ("debug_mode", DebugMode.WIREFRAME),
-    ("deferred", False), ("binned", False),
-    ("depth_test", DepthTest.GREATER), ("active_cap", 1000),
+    ("fxaa", True), ("kbuffer", 4), ("active_cap", 1000),
     ("geom_cap", 1000), ("pair_cap", 1000), ("global_cap", 512),
     ("use_mipmaps", True), ("shade_rate", 2), ("active_cap_stats", True),
 ])
@@ -350,6 +355,43 @@ def test_unsupported_params_raise(field, value):
     also = {"kbuffer": {"depth_test": DepthTest.GREATER}}.get(field, {})
     params = RenderParams(64, 48).replace(**{field: value}, **also)
     with pytest.raises(NotImplementedError, match=field):
+        Engine(small_scene(), params, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("debug_mode", DebugMode.WIREFRAME), ("deferred", False),
+    ("binned", False), ("depth_test", DepthTest.GREATER),
+    ("debug_mode", DebugMode.OVERDRAW)])
+def test_once_refused_params_render_and_match_jax(field, value):
+    """Fields the port refused until the deferred route existed now render
+    through Engine and match JAX's render_frame on the package scene (the
+    camera inside the soup, so near-clipped triangles): at most PERF.md
+    section 2's D5 share, 0.5 %, of the pixels differ by > 1e-5, where
+    XLA's contracted edge functions flip an edge pixel.  GREATER starts
+    from a MaxValue depth buffer, without which it draws nothing."""
+    import functools
+    import jax
+    from softwarerenderer_tpu.engine import renderer as jr
+    params = RenderParams(64, 48).replace(**{field: value})
+    u = jr.default_frame_uniforms(64, 48)
+    fb = None
+    if value == DepthTest.GREATER:
+        fb = (np.broadcast_to(u["clear_color"], (48, 64, 4)).copy(),
+              np.full((48, 64), np.finfo(np.float32).max, np.float32))
+    scene = small_scene()
+    jc, jd = map(np.asarray, jax.jit(functools.partial(
+        jr.render_frame, params=params))(scene, u, fb=fb))
+    c, d = (t.numpy() for t in Engine(scene, params, device="cpu").render(
+        u, fb=fb))
+    assert np.isfinite(c).all()
+    assert (np.abs(c - jc).max(-1) > 1e-5).mean() <= 5e-3
+    assert (np.abs(d - jd) > 1e-5).mean() <= 5e-3
+    assert (np.abs(c - u["clear_color"]).max(-1) > 1e-3).mean() > 0.02
+
+
+def test_kbuffer_with_another_depth_test_still_raises():
+    params = RenderParams(64, 48, kbuffer=4, depth_test=DepthTest.LESS)
+    with pytest.raises(NotImplementedError, match="kbuffer"):
         Engine(small_scene(), params, device="cpu")
 
 
