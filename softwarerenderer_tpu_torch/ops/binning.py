@@ -202,14 +202,14 @@ def fold_inputs(tris: Dict, params: RenderParams, tile_h: int, tile_w: int,
 def visibility_binned(tris: Dict, params: RenderParams, chunk: int = 32,
                       init_depth=None, row_offset: int = 0, *,
                       tile_h: int = 32, tile_w: int = 128,
-                      span_cap: int = 16, tile_group: int = 8):
+                      span_cap: int = 16):
     """Binned per-pixel (depth, triangle id) winner under any monotone
     depth test: the contract of raster.visibility_brute_force, with work
     proportional to the triangle-tile overlap.
 
     The frame is the band of params.height rows starting at screen row
-    row_offset.  chunk and tile_group are the JAX package's working-set
-    sizes and change nothing here.  Returns (best_depth (H, W) f32,
+    row_offset.  chunk is the JAX package's working-set size and changes
+    nothing here; its tile_group goes with the tile maps.  Returns (best_depth (H, W) f32,
     best_tri (H, W) i32)."""
     mode = params.depth_test
     raster.reduce_rules(mode)
@@ -221,11 +221,11 @@ def visibility_binned(tris: Dict, params: RenderParams, chunk: int = 32,
 
 
 def make_binned_visibility(tile_h: int = 32, tile_w: int = 128,
-                           span_cap: int = 16, tile_group: int = 8):
+                           span_cap: int = 16):
     """A visibility_fn for raster.render_deferred: visibility_binned with
     this tiling."""
     def fn(tris, params, chunk=32, init_depth=None, row_offset=0):
         return visibility_binned(tris, params, chunk, init_depth, row_offset,
                                  tile_h=tile_h, tile_w=tile_w,
-                                 span_cap=span_cap, tile_group=tile_group)
+                                 span_cap=span_cap)
     return fn

@@ -28,15 +28,15 @@ _RAMP_RGB = ((0.0, 0.0, 0.0),
              (1.0, 0.12, 0.08))
 
 
-def overdraw_count(tris: Dict, params: RenderParams, chunk: int = 128,
-                   row_offset=0, col_offset=0) -> torch.Tensor:
+def overdraw_count(tris: Dict, params: RenderParams, chunk: int = 128
+                   ) -> torch.Tensor:
     """(H, W) int32 count of valid triangle slots covering each pixel:
     valid slots only, at most raster.MAX_CHUNK_ELEMS (slot, pixel) pairs
     at a time; `chunk` changes nothing here."""
     H, W = params.height, params.width
     dev = tris["screen"].device
     setup = raster.setup_rows(tris)
-    px, py = raster.pixel_grid(H, W, dev, row_offset, col_offset)
+    px, py = raster.pixel_grid(H, W, dev)
     ids = torch.nonzero(tris["valid"]).squeeze(1)
     count = torch.zeros(H * W, dtype=torch.int32, device=dev)
     step = max(1, raster.MAX_CHUNK_ELEMS // (H * W))

@@ -159,9 +159,9 @@ def fragments(s: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     return inside, d
 
 
-def pixel_grid(H: int, W: int, device, row_offset=0, col_offset=0):
+def pixel_grid(H: int, W: int, device, row_offset=0):
     """(1, H*W) f32 pixel columns and rows, row-major."""
-    px = torch.arange(W, device=device) + col_offset
+    px = torch.arange(W, device=device)
     py = torch.arange(H, device=device) + row_offset
     return (px.repeat(H).to(F32)[None],
             py.repeat_interleave(W).to(F32)[None])
@@ -194,7 +194,8 @@ def visibility_brute_force(tris: Dict, params: RenderParams,
     Returns (best_depth (H, W) f32, best_tri (H, W) i32, NO_TRI where the
     seed init_depth (the cleared or previous depth buffer, DEPTH_CLEAR by
     default) kept the pixel).  Every fragment must beat the seed under the
-    active comparison, as the reference tests against the buffer.  Only
+    active comparison, as the reference tests against the buffer.  The
+    frame is the (H, W) block at screen (row_offset, col_offset).  Only
     valid slots are evaluated (one host read of their ids), in chunks of
     at most MAX_CHUNK_ELEMS (slot, pixel) pairs; `chunk` is the JAX
     package's step size and changes nothing here."""
@@ -204,7 +205,8 @@ def visibility_brute_force(tris: Dict, params: RenderParams,
     if init_depth is None:
         init_depth = torch.full((H, W), DEPTH_CLEAR, dtype=F32, device=dev)
     setup = setup_rows(tris)
-    px, py = pixel_grid(H, W, dev, row_offset, col_offset)
+    px, py = pixel_grid(H, W, dev, row_offset)
+    px = px + col_offset
     ids = torch.nonzero(tris["valid"]).squeeze(1)
     return _brute_fold(init_depth, ids,
                        lambda t: fragments(setup[t], px, py),
@@ -222,7 +224,7 @@ def default_visibility(params: RenderParams) -> Callable:
         return vis_fold.visibility_fold
     return binning.make_binned_visibility(
         tile_h=params.tile_h, tile_w=params.tile_w,
-        span_cap=params.span_cap, tile_group=params.tile_group)
+        span_cap=params.span_cap)
 
 
 def _normalized(v):
@@ -294,8 +296,7 @@ def _packed(tris: Dict):
 
 
 def interpolate_at_pixels(tris: Dict, tri_id: torch.Tensor,
-                          covered: torch.Tensor, row_offset=0,
-                          col_offset=0) -> Dict:
+                          covered: torch.Tensor, row_offset=0) -> Dict:
     """Perspective-correct fragment inputs of each pixel's winning triangle
     (Rasterizer.Interpolate, Rasterizer.cs:566-640): area-normalized edge
     weights at integer pixel centres, the clip-w reciprocal correction
@@ -309,7 +310,7 @@ def interpolate_at_pixels(tris: Dict, tri_id: torch.Tensor,
     t = torch.where(covered, tri_id, 0).reshape(-1).long()
     planes = packed.reshape(n, 3 * ktot).t().contiguous()[:, t]
     a = [planes[v * ktot:(v + 1) * ktot] for v in range(3)]
-    px, py = pixel_grid(H, W, tri_id.device, row_offset, col_offset)
+    px, py = pixel_grid(H, W, tri_id.device, row_offset)
     px, py = px[0], py[0]
     corners = [r[sl_screen + j] for r in a for j in (0, 1)]
     ia = a[0][sl_screen + 2]
@@ -355,14 +356,13 @@ def shade_deferred(tris: Dict, best_depth, best_tri,
                    params: RenderParams, fb_color: torch.Tensor,
                    fb_depth: torch.Tensor,
                    per_tri_extra: Optional[Dict] = None,
-                   row_offset=0, col_offset=0):
+                   row_offset=0):
     """Shade each covered pixel's winner once, blend where the shaded alpha
     is > 0, and write its depth there (none with DISABLED).
     per_tri_extra: (T,) per-triangle tensors gathered into frag["tri"]."""
     covered = best_tri != NO_TRI
     with record_function("deferred.interp"):
-        frag = interpolate_at_pixels(tris, best_tri, covered, row_offset,
-                                     col_offset)
+        frag = interpolate_at_pixels(tris, best_tri, covered, row_offset)
         if per_tri_extra:
             t = torch.where(covered, best_tri, 0).long()
             frag["tri"] = {k: v[t] for k, v in per_tri_extra.items()}
@@ -434,8 +434,7 @@ def render_wireframe_deferred(tris: Dict, fragment_shader: Callable,
                               uniforms: Dict, params: RenderParams,
                               fb_color: torch.Tensor, fb_depth: torch.Tensor,
                               per_tri_extra: Optional[Dict] = None,
-                              chunk: Optional[int] = None,
-                              row_offset=0, col_offset=0):
+                              chunk: Optional[int] = None):
     """Deferred wireframe: the per-pixel (depth, edge) winner over the 3N
     triangle edges, then one shade of it.
 
@@ -450,7 +449,7 @@ def render_wireframe_deferred(tris: Dict, fragment_shader: Callable,
     H, W = fb_depth.shape
     dev = fb_depth.device
     p0, p1, d01, valid = _segments(tris)
-    px, py = pixel_grid(H, W, dev, row_offset, col_offset)
+    px, py = pixel_grid(H, W, dev)
 
     def evaluate(s):
         covered, d, _ = segment_fragments(p0[s][:, None], p1[s][:, None],

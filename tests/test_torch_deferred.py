@@ -127,6 +127,59 @@ def test_binned_and_brute_visibility_agree(mode):
     assert (bi >= 0).any()
 
 
+@pytest.mark.parametrize("row_offset,col_offset", [(0, 20), (12, 5)])
+def test_brute_force_offsets_match_jax(row_offset, col_offset):
+    """A (24, 32) block of the frame at screen (row_offset, col_offset):
+    the port's brute force against JAX's with the same offsets, and equal
+    to that block of the port's full frame."""
+    tris, _ = soup_tris()
+    block = RenderParams(width=32, height=24)
+    tt = to_torch(tris)
+    d, i = raster.visibility_brute_force(tt, block, row_offset=row_offset,
+                                         col_offset=col_offset)
+    jd, ji = map(np.asarray, jax.jit(lambda t: jraster.visibility_brute_force(
+        t, block, 32, row_offset=row_offset, col_offset=col_offset))(tris))
+    full_d, full_i = raster.visibility_brute_force(
+        tt, RenderParams(width=W, height=H))
+    rows = slice(row_offset, row_offset + 24)
+    cols = slice(col_offset, col_offset + 32)
+    assert torch.equal(i, full_i[rows, cols])
+    assert torch.equal(d, full_d[rows, cols])
+    assert (i >= 0).float().mean() > 0.05
+    same = i.numpy() == ji
+    assert same.mean() > 0.999
+    # Depth where the winners agree: the soup's bound against JAX
+    # (tests/test_torch_vis_fold.py DEPTH_ATOL, XLA's FMA contraction).
+    np.testing.assert_allclose(d.numpy()[same], jd[same], rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("binned", [True, False], ids=["binned", "brute"])
+def test_render_deferred_band_matches_jax(binned):
+    """render_deferred over a band of 24 rows at screen row 16 (the
+    visibility pass and interpolate_at_pixels both offset) against JAX's,
+    and against those rows of the port's full frame."""
+    tris, u = soup_tris()
+    params = RenderParams(width=W, height=24, binned=binned,
+                          cull_mode=CullMode.NONE, tile_h=16, tile_w=32,
+                          span_cap=4)
+    fbd = seed_depth(DepthTest.LESS_EQUAL)[:24]
+    fbc = np.broadcast_to(CLEAR, (24, W, 4))
+    jc, jd = map(np.asarray, jax.jit(lambda t, c, d: jraster.render_deferred(
+        t, jsh.flat_color_fragment_shader, u, params, c, d, row_offset=16))(
+            tris, fbc, fbd))
+    c, d = raster.render_deferred(to_torch(tris),
+                                  tsh.flat_color_fragment_shader, u, params,
+                                  torch.tensor(fbc), torch.tensor(fbd),
+                                  row_offset=16)
+    assert_frames_close(c.numpy(), d.numpy(), jc, jd, SIMPLE_FRAC)
+    full_c, full_d = raster.render_deferred(
+        to_torch(tris), tsh.flat_color_fragment_shader, u,
+        params.replace(height=H), torch.tensor(CLEAR).expand(H, W, 4),
+        torch.tensor(seed_depth(DepthTest.LESS_EQUAL)))
+    assert torch.equal(c, full_c[16:40]) and torch.equal(d, full_d[16:40])
+    assert (np.abs(jc - CLEAR).max(-1) > 1e-3).mean() > 0.05     # drew
+
+
 def test_default_visibility_routes():
     p = RenderParams(width=W, height=H)
     assert raster.default_visibility(p) is vis_fold.visibility_fold
