@@ -8,12 +8,16 @@ drives the port's four paths at 1080p:
 
   * the opaque frame (``Engine(scene, RenderParams(1920, 1080),
     device="cuda")``): K1, the tile kernel, against its plain PyTorch twin
-    on the bench scene, 30 counted frames, the frame against the plain
-    path, golden configs 1 and 2;
+    on the bench scene at 32x128 tiles and at four more tilings (a tile
+    smaller than a block, 8x64; three whole blocks a tile, 24x128; a ragged
+    last block, 20x128; a width that does not divide 256, 24x96), timed with and without its longest-first tile
+    order, 30 counted frames, the frame against the plain path, golden
+    configs 1 and 2;
   * the K-buffer (``RenderParams(1920, 1080, kbuffer=4, cull_mode=0)``):
     K2, the tile kernel's peel mode, against its twin on passes 1-3 of a
-    dense and a translucent frame and on an edge case, each live
-    translucent pass timed beside its bound; K3, the single-pass K-deep
+    dense and a translucent frame and on two edge cases (one with a tile
+    split over blocks), each live translucent pass timed beside its bound,
+    its live pixels and the blocks that return early; K3, the single-pass K-deep
     kernel, against its twin at K=4 on both frames; 30 counted frames of the
     translucent scene through the peel route and 30 through the K-deep
     route, frame 0 against the plain path and the two routes against each
@@ -65,7 +69,13 @@ GBUF_ATOL = 1e-5           # G-buffer, kernel vs plain
 # background pixels count against it too).
 FRAME_COVERED_MISMATCH_MAX = 1e-4
 KBUFFER = 4
-K1_REGISTERS = 126         # what ptxas gave K1 before the peel mode existed
+# Registers a thread of K1 and of K2 may use: 4 and 3 blocks of 256
+# threads an SM.
+TILE_REGISTERS = {"K1": 64, "K2": 80}
+# Phase 3's other tilings of the bench frame: a tile smaller than a block
+# of 1,024 pixels, one of three whole blocks, one with a ragged last block
+# and one whose width does not divide 256 (the kernel's other pixel layout).
+EXTRA_TILINGS = ((8, 64), (24, 128), (20, 128), (24, 96))
 # A K-buffer frame must have a live second layer on more than this share of
 # its pixels, or the translucency the peel exists for is not exercised.
 LIVE_SECOND_LAYER_MIN = 0.01
@@ -206,6 +216,96 @@ def peel_edge_case_inputs(device):
     return args, kwargs, best_i, best_d
 
 
+def split_tile_peel_inputs(device):
+    """Peel-mode tile-fold inputs for a 32x256 frame of two 32x128 tiles,
+    each split over four blocks of 1,024 pixels by the kernel, and the
+    expected (best_i, best_d) on the CPU.
+
+    Triangle 0 at depth -0.5 and triangle 1 at -0.25 cover both tiles
+    whole, over a -0.75 framebuffer.  Tile 0's only previous winner sits in
+    its last 1,024 pixels: (31, 100) with (-0.25, 1), so triangle 0 is
+    admitted there and 1 pinned out.  Because that pixel makes the whole
+    tile run, (2, 5) in its first 1,024 pixels and (10, 3) in its second,
+    both with prev_i = -1 beside prev_d = +1.0, admit both triangles and
+    the nearer one wins; (3, 7), with prev_i = -1 beside the clear depth,
+    is dead like the rest of the tile, and the third 1,024 pixels hold no
+    live pixel at all.  Tile 1 has no previous winner, so it is skipped
+    whole although (4, 137) holds prev_d = +1.0."""
+    s = [0.0, 0.0, 1024.0, 0.0, 0.0, 1024.0]
+    area = 1.0 / (1024.0 * 1024.0)
+    depths = [-0.5, -0.25]
+    setup = torch.tensor([s + [d, d, d, area] for d in depths])
+    kp = 5                          # id, screen x, screen y, 1/area, clip w
+    payload = torch.tensor([[float(t), sx, sy, area, 1.0]
+                            for t in range(2)
+                            for sx, sy in zip(s[0::2], s[1::2])])
+    payload = payload.reshape(2, 3 * kp)
+    h, w = 32, 256
+    fbd = torch.full((h, w), -0.75)
+    i32 = torch.int32
+    prev_d = torch.full((h, w), torch.finfo(torch.float32).min)
+    prev_i = torch.full((h, w), -1, dtype=i32)
+    prev_d[31, 100], prev_i[31, 100] = -0.25, 1
+    prev_d[2, 5] = prev_d[10, 3] = prev_d[4, 137] = 1.0
+    args = tuple(t.to(device) for t in (
+        fbd, setup, torch.tensor([0, 1], dtype=i32),
+        torch.tensor([0], dtype=i32), torch.tensor([0, 1, 0, 1], dtype=i32),
+        torch.tensor([0, 2], dtype=i32), torch.tensor([2, 2], dtype=i32),
+        payload)) + ((("v0", 0, 0), ("bary", 0, 0), ("pc", 0, 1)),)
+    kwargs = dict(tile_h=32, tile_w=128, kp=kp, kpi=5, sl_screen=1, sl_ia=3,
+                  clip_w_off=4, prev_d=prev_d.to(device),
+                  prev_i=prev_i.to(device))
+    best_i = torch.full((h, w), -1, dtype=i32)
+    best_i[31, 100] = 0
+    best_i[2, 5] = best_i[10, 3] = 1
+    best_d = torch.where(best_i == 0, -0.5, fbd)
+    best_d = torch.where(best_i == 1, -0.25, best_d)
+    return args, kwargs, best_i, best_d
+
+
+def peel_block_stats(prev_d, prev_i, tile_h, tile_w) -> dict:
+    """What a peel pass's prev maps leave K2 to do, computed in PyTorch:
+    the live pixels (not tile_raster.dead_pixels) inside tiles that run (a
+    prev_i >= 0 somewhere), the blocks of tile_raster.BLOCK_PX pixels in
+    all, and those that return early (no live pixel, or a tile that does
+    not run)."""
+    from softwarerenderer_tpu_torch.ops import binning, tile_raster
+    tpx = tile_h * tile_w
+    per_tile = binning.cdiv(tpx, tile_raster.BLOCK_PX)
+    live = ~tile_raster.dead_pixels(prev_d, prev_i)
+    live = binning.to_tiles(live, tile_h, tile_w).reshape(-1, tpx)
+    runs = binning.to_tiles(prev_i >= 0, tile_h, tile_w).reshape(-1, tpx) \
+        .any(1)
+    live = live & runs[:, None]
+    pad = per_tile * tile_raster.BLOCK_PX - tpx
+    folds = torch.nn.functional.pad(live, (0, pad)).reshape(
+        -1, per_tile, tile_raster.BLOCK_PX).any(2)
+    return {"live_px": int(live.sum()), "blocks": folds.numel(),
+            "early_blocks": int((~folds).sum())}
+
+
+def sparse_winner_maps(prev_d, prev_i, tile_h, tile_w, part):
+    """Prev maps with the live pixels of (prev_d, prev_i) but fewer
+    previous winners: of every `part` consecutive pixels of a tile only
+    the first winner stays, and the others become prev_i = -1 beside
+    prev_d = +inf (live, admitting every fragment).  With part = the
+    tile's pixels a tile keeps one winner, so K2's other blocks of that
+    tile must look for it; with part = tile_raster.BLOCK_PX every block
+    that had a winner keeps one of its own."""
+    from softwarerenderer_tpu_torch.ops import binning
+    Hp, Wp = prev_i.shape
+    pi = binning.to_tiles(prev_i, tile_h, tile_w).reshape(-1, part)
+    pd = binning.to_tiles(prev_d, tile_h, tile_w).reshape(-1, part)
+    win = pi >= 0
+    first = win & (win.cumsum(1) == 1)
+    pi = torch.where(first, pi, -1)
+    pd = torch.where(win & ~first, float("inf"), pd)
+    return (binning.to_image(pd.reshape(-1), Hp, Wp, tile_h, tile_w)
+            .contiguous(),
+            binning.to_image(pi.reshape(-1), Hp, Wp, tile_h, tile_w)
+            .contiguous())
+
+
 def _vis_case(tris, globs, segs, fbd, tile_h, tile_w, row_offset, device):
     """vis_fold's (args, kwargs) for triangles [(screen corners, depth)]
     with constant depth, `globs` the global ids and `segs` each tile's
@@ -338,8 +438,10 @@ def sweep_bound(args, outputs, swept) -> dict:
 def report_ptxas(output: str) -> None:
     """Print ptxas's registers, spills and shared memory per kernel
     instantiation; fail on a spill."""
-    names = {"tile_raster_kernelILb0E": "K1 tile_raster_kernel<false>",
-             "tile_raster_kernelILb1E": "K2 tile_raster_kernel<true>",
+    names = {"tile_raster_kernelILb0ELb1E": "K1 tile_raster_kernel<opaque, "
+                                            "one column a thread>",
+             "tile_raster_kernelILb0ELb0E": "K1 tile_raster_kernel<opaque>",
+             "tile_raster_kernelILb1ELb0E": "K2 tile_raster_kernel<peel>",
              "vis_fold_kernel": "K5 vis_fold_kernel",
              "rt_sweep_kernelILb0E": "K4 rt_sweep_kernel<nearest>",
              "rt_sweep_kernelILb1E": "K4 rt_sweep_kernel<any-hit>"}
@@ -355,10 +457,11 @@ def report_ptxas(output: str) -> None:
             log(f"  ptxas {fn}: {line.strip()}")
             check(" 0 bytes spill stores" in line or "spill" not in line,
                   f"{fn} spills: {line.strip()}")
-            if fn.startswith("K1") and "Used " in line:
+            if fn.startswith(("K1", "K2")) and "Used " in line:
                 regs = int(line.split("Used ")[1].split()[0])
-                check(regs <= K1_REGISTERS, f"K1 uses {regs} registers, "
-                      f"more than its {K1_REGISTERS}")
+                most = TILE_REGISTERS[fn[:2]]
+                check(regs <= most, f"{fn} uses {regs} registers, more "
+                      f"than {most}")
 
 
 def capture_folds(render, fold):
@@ -443,7 +546,11 @@ def check_peel_kernel(card, device, size) -> dict:
                     lambda: tile_raster.tile_fold_plain(*args, **pkw),
                     PLAIN_RUNS)
                 out.update(fold_bound(args, pkw, (kg, kd, ki)))
-                log(f"phase 6 K2 dense pass 1: kernel {out['ms']:.3f} ms "
+                st = peel_block_stats(pkw["prev_d"], pkw["prev_i"],
+                                      pkw["tile_h"], pkw["tile_w"])
+                log(f"phase 6 K2 dense pass 1: {st['live_px']} live "
+                    f"pixels, {st['early_blocks']} of {st['blocks']} blocks "
+                    f"return early; kernel {out['ms']:.3f} ms "
                     f"(median of {KERNEL_RUNS}), plain "
                     f"{out['plain_ms']:.3f} ms (median of {PLAIN_RUNS}); "
                     f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}, "
@@ -452,25 +559,58 @@ def check_peel_kernel(card, device, size) -> dict:
                 ms = cuda_ms(lambda: tile_raster.tile_fold(*args, **pkw),
                              KERNEL_RUNS)
                 b = fold_bound(args, pkw, (kg, kd, ki))
-                log(f"phase 6 K2 translucent pass {k} (tiles without an "
-                    f"eligible pixel skip): kernel {ms:.3f} ms (median of "
+                st = peel_block_stats(pkw["prev_d"], pkw["prev_i"],
+                                      pkw["tile_h"], pkw["tile_w"])
+                log(f"phase 6 K2 translucent pass {k}: {st['live_px']} live "
+                    f"pixels, {st['early_blocks']} of {st['blocks']} blocks "
+                    f"return early; kernel {ms:.3f} ms (median of "
                     f"{KERNEL_RUNS}); bound {b['bound_ms']:.4f} ms "
                     f"({b['bound_by']}, {b['tests']} tests) [{card}]")
+                out[f"translucent_pass{k}_ms"] = ms
+            if name == "translucent" and k == 1:
+                # What finding the tile's run flag costs: the same live
+                # pixels with one previous winner a tile (blocks without
+                # it read the rest of their tile's prev_i) against one a
+                # block (no block does).
+                th, tw = pkw["tile_h"], pkw["tile_w"]
+                times = {}
+                for what, part in (("tile", th * tw),
+                                   ("block", tile_raster.BLOCK_PX)):
+                    sd, si = sparse_winner_maps(pkw["prev_d"], pkw["prev_i"],
+                                                th, tw, part)
+                    skw = dict(pkw, prev_d=sd, prev_i=si)
+                    a = tile_raster.tile_fold(*args, **skw)
+                    b = tile_raster.tile_fold_plain(*args, **skw)
+                    n = int((a[2] != b[2]).sum()) + int((a[1] != b[1]).sum())
+                    check(n == 0, f"K2 with one winner a {what} differs "
+                          f"from its twin on {n} values")
+                    times[what] = cuda_ms(
+                        lambda: tile_raster.tile_fold(*args, **skw),
+                        KERNEL_RUNS)
+                log(f"phase 6 K2 run flag: translucent pass 1's live pixels "
+                    f"with one previous winner a tile {times['tile']:.3f} "
+                    f"ms, with one a block {times['block']:.3f} ms (medians "
+                    f"of {KERNEL_RUNS}; both equal the twin) [{card}]")
 
     # Ties at the previous winner's depth, -0.0 against +0.0 and a tile
-    # with no eligible pixel, on the card.
-    e_args, e_kwargs, e_best_i, e_best_d = peel_edge_case_inputs(device)
-    kernel = tile_raster.tile_fold(*e_args, **e_kwargs)
-    plain = tile_raster.tile_fold_plain(*e_args, **e_kwargs)
-    for name, (g, d, i) in (("kernel", kernel), ("plain", plain)):
-        check(torch.equal(i.cpu(), e_best_i),
-              f"peel edge case {name} best_i {i.cpu().tolist()}")
-        check(bool((d.cpu() == e_best_d).all()),
-              f"peel edge case {name} best_d {d.cpu().tolist()}")
-    check(torch.equal(kernel[0], plain[0]), "peel edge case G-buffer")
+    # with no eligible pixel; then a tile split over four blocks whose only
+    # previous winner is in the last one.  Both on the card.
+    for case, inputs in (("peel", peel_edge_case_inputs),
+                         ("split-tile peel", split_tile_peel_inputs)):
+        e_args, e_kwargs, e_best_i, e_best_d = inputs(device)
+        kernel = tile_raster.tile_fold(*e_args, **e_kwargs)
+        plain = tile_raster.tile_fold_plain(*e_args, **e_kwargs)
+        for name, (g, d, i) in (("kernel", kernel), ("plain", plain)):
+            wrong = (i.cpu() != e_best_i) | (d.cpu() != e_best_d)
+            check(not bool(wrong.any()),
+                  f"{case} edge case {name}: wrong at "
+                  f"{torch.nonzero(wrong)[:8].tolist()}")
+        check(torch.equal(kernel[0], plain[0]), f"{case} edge case G-buffer")
     log("phase 6 K2 edge cases (ties below, at and above the previous "
-        "winner, -0.0, a tile with no eligible pixel): kernel and plain "
-        "equal the expected winners")
+        "winner, -0.0, a tile with no eligible pixel; a tile split over "
+        "four blocks with its only previous winner in the last, a live "
+        "pixel without one in the first two, a block with none, a tile "
+        "skipped whole): kernel and plain equal the expected winners")
     return out
 
 
@@ -1226,27 +1366,10 @@ def check_small_routes(card, size, device="cuda") -> None:
               f"phase 16 {name}: nothing drawn")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
-    from softwarerenderer_tpu_torch import RenderParams, scenes
-    from softwarerenderer_tpu_torch.engine import Engine, render_frame
-    from softwarerenderer_tpu_torch.engine import to_rgb8
+def build_kernels() -> None:
+    """Phase 2: build every kernel from the checkout's sources and print
+    what ptxas says of each."""
     from softwarerenderer_tpu_torch.kernels import build
-    from softwarerenderer_tpu_torch.models.scene import build_scene_buffers
-    from softwarerenderer_tpu_torch.ops import rt_sweep, tile_raster
-    from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
-
-    card = gpu_line()
-    log(card)
-    log(f"phase 1 device: {torch.cuda.get_device_name(0)} x"
-        f"{torch.cuda.device_count()}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}")
-
-    # ---- phase 2: build the kernels from the checkout's sources ---------
     t0 = time.perf_counter()
     libs = build.build_all(["tile_raster", "tile_kdeep", "rt_sweep",
                             "vis_fold"])
@@ -1256,18 +1379,35 @@ def main() -> int:
     for name in libs:
         report_ptxas(build.BUILD_LOG.get(name, (0, ""))[1])
 
-    # ---- phase 3: kernel against plain on the main path's inputs --------
-    params = RenderParams(W, H)
-    eng = Engine(scenes.bench_scene(), params, device="cuda")
-    u0 = scenes.camera_uniforms(eng.uniforms, 0)
-    captured = {}
 
-    def capture(*args, **kwargs):
-        captured["args"], captured["kwargs"] = args, kwargs
-        return tile_raster.tile_fold(*args, **kwargs)
+def bench_engine(device="cuda", size=(W, H)):
+    """The opaque main path's engine, parameters and frame-0 uniforms."""
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import Engine
+    params = RenderParams(*size)
+    eng = Engine(scenes.bench_scene(), params, device=device)
+    return eng, params, scenes.camera_uniforms(eng.uniforms, 0)
 
-    render_frame(eng.scene, u0, params, fold=capture)
-    args, kwargs = captured["args"], captured["kwargs"]
+
+def first_fold(scene, u, params):
+    """(args, kwargs) of the first tile_fold call of a frame."""
+    from softwarerenderer_tpu_torch.engine import render_frame
+    from softwarerenderer_tpu_torch.ops import tile_raster
+    _, calls = capture_folds(
+        lambda f: render_frame(scene, u, params, fold=f),
+        tile_raster.tile_fold)
+    return calls[0][0], calls[0][1]
+
+
+def check_tile_kernel(card, eng, params, u0) -> dict:
+    """Phase 3: K1 against its plain twin on the main path's inputs (the
+    bench frame at 32x128 tiles), timed beside its bound and beside the
+    same launch with the tiles in plain order; the same frame at
+    EXTRA_TILINGS; a plan with every kind; the edge cases.  Returns the
+    fold's inputs and outputs and K1's numbers."""
+    from softwarerenderer_tpu_torch.ops import tile_raster
+    h, w = params.height, params.width
+    args, kwargs = first_fold(eng.scene, u0, params)
     kg, kd, ki = tile_raster.tile_fold(*args, **kwargs)
     pg, pd, pi = tile_raster.tile_fold_plain(*args, **kwargs)
     torch.cuda.synchronize()
@@ -1282,7 +1422,7 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: tile_raster.tile_fold_plain(*args, **kwargs),
                        PLAIN_RUNS)
     k1_bound = fold_bound(args, kwargs, (kg, kd, ki))
-    log(f"phase 3 kernel vs plain @{W}x{H}: {n_cov} covered pixels "
+    log(f"phase 3 kernel vs plain @{w}x{h}: {n_cov} covered pixels "
         f"({n_cov / ki.numel():.4f} of the frame); best_i differs on "
         f"{diff_i}, best_d on {diff_d} pixels; G-buffer max abs diff "
         f"{gbuf_err:.3g}, depth max abs diff {d_err:.3g}; kernel "
@@ -1295,6 +1435,58 @@ def main() -> int:
     check(diff_d == 0, f"best_d differs on {diff_d} pixels")
     check(gbuf_err <= GBUF_ATOL, f"G-buffer diff {gbuf_err}")
     check(n_cov > 0.05 * ki.numel(), f"only {n_cov} pixels covered")
+
+    # The same launch with the tiles in plain order instead of longest
+    # list first: equal outputs, and what the order is worth.
+    def plain_order(counts):
+        return torch.arange(counts.numel(), device=counts.device)
+
+    longest_first = tile_raster.tile_order
+    tile_raster.tile_order = plain_order
+    try:
+        og, od, oi = tile_raster.tile_fold(*args, **kwargs)
+        plain_order_ms = cuda_ms(
+            lambda: tile_raster.tile_fold(*args, **kwargs), KERNEL_RUNS)
+    finally:
+        tile_raster.tile_order = longest_first
+    again_ms = cuda_ms(lambda: tile_raster.tile_fold(*args, **kwargs),
+                       KERNEL_RUNS)
+    order_ms = cuda_ms(lambda: tile_raster.tile_order(args[6]), KERNEL_RUNS)
+    check(torch.equal(oi, ki) and torch.equal(od, kd)
+          and torch.equal(og, kg), "K1 depends on the tile order")
+    log(f"phase 3 K1 tile order: longest list first {kernel_ms:.3f} and "
+        f"{again_ms:.3f} ms, tiles in plain order {plain_order_ms:.3f} ms "
+        f"(medians of {KERNEL_RUNS}; equal outputs); tile_order alone "
+        f"{order_ms:.3f} ms; busiest tile {int(args[6].max())} pairs, mean "
+        f"{float(args[6].float().mean()):.1f} [{card}]")
+
+    # Other tilings of the same frame: a tile smaller than a block, whole
+    # blocks, a ragged last block.  Kernel against twin on the padded
+    # frame, and winners against the 32x128 frame's on the frame itself.
+    for th, tw in EXTRA_TILINGS:
+        t_args, t_kwargs = first_fold(
+            eng.scene, u0, params.replace(tile_h=th, tile_w=tw))
+        check((t_kwargs["tile_h"], t_kwargs["tile_w"]) == (th, tw),
+              f"tiling {th}x{tw} became {t_kwargs['tile_h']}x"
+              f"{t_kwargs['tile_w']}")
+        tg, td, ti = tile_raster.tile_fold(*t_args, **t_kwargs)
+        qg, qd, qi = tile_raster.tile_fold_plain(*t_args, **t_kwargs)
+        n_i, n_d = int((ti != qi).sum()), int((td != qd).sum())
+        g_err = (tg - qg).abs().max().item()
+        same_i = int((ti[:h, :w] != ki[:h, :w]).sum())
+        same_d = int((td[:h, :w] != kd[:h, :w]).sum())
+        ms = cuda_ms(lambda: tile_raster.tile_fold(*t_args, **t_kwargs),
+                     KERNEL_RUNS)
+        log(f"phase 3 K1 at {th}x{tw} tiles ({t_args[6].numel()} tiles, "
+            f"{int(t_args[6].sum())} pairs, {int(t_args[3][0])} globals): "
+            f"kernel vs plain best_i differs on {n_i}, best_d on {n_d} "
+            f"pixels, G-buffer max abs diff {g_err:.3g}; vs the 32x128 "
+            f"frame best_i differs on {same_i}, best_d on {same_d} pixels; "
+            f"kernel {ms:.3f} ms [{card}]")
+        check(n_i == 0 and n_d == 0 and g_err <= GBUF_ATOL,
+              f"K1 at {th}x{tw} tiles differs from its twin")
+        check(same_i == 0 and same_d == 0,
+              f"K1 at {th}x{tw} tiles differs from the 32x128 frame")
 
     # The main path's plan has pc, pw3 and v0 entries only; a plan over the
     # same payload with every kind (pc, pw, pw3, bary, v0) holds the
@@ -1314,7 +1506,7 @@ def main() -> int:
 
     # Ties, NaN and -inf depths and a -0.0 depth against a +0.0
     # framebuffer, through globals and segments, on the card.
-    e_args, e_kwargs, e_best_i, e_best_d = edge_case_inputs("cuda")
+    e_args, e_kwargs, e_best_i, e_best_d = edge_case_inputs(args[0].device)
     eg, ed, ei = tile_raster.tile_fold(*e_args, **e_kwargs)
     pg_e, pd_e, pi_e = tile_raster.tile_fold_plain(*e_args, **e_kwargs)
     for name, (g, d, i) in (("kernel", (eg, ed, ei)),
@@ -1326,6 +1518,34 @@ def main() -> int:
     check(torch.equal(eg, pg_e), "edge case G-buffer differs")
     log("phase 3 edge cases (depth ties, NaN, -inf, -0.0): kernel and plain "
         "equal the expected winners")
+    return dict(k1_bound, args=args, kwargs=kwargs, outputs=(kg, kd, ki),
+                max_abs_err=max(gbuf_err, d_err), ms=kernel_ms,
+                plain_ms=plain_ms)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import Engine, render_frame
+    from softwarerenderer_tpu_torch.engine import to_rgb8
+    from softwarerenderer_tpu_torch.models.scene import build_scene_buffers
+    from softwarerenderer_tpu_torch.ops import tile_raster
+    from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
+
+    card = gpu_line()
+    log(card)
+    log(f"phase 1 device: {torch.cuda.get_device_name(0)} x"
+        f"{torch.cuda.device_count()}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}")
+
+    build_kernels()
+    eng, params, u0 = bench_engine()
+    k1 = check_tile_kernel(card, eng, params, u0)
+    args, kwargs, (kg, kd, ki) = k1["args"], k1["kwargs"], k1["outputs"]
 
     # ---- phase 4: the main path, counted --------------------------------
     tile_raster.LAUNCHES = 0
@@ -1419,8 +1639,7 @@ def main() -> int:
     log(card)
     log(json.dumps({"kernels": [
         entry("tile_raster", "tile_raster.cu", "ops/pallas_tile.py:96",
-              launches, dict(k1_bound, max_abs_err=max(gbuf_err, d_err),
-                             ms=kernel_ms, plain_ms=plain_ms)),
+              launches, k1),
         entry("tile_raster_peel", "tile_raster.cu", "ops/pallas_tile.py:96",
               kframes["peel_launches"], peel),
         entry("tile_kdeep", "tile_kdeep.cu", "ops/pallas_tile.py:649",

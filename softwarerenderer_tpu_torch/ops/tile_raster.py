@@ -42,7 +42,8 @@ F32 = torch.float32
 I32 = torch.int32
 N_SETUP = 10          # s0x s0y s1x s1y s2x s2y d0 d1 d2 ia
 KINDS = {"pc": 0, "pw": 1, "pw3": 2, "bary": 3, "v0": 4}
-MAX_TILE_PX = 4096    # tile_raster.cu's 256 threads × 16 pixels
+BLOCK_PX = 1024       # pixels a block of tile_raster.cu owns: any tile_h x
+                      # tile_w runs as cdiv(tile_h * tile_w, BLOCK_PX) blocks
 MAX_KDEEP = 8         # the deepest K tile_kdeep.cu is instantiated for
 
 # Kernel launches so far, one count per kernel: K1 (tile_fold, opaque
@@ -196,7 +197,7 @@ def _check_cuda_inputs(name, fbd, setup, order, n_global, sorted_tri,
         raise ValueError(f"{name} runs on cuda or cpu, not {fbd.device}")
     dev = fbd.device
     Hp, Wp = fbd.shape
-    if Hp % tile_h or Wp % tile_w or tile_h * tile_w > MAX_TILE_PX:
+    if tile_h <= 0 or tile_w <= 0 or Hp % tile_h or Wp % tile_w:
         raise ValueError(f"bad tiling {tile_h}x{tile_w} for {Hp}x{Wp}")
     ntx, nty = Wp // tile_w, Hp // tile_h
     n = setup.shape[0]
@@ -209,6 +210,29 @@ def _check_cuda_inputs(name, fbd, setup, order, n_global, sorted_tri,
     check_tensor("counts", counts, I32, (ntx * nty,), dev)
     check_tensor("payload", payload, F32, (n, 3 * kp), dev)
     return ntx, nty
+
+
+def tile_order(counts: torch.Tensor) -> torch.Tensor:
+    """The order in which tile_raster.cu's blocks take the tiles: longest
+    binned list first, equal counts in tile order (a stable sort), so the
+    busiest tiles start in the first wave of blocks and short ones fill
+    the tail.  counts (ntiles,) int32; returns a permutation of
+    range(ntiles) as int64 on counts' device, with no host read.  The
+    fold does not depend on it: any permutation gives the same outputs."""
+    return torch.argsort(counts, descending=True, stable=True)
+
+
+def dead_pixels(prev_d: torch.Tensor, prev_i: torch.Tensor) -> torch.Tensor:
+    """The pixels at which a peel pass can admit no fragment, whatever the
+    triangles: no previous winner (prev_i < 0) and a previous depth that is
+    not above DEPTH_CLEAR (DEPTH_CLEAR itself, -inf or NaN).  A fragment is
+    admitted if it ranks strictly below (prev_d, prev_i); there "d <
+    prev_d" needs d = -inf, which never wins, and "d == prev_d and id <
+    prev_i" needs id < -1.  Every other pixel is live.  tile_raster.cu
+    folds live pixels only; tile_fold_plain gives a dead pixel (fbd, -1)
+    and a zero G-buffer.  On a K-buffer frame's own maps (prev_i = -1
+    paired with DEPTH_CLEAR) live means prev_i >= 0."""
+    return (prev_i < 0) & ~(prev_d > DEPTH_CLEAR)
 
 
 def _entry(lib_name: str, fn_name: str, n_ptr_head: int, n_int_tail: int):
@@ -238,7 +262,12 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
     and is not that winner, and a tile with no prev_i >= 0 folds nothing.
     Returns (gbuf (kpi, Hp, Wp) f32, best_d (Hp, Wp) f32, best_i (Hp, Wp)
     i32).  CUDA tensors launch csrc/tile_raster.cu; CPU tensors run
-    tile_fold_plain.  There is no fallback from one to the other."""
+    tile_fold_plain.  There is no fallback from one to the other.
+
+    The kernel takes any tile_h x tile_w that divides the frame: a block
+    owns BLOCK_PX pixels of a tile, blocks take the tiles in tile_order
+    (longest list first), and a peel pass folds only the pixels that are
+    not dead_pixels.  None of that shows in the outputs."""
     global LAUNCHES, PEEL_LAUNCHES
     _check_layout(plan, kp, kpi, sl_screen, sl_ia, clip_w_off)
     peel = prev_d is not None
@@ -260,15 +289,19 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
         check_tensor("prev_d", prev_d, F32, (Hp, Wp), dev)
         check_tensor("prev_i", prev_i, I32, (Hp, Wp), dev)
         prev_ptrs = (prev_d.data_ptr(), prev_i.data_ptr())
+    if setup.data_ptr() % 8:
+        raise ValueError("setup must start on an 8-byte boundary")
     plan_t = _plan_tensor(plan, dev)
+    tiles = tile_order(counts)
     gbuf = torch.empty((kpi, Hp, Wp), dtype=F32, device=dev)
     best_d = torch.empty((Hp, Wp), dtype=F32, device=dev)
     best_i = torch.empty((Hp, Wp), dtype=I32, device=dev)
-    fn = _entry("tile_raster", "tile_raster_launch", 11, 9)
+    fn = _entry("tile_raster", "tile_raster_launch", 12, 9)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(fbd.data_ptr(), *prev_ptrs, setup.data_ptr(), order.data_ptr(),
              n_global.data_ptr(), sorted_tri.data_ptr(), starts.data_ptr(),
-             counts.data_ptr(), payload.data_ptr(), plan_t.data_ptr(),
+             counts.data_ptr(), tiles.data_ptr(), payload.data_ptr(),
+             plan_t.data_ptr(),
              len(plan), gbuf.data_ptr(), best_d.data_ptr(),
              best_i.data_ptr(), ntx, nty, tile_h, tile_w, kp, kpi,
              sl_screen, sl_ia, clip_w_off, stream)
@@ -362,7 +395,11 @@ def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
     peel = prev_d is not None
     if peel:
         prev_i_t = tiled(prev_i).long()
-        prev_key = raster.fold_keys(tiled(prev_d), prev_i_t, le)
+        prev_d_t = tiled(prev_d)
+        prev_key = raster.fold_keys(prev_d_t, prev_i_t, le)
+        # Nothing ranks below a NaN depth (the kernel's float compares all
+        # fail), whatever its bits would make of it as a key.
+        prev_key = torch.where(torch.isnan(prev_d_t), raster.NEVER, prev_key)
         live = (prev_i_t.reshape(ntiles, tpx) >= 0).any(1)
         keep = live[pair_tile]
         pair_tile, pair_tri = pair_tile[keep], pair_tri[keep]

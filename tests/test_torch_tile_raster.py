@@ -22,6 +22,16 @@ from softwarerenderer_tpu_torch.ops import tile_raster
 KEEP = frozenset(jr.scene_fragment_shader.varyings)
 
 
+def _smoke():
+    """chip_smoke.py, the script at the repository's root."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
 def cubes_scene():
     checker = np.asarray(tex_np.checkerboard(16, 4)["data"])
     insts = [scene_mod.MeshInstance(primitives.plane(20.0),
@@ -172,12 +182,7 @@ def test_plain_fold_edge_depths_match_chip_smoke_expectation():
     (depth ties, NaN and -inf depths, -0.0 against a +0.0 framebuffer, a
     global and two segments) gives the expected winners in the plain twin,
     so a failure there is the kernel's and not the expectation's."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    from chip_smoke import edge_case_inputs
-    args, kwargs, want_i, want_d = edge_case_inputs("cpu")
+    args, kwargs, want_i, want_d = _smoke().edge_case_inputs("cpu")
     gbuf, best_d, best_i = tile_raster.tile_fold(*args, **kwargs)
     assert torch.equal(best_i, want_i)
     assert (best_d == want_d).all()
@@ -275,13 +280,151 @@ def test_plain_peel_edge_case_matches_chip_smoke_expectation():
     at the previous winner's depth with ids below, equal to and above it,
     -0.0 against +0.0, a tile with no eligible pixel) gives the expected
     winners in the plain twin."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    from chip_smoke import peel_edge_case_inputs
-    args, kwargs, want_i, want_d = peel_edge_case_inputs("cpu")
+    args, kwargs, want_i, want_d = _smoke().peel_edge_case_inputs("cpu")
     gbuf, best_d, best_i = tile_raster.tile_fold(*args, **kwargs)
     assert torch.equal(best_i, want_i)
     assert torch.equal(best_d, want_d)       # -0.0 == +0.0, as the fold
     assert torch.equal(gbuf[0], torch.where(want_i >= 0, want_i, 0).float())
+
+
+# prev_d values of the dead-pixel rule's test: finite depths either side of
+# the scene's, the clear depth, both infinities, NaN and both zeros.
+PREV_DEPTHS = [-0.9, -0.5, -0.25, 0.5, float(DEPTH_CLEAR), float("-inf"),
+               float("inf"), float("nan"), 0.0, -0.0]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_dead_pixels_get_clear_outputs(seed):
+    """tile_raster.dead_pixels is the kernel's rule for the pixels a peel
+    pass need not fold.  On random prev maps (finite depths, DEPTH_CLEAR,
+    +-inf, NaN, +-0.0; prev_i of -1, 0 and larger) over random triangles
+    that cover a 2-tile frame, tile_fold_plain gives every pixel the rule
+    calls dead its framebuffer depth, -1 and a zero G-buffer; and the rule
+    calls dead exactly the pixels with no previous winner whose depth is
+    not above the clear depth."""
+    rng = np.random.default_rng(seed)
+    h, w, n = 4, 16, 6
+    s = [-64.0, -64.0, 192.0, -64.0, -64.0, 192.0]      # covers the frame
+    depths = rng.choice([-0.75, -0.5, -0.25, 0.0, 0.25], size=n)
+    setup = torch.tensor([s + [d, d, d, 1.0 / 65536.0] for d in depths],
+                         dtype=torch.float32)
+    kp = 5
+    payload = torch.tensor(
+        [[float(t) + 1.0, sx, sy, 1.0 / 65536.0, 1.0] for t in range(n)
+         for sx, sy in zip(s[0::2], s[1::2])]).reshape(n, 3 * kp)
+    i32 = torch.int32
+    ids = torch.arange(n, dtype=i32)
+    fbd = torch.tensor(rng.uniform(-1.0, -0.6, (h, w)).astype(np.float32))
+    prev_d = torch.tensor(rng.choice(PREV_DEPTHS, size=(h, w))
+                          .astype(np.float32))
+    prev_i = torch.tensor(rng.choice([-1, -1, 0, 3, n - 1], size=(h, w))
+                          .astype(np.int32))
+    prev_i[0, 0] = prev_i[0, 8] = 0            # both tiles run
+    args = (fbd, setup, ids, torch.tensor([2], dtype=i32),
+            torch.cat([ids[2:], ids[2:]]), torch.tensor([0, n - 2], dtype=i32),
+            torch.tensor([n - 2, n - 2], dtype=i32), payload,
+            (("v0", 0, 0), ("bary", 0, 0)))
+    kw = dict(tile_h=4, tile_w=8, kp=kp, kpi=4, sl_screen=1, sl_ia=3,
+              clip_w_off=4)
+    dead = tile_raster.dead_pixels(prev_d, prev_i)
+    want = (prev_i < 0) & (torch.isnan(prev_d)
+                           | (prev_d <= float(DEPTH_CLEAR)))
+    assert torch.equal(dead, want)
+    assert dead.any() and not dead.all()
+    gbuf, best_d, best_i = tile_raster.tile_fold_plain(
+        *args, **kw, prev_d=prev_d, prev_i=prev_i)
+    assert (best_i[dead] == -1).all()
+    assert torch.equal(best_d[dead], fbd[dead])
+    assert not gbuf[:, dead].any()
+    assert (best_i[~dead] >= 0).any()          # live pixels do admit
+
+
+@pytest.mark.parametrize("counts", [
+    [], [7], [0, 0, 0, 0], [5, 5, 5], [3, 0, 9, 9, 1, 0, 9, 2],
+    list(np.random.default_rng(5).integers(0, 40, 510))],
+    ids=["empty", "one", "zeros", "equal", "ties", "ragged510"])
+def test_tile_order_is_a_stable_descending_permutation(counts):
+    c = torch.tensor(counts, dtype=torch.int32)
+    order = tile_raster.tile_order(c)
+    assert order.dtype == torch.int64 and order.device == c.device
+    assert order.shape == c.shape
+    assert sorted(order.tolist()) == list(range(len(counts)))
+    got = [(counts[t], t) for t in order.tolist()]
+    assert got == sorted(got, key=lambda ct: (-ct[0], ct[1]))
+
+
+def test_split_tile_peel_edge_case_matches_expectation_and_jax_kernel():
+    """The split-tile peel edge case chip_smoke.py runs through K2 on the
+    card (a 32x128 tile whose only previous winner is in its last 1,024
+    pixels, live pixels without one in its first two blocks, a dead pixel,
+    a tile skipped whole) gives the expected winners in the plain twin,
+    and the JAX peel kernel in interpret mode gives them too on the same
+    triangles, framebuffer and prev maps."""
+    args, kwargs, want_i, want_d = _smoke().split_tile_peel_inputs("cpu")
+    gbuf, best_d, best_i = tile_raster.tile_fold(*args, **kwargs)
+    assert torch.equal(best_i, want_i)
+    assert torch.equal(best_d, want_d)
+    assert torch.equal(gbuf[0], torch.where(want_i >= 0, want_i, 0).float())
+    dead = tile_raster.dead_pixels(kwargs["prev_d"], kwargs["prev_i"])
+    assert dead[3, 7] and not dead[2, 5] and not dead[4, 137]
+
+    fbd, setup = args[0].numpy(), args[1].numpy()
+    n = setup.shape[0]
+    h, w = fbd.shape
+    tris = {
+        "screen": setup[:, :6].reshape(n, 3, 2),
+        "depth": setup[:, 6:9],
+        "inv_area": setup[:, 9],
+        "valid": np.ones(n, bool),
+        "bbox": np.tile(np.int32([0, 0, w - 1, h - 1]), (n, 1)),
+        "attrs": {"clip_position": np.ones((n, 3, 4), np.float32)},
+    }
+    params = RenderParams(width=w, height=h)
+    ctx = pallas_tile._prepare_ctx(tris, params, fbd, None, 0)
+    # the same lists as the smoke's: no globals, both triangles in both
+    # tiles
+    assert int(ctx["n_global"][0]) == int(args[3][0]) == 0
+    assert np.asarray(ctx["counts"]).tolist() == args[6].tolist()
+    assert (ctx["tile_h"], ctx["tile_w"]) == (kwargs["tile_h"],
+                                              kwargs["tile_w"])
+    _, jd, ji = pallas_tile._run_pass(
+        ctx, True, kwargs["prev_d"].numpy(),
+        kwargs["prev_i"].numpy().astype(np.float32), raw=True)
+    np.testing.assert_array_equal(np.asarray(ji), want_i.numpy())
+    np.testing.assert_allclose(np.asarray(jd), want_d.numpy(), rtol=1e-5,
+                               atol=0)
+
+
+@pytest.mark.parametrize("tiling", [(8, 64), (24, 128)])
+def test_plain_fold_is_the_same_frame_at_other_tilings(tiling):
+    """The kernel takes any tile_h x tile_w (a tile smaller than a block
+    of 1,024 pixels, one of three blocks); the twin at such a tiling gives
+    the 32x128 frame's winners and depths on the unpadded frame, pass 0
+    and a peel pass."""
+    scene, cam = soup_scene()
+    base = RenderParams(width=256, height=96, cull_mode=CullMode.NONE)
+    out = {}
+    for name, params in (("base", base),
+                         ("other", base.replace(tile_h=tiling[0],
+                                                tile_w=tiling[1]))):
+        tris, extra = prepared(scene, cam, params, KEEP)
+        tt = {k: torch.tensor(tris[k]) for k in ("screen", "depth",
+                                                  "inv_area", "valid",
+                                                  "bbox")}
+        tt["attrs"] = {k: torch.tensor(v) for k, v in tris["attrs"].items()}
+        fbd = torch.full((params.height, params.width), float(DEPTH_CLEAR))
+        tctx = tile_raster.prepare(
+            tt, params, fbd, {k: torch.tensor(v) for k, v in extra.items()},
+            KEEP)
+        args, kwargs = tile_raster.fold_inputs(tctx)
+        g0, d0, i0 = tile_raster.tile_fold_plain(*args, **kwargs)
+        g1, d1, i1 = tile_raster.tile_fold_plain(*args, **kwargs, prev_d=d0,
+                                                 prev_i=i0)
+        h, w = params.height, params.width
+        out[name] = [t[..., :h, :w] for t in (g0, d0, i0, g1, d1, i1)]
+        if name == "other":
+            assert (kwargs["tile_h"], kwargs["tile_w"]) == tiling
+    assert (out["base"][2] >= 0).float().mean() > 0.05
+    assert (out["base"][5] >= 0).float().mean() > 0.01
+    for a, b in zip(out["base"], out["other"]):
+        assert torch.equal(a, b)
