@@ -12,13 +12,14 @@ drives the port's four paths at 1080p:
     smaller than a block, 8x64; three whole blocks a tile, 24x128; a ragged
     last block, 20x128; a width that does not divide 256, 24x96), timed with and without its longest-first tile
     order, 30 counted frames, the frame against the plain path, golden
-    configs 1 and 2;
+    configs 1 and 2, the wireframe golden and golden config4's frame;
   * the K-buffer (``RenderParams(1920, 1080, kbuffer=4, cull_mode=0)``):
     K2, the tile kernel's peel mode, against its twin on passes 1-3 of a
     dense and a translucent frame and on two edge cases (one with a tile
     split over blocks), each live translucent pass timed beside its bound,
     its live pixels and the blocks that return early; K3, the single-pass K-deep
-    kernel, against its twin at K=4 on both frames; 30 counted frames of the
+    kernel, against its twin at K=4 on both frames and at K1's four other
+    tilings; 30 counted frames of the
     translucent scene through the peel route and 30 through the K-deep
     route, frame 0 against the plain path and the two routes against each
     other; the feature_kbuffer golden;
@@ -26,7 +27,9 @@ drives the port's four paths at 1080p:
     device="cuda", frame_fn=functools.partial(render_frame_raytraced,
     cluster_cap=24))``): K4, the ray-bundle sweep, on its edge cases and
     against its twin on the primary (nearest) and shadow (any-hit) casts of
-    two frames; 30 counted frames with hard shadows, frame 0 against the
+    two frames, each also timed with the bundles in plain order and
+    without the clusters' boxes; 30 counted frames with hard
+    shadows, frame 0 against the
     twin's frame; one soft-shadow and one reflection frame against the
     twin; the bundle route against the brute route at 320x180;
   * the deferred route (``RenderParams(1920, 1080, use_pallas=False)``):
@@ -435,6 +438,27 @@ def sweep_bound(args, outputs, swept) -> dict:
     return out
 
 
+def sweep_bound_tested(args, outputs, tested) -> dict:
+    """sweep_bound on the work the kernel kept: each (ray, live slot) test
+    of the (part, cluster) pairs whose slots it tested (`tested`, per
+    bundle), the clusters a part skipped left out.  This is the bound of
+    the `kernels` line; sweep_bound, which counts every cluster up to the
+    bundle's own early exit, stays beside it as the earlier yardstick."""
+    from softwarerenderer_tpu_torch.ops import rt_sweep
+    rays, stream, lists, counts, t0q = args
+    live = (stream[10] > 0).reshape(-1, rt_sweep.GROUP).sum(1).to(torch.float64)
+    capb = lists.shape[1]
+    listed = torch.arange(capb, device=lists.device)[None] \
+        < counts.clamp(max=capb)[:, None]
+    per = torch.where(listed, live[lists.long()], 0.0).sum(1) \
+        / counts.clamp(min=1, max=capb)
+    part = min(rays.shape[2], rt_sweep.PART_RAYS)
+    tests = float((tested.to(torch.float64) * per).sum()) * part
+    out = bound(nbytes(*args, *outputs), tests * MT_OPS)
+    out["tests"] = tests
+    return out
+
+
 def report_ptxas(output: str) -> None:
     """Print ptxas's registers, spills and shared memory per kernel
     instantiation; fail on a spill."""
@@ -442,17 +466,21 @@ def report_ptxas(output: str) -> None:
                                             "one column a thread>",
              "tile_raster_kernelILb0ELb0E": "K1 tile_raster_kernel<opaque>",
              "tile_raster_kernelILb1ELb0E": "K2 tile_raster_kernel<peel>",
-             "vis_fold_kernel": "K5 vis_fold_kernel",
-             "rt_sweep_kernelILb0E": "K4 rt_sweep_kernel<nearest>",
-             "rt_sweep_kernelILb1E": "K4 rt_sweep_kernel<any-hit>"}
+             "vis_fold_kernel": "K5 vis_fold_kernel"}
     fn = "?"
     for line in output.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             fn = next((v for k, v in names.items() if k in mangled), mangled)
             if "tile_kdeep_kernelILi" in mangled:
-                k = mangled.split("tile_kdeep_kernelILi")[1].split("E")[0]
-                fn = f"K3 tile_kdeep_kernel<{k}>"
+                k, column = mangled.split("tile_kdeep_kernelILi")[1] \
+                    .split("ELb")
+                column = ", one column a thread" if column[0] == "1" else ""
+                fn = f"K3 tile_kdeep_kernel<{k}{column}>"
+            if "rt_sweep_kernelILb" in mangled:
+                mode = mangled.split("rt_sweep_kernelILb")[1][0]
+                fn = (f"K4 rt_sweep_kernel<"
+                      f"{'any-hit' if mode == '1' else 'nearest'}>")
         elif "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas {fn}: {line.strip()}")
             check(" 0 bytes spill stores" in line or "spill" not in line,
@@ -614,11 +642,14 @@ def check_peel_kernel(card, device, size) -> dict:
     return out
 
 
-def check_kdeep_kernel(card, dense_pass0, translucent_pass0) -> dict:
+def check_kdeep_kernel(card, dense_pass0, translucent_pass0,
+                       tilings=()) -> dict:
     """Phase 7: K3 at K=4 against its plain twin on the dense frame's
     fold inputs: every layer's winners and depths equal, G-buffers within
     GBUF_ATOL; then on the translucent frame's (its main path), equal and
-    timed beside its bound."""
+    timed beside its bound; then on `tilings`, [(tile_h, tile_w, args,
+    kwargs)] of the dense frame's scene at other tilings, against the twin
+    and against the 32x128 frame's slots."""
     from softwarerenderer_tpu_torch.ops import tile_raster
     t_args, t_kwargs = translucent_pass0
     t_out = tile_raster.tile_fold_kdeep(*t_args, **t_kwargs, K=KBUFFER)
@@ -660,6 +691,27 @@ def check_kdeep_kernel(card, dense_pass0, translucent_pass0) -> dict:
     check(diff_d == 0, f"K3 best_d differs on {diff_d} slots")
     check(g_err <= GBUF_ATOL, f"K3 G-buffer diff {g_err}")
     check(per_layer[1] > 0, "K3 found no second layer")
+    for th, tw, x_args, x_kwargs in tilings:
+        h, w = min(Hp, x_args[0].shape[0]), min(Wp, x_args[0].shape[1])
+        xg, xd, xi = tile_raster.tile_fold_kdeep(*x_args, **x_kwargs,
+                                                 K=KBUFFER)
+        qg, qd, qi = tile_raster.tile_fold_kdeep_plain(*x_args, **x_kwargs,
+                                                       K=KBUFFER)
+        n_i, n_d = int((xi != qi).sum()), int((xd != qd).sum())
+        x_err = (xg - qg).abs().max().item()
+        same_i = int((xi[:, :h, :w] != ki[:, :h, :w]).sum())
+        same_d = int((xd[:, :h, :w] != kd[:, :h, :w]).sum())
+        x_ms = cuda_ms(lambda: tile_raster.tile_fold_kdeep(
+            *x_args, **x_kwargs, K=KBUFFER), KERNEL_RUNS)
+        log(f"phase 7 K3 K={KBUFFER} at {th}x{tw} tiles "
+            f"({x_args[6].numel()} tiles): kernel vs plain best_i differs "
+            f"on {n_i}, best_d on {n_d} slots, G-buffer max abs diff "
+            f"{x_err:.3g}; vs the 32x128 frame best_i differs on {same_i}, "
+            f"best_d on {same_d} slots; kernel {x_ms:.3f} ms [{card}]")
+        check(n_i == 0 and n_d == 0 and x_err <= GBUF_ATOL,
+              f"K3 at {th}x{tw} tiles differs from its twin")
+        check(same_i == 0 and same_d == 0,
+              f"K3 at {th}x{tw} tiles differs from the 32x128 frame")
     return dict(b, max_abs_err=max(g_err, d_err), ms=ms, plain_ms=plain_ms)
 
 
@@ -832,7 +884,11 @@ def k4_edge_cases(device):
     face masks: a front and a back hit under each mask.  NaN origins: a
     bundle that keeps no cluster.  last cluster: the bundle's first cluster
     (by entry time) holds a far hit and its second the winner, which the
-    early exit must not skip."""
+    early exit must not skip.  coplanar: two triangles in one plane, in
+    two clusters; the cluster swept second has that plane as the face of
+    its box that the rays enter by, so its entry time equals the best hit
+    so far, and it holds the lower id, which wins the tie: neither the
+    early exit nor a part's own skip may drop it."""
     P = [(0, 0, 0), (2, 0, 0), (0, 2, 0)]
     P_rev = [(0, 0, 0), (0, 2, 0), (2, 0, 0)]
     down, up = (0.0, 0.0, -1.0), (0.0, 0.0, 1.0)
@@ -889,6 +945,20 @@ def k4_edge_cases(device):
     o, d = rays(*[((0.5 + 0.1 * i, 0.5, 10.0), down) for i in range(4)])
     cases.append(("winner in the last cluster", _k4_world(A + B_, device),
                   o, d, 0, None, [[True] * 4], [[128] * 4], [[5.0] * 4]))
+    # Every centroid at z = 5, so Morton order goes by y: the low cluster
+    # (ids 0-127, flat at z = 5, entry t = 5) and the high one (ids 128-255,
+    # with a sliver off the rays up to z = 9.5, entry t = 0.5).  Edges of 32
+    # keep every t exact.
+    def fillers(n, y):
+        return [[(50 + 0.01 * i, y, 5), (50.005 + 0.01 * i, y, 5),
+                 (50 + 0.01 * i, y + 0.005, 5)] for i in range(n)]
+
+    low = [[(8, 8, 5), (-24, 8, 5), (8, -24, 5)]] + fillers(127, -20)
+    high = [[(-8, -8, 5), (24, -8, 5), (-8, 24, 5)],
+            [(50, 20, 9.5), (51, 20, 2.75), (50, 21, 2.75)]] \
+        + fillers(126, 20)
+    cases.append(("coplanar across clusters", _k4_world(low + high, device),
+                  o, d, 0, None, [[True] * 4], [[0] * 4], [[5.0] * 4]))
     return cases
 
 
@@ -896,8 +966,8 @@ def check_k4_edge_cases(device) -> int:
     """Phase 10: every K4 edge case through rt_sweep on `device` (the
     kernel on a card, the twin on the CPU) and through the twin: hit and
     tri as expected, t equal bit for bit, any-hit equal to the hits, and
-    the last-cluster bundle sweeping both clusters.  Returns the cases
-    run."""
+    the last-cluster and coplanar bundles sweeping both clusters; then a
+    NaN ray among healthy ones (check_k4_nan_ray).  Returns the cases run."""
     from softwarerenderer_tpu_torch.ops import rt_sweep
     cases = k4_edge_cases(device)
     for name, world, o, d, fm, tmask, hit, tri, t in cases:
@@ -932,16 +1002,62 @@ def check_k4_edge_cases(device) -> int:
                 ot, dt, accel, accel["slot_ok"], None)
             check(counts.cpu().tolist() == [0, 1],
                   f"NaN-origin survivors {counts.cpu().tolist()}")
-        if name == "winner in the last cluster":
+        order = {"winner in the last cluster": [[0, 1]],
+                 "coplanar across clusters": [[1, 0]]}.get(name)
+        if order is not None:
             _, _, rays_, stream, lists, counts, t0q, _ = rt_sweep._prep(
                 ot, dt, accel, accel["slot_ok"], None)
             swept = torch.zeros_like(counts)
+            tested = torch.zeros_like(counts)
             rt_sweep.rt_sweep(rays_, stream, lists, counts, t0q,
-                              any_hit=False, face_mask=0, swept=swept)
-            check(lists.cpu().tolist() == [[0, 1]] and swept.item() == 2,
-                  f"last-cluster bundle: list {lists.cpu().tolist()}, "
-                  f"swept {swept.item()}")
-    return len(cases)
+                              any_hit=False, face_mask=0, swept=swept,
+                              boxes=(accel["cl_lo"], accel["cl_hi"]),
+                              tested=tested)
+            check(lists.cpu().tolist() == order and swept.item() == 2
+                  and tested.item() == 2,
+                  f"{name}: list {lists.cpu().tolist()}, swept "
+                  f"{swept.item()}, tested {tested.item()}")
+    check_k4_nan_ray(device)
+    return len(cases) + 1
+
+
+def check_k4_nan_ray(device) -> None:
+    """One ray with a NaN origin among 31 healthy ones that all point down
+    at a triangle, through rt_sweep itself with a hand-made list and the
+    clusters' boxes: the part's bounds hold a NaN, on which the slab test
+    would find the cluster out of reach, so the part must skip nothing.  The
+    healthy rays hit, the NaN ray misses, and t equals the twin's bit for
+    bit, in both modes."""
+    from softwarerenderer_tpu_torch.ops import rt_sweep
+    world = _k4_world([[(0, 0, 0), (2, 0, 0), (0, 2, 0)]], device)
+    accel = rt_sweep.build_rt_accel_pl(world)
+    R, bad = 32, 7
+    rays = torch.zeros((1, 6, R), device=device)
+    rays[0, 0] = 0.4 + 0.01 * torch.arange(R, device=device)
+    rays[0, 1] = 0.4
+    rays[0, 2] = 5.0
+    rays[0, 5] = -1.0
+    rays[0, 0:3, bad] = float("nan")
+    lists = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    counts = torch.ones((1,), dtype=torch.int32, device=device)
+    t0q = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    healthy = torch.arange(R, device=device) != bad
+    for any_hit in (False, True):
+        kw = dict(any_hit=any_hit, face_mask=0,
+                  boxes=(accel["cl_lo"], accel["cl_hi"]))
+        tested = torch.zeros_like(counts)
+        t, g = rt_sweep.rt_sweep(rays, accel["tri_stream"], lists, counts,
+                                 t0q, tested=tested, **kw)
+        pt, pg = rt_sweep.rt_sweep_plain(rays, accel["tri_stream"], lists,
+                                         counts, t0q, **kw)
+        hit = (g[0] > 0) if any_hit else (g[0] == 0)
+        check(torch.equal(hit, healthy) and tested.item() == 1,
+              f"K4 NaN ray (any_hit={any_hit}): hits {hit.cpu().tolist()}, "
+              f"tested {tested.item()}")
+        check(torch.equal(t.view(torch.int32), pt.view(torch.int32))
+              and torch.equal(g, pg),
+              f"K4 NaN ray (any_hit={any_hit}): kernel {t.cpu().tolist()} "
+              f"vs twin {pt.cpu().tolist()}")
 
 
 def capture_sweeps(render):
@@ -956,6 +1072,34 @@ def capture_sweeps(render):
 
     render(sweep)
     return calls
+
+
+def sweep_variants(args, kwargs, want) -> str:
+    """What each part of K4's design is worth on one cast: the same launch
+    timed as it ships, with the bundles in plain order and without the
+    clusters' boxes (no part skips a cluster), each equal to `want` bit for
+    bit."""
+    from softwarerenderer_tpu_torch.ops import rt_sweep
+    counts = args[3]
+
+    def run(kw):
+        t, g = rt_sweep.rt_sweep(*args, **kw)
+        check(torch.equal(t.view(torch.int32), want[0].view(torch.int32))
+              and torch.equal(g, want[1]), "a K4 variant changes the result")
+        return cuda_ms(lambda: rt_sweep.rt_sweep(*args, **kw), KERNEL_RUNS)
+
+    out = [f"as it ships {run(kwargs):.3f} ms"]
+    longest_first = rt_sweep.bundle_order
+    rt_sweep.bundle_order = lambda c: torch.arange(c.numel(),
+                                                   device=c.device)
+    try:
+        out.append(f"bundles in plain order {run(kwargs):.3f} ms")
+    finally:
+        rt_sweep.bundle_order = longest_first
+    out.append(f"bundle_order alone "
+               f"{cuda_ms(lambda: rt_sweep.bundle_order(counts), KERNEL_RUNS):.3f} ms")
+    out.append(f"without boxes {run(dict(kwargs, boxes=None)):.3f} ms")
+    return "; ".join(out) + f" (medians of {KERNEL_RUNS}, equal outputs)"
 
 
 def check_sweep_kernel(card, device, size) -> dict:
@@ -984,7 +1128,9 @@ def check_sweep_kernel(card, device, size) -> dict:
             B, _, R = args[0].shape
             counts = args[3]
             swept = torch.zeros_like(counts)
-            kt, kg = rt_sweep.rt_sweep(*args, **kwargs, swept=swept)
+            tested = torch.zeros_like(counts)
+            kt, kg = rt_sweep.rt_sweep(*args, **kwargs, swept=swept,
+                                       tested=tested)
             plain_swept = torch.zeros_like(counts)
             pt, pg = rt_sweep.rt_sweep_plain(*args, **kwargs,
                                              swept=plain_swept)
@@ -1004,9 +1150,12 @@ def check_sweep_kernel(card, device, size) -> dict:
                                RT_PLAIN_RUNS)
             n_pairs = int(counts.sum())
             n_swept = int(swept.sum())
+            extra = sweep_variants(args, kwargs, (kt, kg))
             hits = int((kg > 0).sum() if kwargs["any_hit"]
                        else (kg < rt_sweep.NOTRI).sum())
-            b = sweep_bound(args, (kt, kg), swept)
+            b = sweep_bound_tested(args, (kt, kg), tested)
+            b_swept = sweep_bound(args, (kt, kg), swept)
+            per_group = rt_sweep.GROUP_RAYS // rt_sweep.PART_RAYS
             log(f"phase 11 K4 {view} {cast} @{w}x{h}: {B} bundles x {R} "
                 f"rays, {hits} hit; {n_pairs} listed (bundle, cluster) "
                 f"pairs, {n_swept} cluster sweeps by the kernel (twin "
@@ -1014,8 +1163,14 @@ def check_sweep_kernel(card, device, size) -> dict:
                 f"t on {diff_t} rays (max abs err {err}); kernel "
                 f"{ms:.3f} ms (median of "
                 f"{KERNEL_RUNS}), plain {plain_ms:.3f} ms (median of "
-                f"{RT_PLAIN_RUNS}); bound {b['bound_ms']:.4f} ms "
-                f"({b['bound_by']}, {b['tests']:.4g} tests) [{card}]")
+                f"{RT_PLAIN_RUNS}); {int(tested.sum())} of "
+                f"{n_swept * per_group} (part, cluster) pairs tested, parts "
+                f"of {rt_sweep.PART_RAYS} rays; bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']}, {b['tests']:.4g} tests in the pairs "
+                f"tested), with the clusters the parts skipped "
+                f"{b_swept['bound_ms']:.4f} ms ({b_swept['tests']:.4g} "
+                f"tests, the bound of the first kernel) [{card}]")
+            log(f"phase 11 K4 {view} {cast}: {extra} [{card}]")
             check(diff_g == 0, f"K4 {view} {cast}: {diff_g} rays differ")
             check(diff_t == 0, f"K4 {view} {cast}: t differs on {diff_t}")
             check(hits > 0, f"K4 {view} {cast}: no ray hits")
@@ -1366,6 +1521,43 @@ def check_small_routes(card, size, device="cuda") -> None:
               f"phase 16 {name}: nothing drawn")
 
 
+def check_frame_goldens(device="cuda") -> None:
+    """Phase 5, second half: the feature_wireframe golden under
+    tests/test_goldens.py's rule, and golden config4's frame (the bench
+    scene from the bench camera at 320x180).  config4.png was rendered from
+    the Dust2 asset, which a checkout does not hold, so the card's frame is
+    held by the same rule against the same frame on the CPU, and its
+    distance from the PNG is printed."""
+    from PIL import Image
+    from softwarerenderer_tpu_torch import scenes
+    from softwarerenderer_tpu_torch.engine import Engine
+
+    def off_share(a, b):
+        diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        return float(np.mean(np.any(diff > 2, axis=-1)))
+
+    def golden(name):
+        return np.asarray(Image.open(os.path.join(REPO, "tests", "goldens",
+                                                  name)))
+
+    scene, params, u = scenes.wireframe_golden_frame()
+    got = Engine(scene, params, device=device).present(u)
+    want = golden("feature_wireframe.png")
+    off = off_share(got, want) if got.shape == want.shape else 1.0
+    log(f"phase 5 golden feature_wireframe {params.width}x{params.height}: "
+        f"{off:.6f} of pixels off by > 2")
+    check(off < 2e-3, "golden feature_wireframe")
+    scene, params, u = scenes.config4_golden_frame()
+    got = Engine(scene, params, device=device).present(u)
+    cpu = Engine(scene, params, device="cpu").present(u)
+    off = off_share(got, cpu)
+    log(f"phase 5 golden config4's frame {params.width}x{params.height}: "
+        f"{off:.6f} of pixels off by > 2 from the same frame on the CPU; "
+        f"{off_share(got, golden('config4.png')):.6f} from config4.png, "
+        f"which shows the Dust2 map and not this scene")
+    check(got.shape == cpu.shape and off < 2e-3, "golden config4's frame")
+
+
 def build_kernels() -> None:
     """Phase 2: build every kernel from the checkout's sources and print
     what ptxas says of each."""
@@ -1605,10 +1797,15 @@ def main() -> int:
         check(got.shape == golden.shape and off < 2e-3
               and diff.mean() < 0.5, f"golden config{n}")
 
+    check_frame_goldens()
+
     # ---- phases 6-9: the K-buffer ---------------------------------------
     peel = check_peel_kernel(card, "cuda", (W, H))
-    kdeep = check_kdeep_kernel(card, peel["dense_pass0"],
-                               peel["translucent_pass0"])
+    kdeep = check_kdeep_kernel(
+        card, peel["dense_pass0"], peel["translucent_pass0"],
+        [(th, tw) + first_fold(eng.scene, u0,
+                               params.replace(tile_h=th, tile_w=tw))
+         for th, tw in EXTRA_TILINGS])
     kframes = check_kbuffer_frames(card, "cuda", (W, H), FRAMES)
     check_kbuffer_golden("cuda")
 
@@ -1616,8 +1813,9 @@ def main() -> int:
     n_cases = check_k4_edge_cases("cuda")
     log(f"phase 10 K4 edge cases ({n_cases}: ties, tri_mask, t = +0.0 and "
         f"-0.0, det under and over EPSILON, each face mask, NaN origins, "
-        f"the winner in the last cluster): kernel and twin equal the "
-        f"expected winners, t bit for bit")
+        f"the winner in the last cluster, coplanar triangles across "
+        f"clusters, a NaN ray among healthy ones): kernel and twin equal "
+        f"the expected winners, t bit for bit")
     sweep = check_sweep_kernel(card, "cuda", (W, H))
     rt = check_raytraced_frames(card, "cuda", (W, H), FRAMES)
     check_bundle_vs_brute(card, "cuda", RT_BRUTE_SIZE)

@@ -1,6 +1,9 @@
-// Shared by the tile kernels (tile_raster.cu, tile_kdeep.cu): the setup-row
-// staging, one fragment's edge functions and depth, and the winner resolve
-// that interpolates a triangle's payload row into the G-buffer.
+// Shared by the tile kernels (tile_raster.cu, tile_kdeep.cu, vis_fold.cu):
+// the setup-row staging in two forms (16-float rows with the edge
+// differences taken, which tile_raster.cu and tile_kdeep.cu fold; plain
+// columns, which vis_fold.cu folds), one fragment's edge functions and
+// depth, and the winner resolve that interpolates a triangle's payload row
+// into the G-buffer.
 //
 // Arithmetic follows softwarerenderer_tpu/ops/pallas_tile.py operand for
 // operand (edge functions, barycentric depth, the cw == 0 and wsum == 0
@@ -60,6 +63,51 @@ __device__ __forceinline__ bool fragment(const Tri& s, float px, float py,
   d = s.d0 * (w0 * s.ia) + s.d1 * (w1 * s.ia) + s.d2 * (w2 * s.ia);
   return (w0 >= 0.f && w1 >= 0.f && w2 >= 0.f)
          || (w0 <= 0.f && w1 <= 0.f && w2 <= 0.f);
+}
+
+constexpr int kRow = 16;        // floats of one staged Row
+
+// One staged triangle with the edge differences taken: fragment()'s
+// operands, so edge e at a pixel is a_e * (px - x_e) + b_e * (py - y_e) and
+// the depth d0 * (w0 * ia) + d1 * (w1 * ia) + d2 * (w2 * ia), bit for bit
+// what fragment() computes (the same subtractions, taken once per triangle
+// instead of once per thread).
+struct Row {
+  float x0, y0, a0, b0;       // s1x, s1y, s1y - s2y, s2x - s1x
+  float x1, y1, a1, b1;       // s2x, s2y, s2y - s0y, s0x - s2x
+  float x2, y2, a2, b2;       // s0x, s0y, s0y - s1y, s1x - s0x
+  float d0, d1, d2, ia;
+};
+static_assert(sizeof(Row) == kRow * sizeof(float), "Row is four float4");
+
+// Stage list[begin + c0, begin + c0 + n) into shared memory as Rows, one
+// triangle per thread; the caller brackets it with __syncthreads().  The
+// set-up table must start on an 8-byte boundary.
+__device__ __forceinline__ void stage_rows(
+    const int* __restrict__ list, int begin, int c0, int n,
+    const float* __restrict__ setup, float4 (*s_row)[kRow / 4], int* s_idx) {
+  const int t = threadIdx.x;
+  if (t < n) {
+    const int tri = list[begin + c0 + t];
+    s_idx[t] = tri;
+    // A set-up row is 10 floats, so it starts on an 8-byte boundary.
+    const float2* r = reinterpret_cast<const float2*>(
+        setup + static_cast<long long>(tri) * kSetup);
+    const float2 s0 = r[0], s1 = r[1], s2 = r[2], da = r[3], db = r[4];
+    s_row[t][0] = make_float4(s1.x, s1.y, s1.y - s2.y, s2.x - s1.x);
+    s_row[t][1] = make_float4(s2.x, s2.y, s2.y - s0.y, s0.x - s2.x);
+    s_row[t][2] = make_float4(s0.x, s0.y, s0.y - s1.y, s1.x - s0.x);
+    s_row[t][3] = make_float4(da.x, da.y, db.x, db.y);
+  }
+}
+
+// Row j back as four 16-byte broadcast loads.
+__device__ __forceinline__ Row load_row(const float4 (*s_row)[kRow / 4],
+                                        int j) {
+  const float4 e0 = s_row[j][0], e1 = s_row[j][1], e2 = s_row[j][2];
+  const float4 dd = s_row[j][3];
+  return Row{e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w,
+             e2.x, e2.y, e2.z, e2.w, dd.x, dd.y, dd.z, dd.w};
 }
 
 // Interpolate winner `bi`'s payload row at pixel (px, py) into the kpi

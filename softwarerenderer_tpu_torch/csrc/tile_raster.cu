@@ -78,50 +78,15 @@ namespace {
 
 using tile::kThreads;
 using tile::kMaxPlan;
+using tile::kRow;
+using tile::Row;
+using tile::load_row;
+using tile::stage_rows;
 
 constexpr int kPix = 4;                     // pixels per thread
 constexpr int kBlockPx = kThreads * kPix;   // pixels per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kRow = 16;                    // floats of one staged row
 static_assert(kPix * kWarps == 32, "the live-pixel scan is one warp wide");
-
-// One staged triangle: fragment()'s operands with the edge differences
-// taken.  Edge e is a_e * (px - x_e) + b_e * (py - y_e).
-struct Row {
-  float x0, y0, a0, b0;       // s1x, s1y, s1y - s2y, s2x - s1x
-  float x1, y1, a1, b1;       // s2x, s2y, s2y - s0y, s0x - s2x
-  float x2, y2, a2, b2;       // s0x, s0y, s0y - s1y, s1x - s0x
-  float d0, d1, d2, ia;
-};
-static_assert(sizeof(Row) == kRow * sizeof(float), "Row is four float4");
-
-// Stage list[begin + c0, begin + c0 + n) into shared memory, one triangle
-// per thread; the caller brackets it with __syncthreads().
-__device__ __forceinline__ void stage_rows(
-    const int* __restrict__ list, int begin, int c0, int n,
-    const float* __restrict__ setup, float4 (*s_row)[kRow / 4], int* s_idx) {
-  const int t = threadIdx.x;
-  if (t < n) {
-    const int tri = list[begin + c0 + t];
-    s_idx[t] = tri;
-    // A set-up row is 10 floats, so it starts on an 8-byte boundary.
-    const float2* r = reinterpret_cast<const float2*>(
-        setup + static_cast<long long>(tri) * tile::kSetup);
-    const float2 s0 = r[0], s1 = r[1], s2 = r[2], da = r[3], db = r[4];
-    s_row[t][0] = make_float4(s1.x, s1.y, s1.y - s2.y, s2.x - s1.x);
-    s_row[t][1] = make_float4(s2.x, s2.y, s2.y - s0.y, s0.x - s2.x);
-    s_row[t][2] = make_float4(s0.x, s0.y, s0.y - s1.y, s1.x - s0.x);
-    s_row[t][3] = make_float4(da.x, da.y, db.x, db.y);
-  }
-}
-
-__device__ __forceinline__ Row load_row(const float4 (*s_row)[kRow / 4],
-                                        int j) {
-  const float4 e0 = s_row[j][0], e1 = s_row[j][1], e2 = s_row[j][2];
-  const float4 dd = s_row[j][3];
-  return Row{e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w,
-             e2.x, e2.y, e2.z, e2.w, dd.x, dd.y, dd.z, dd.w};
-}
 
 // A thread's pixels: position, running winner and, in peel mode, the
 // previous pass's winner.

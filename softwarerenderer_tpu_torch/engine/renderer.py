@@ -205,9 +205,18 @@ _UNSUPPORTED_SCENE_PREFIXES = ("tangent", "anim_", "morph_", "skin_",
                                "particle_", "tri_lod_level")
 
 
-def check_supported(params: RenderParams, scene_keys=(), uniforms=None):
+# The per-triangle channels frame_setup packs for a fragment shader's
+# `tri_extras` ("opq" rides along for the K-buffer's short-circuit).
+PACKED_TRI_EXTRAS = ("tex_id", "mesh_id", "tex_oy", "tex_ox", "tex_h",
+                     "tex_w")
+
+
+def check_supported(params: RenderParams, scene_keys=(), uniforms=None,
+                    fragment_shader: Optional[Callable] = None):
     """Raise NotImplementedError for anything outside the routes this
-    package renders, and JAX's ValueError for kbuffer_stats without a
+    package renders (a fragment shader whose `tri_extras` names a channel
+    frame_setup does not pack, the reference's mat_* material channels for
+    one, among them), and JAX's ValueError for kbuffer_stats without a
     binned deferred K-buffer."""
     if params.kbuffer_stats and (params.kbuffer <= 1 or not (
             params.binned and params.deferred)):
@@ -232,6 +241,9 @@ def check_supported(params: RenderParams, scene_keys=(), uniforms=None):
             if k.startswith(_UNSUPPORTED_SCENE_PREFIXES)]
     if uniforms is not None and "sky_panorama" in uniforms:
         bad.append("sky_panorama")
+    bad += [f"tri_extras channel {k}"
+            for k in getattr(fragment_shader, "tri_extras", None) or ()
+            if k not in PACKED_TRI_EXTRAS]
     if bad:
         raise NotImplementedError(
             f"not implemented in softwarerenderer_tpu_torch yet: {bad}")
@@ -281,6 +293,7 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
         per_tri = {"tex_id": tid2, "mesh_id": tri_mesh.repeat_interleave(2),
                    "tex_oy": aoff[:, 0][tid2], "tex_ox": aoff[:, 1][tid2],
                    "tex_h": asiz[:, 0][tid2], "tex_w": asiz[:, 1][tid2]}
+        assert tuple(per_tri) == PACKED_TRI_EXTRAS
         keep = getattr(fragment_shader, "tri_extras", None)
         if keep is not None:
             per_tri = {k: v for k, v in per_tri.items() if k in keep}
@@ -318,7 +331,7 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
     fold: the tile fold the tile routes run, tile_raster.tile_fold by
     default; tile_raster.tile_fold_plain renders the same frame through
     the plain twins."""
-    check_supported(params, scene.keys(), uniforms)
+    check_supported(params, scene.keys(), uniforms, fragment_shader)
     f = frame_setup(scene, uniforms, params, vertex_shader, fragment_shader,
                     fb)
     args = (f["tris"], fragment_shader, f["uniforms"], params,
@@ -378,7 +391,8 @@ class Engine(torch.nn.Module):
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda') needs a CUDA device "
                                "and none is available")
-        check_supported(params, scene.keys())
+        check_supported(params, scene.keys(),
+                        fragment_shader=fragment_shader)
         self.params = params
         self.vertex_shader = vertex_shader
         self.fragment_shader = fragment_shader

@@ -36,7 +36,7 @@ to the brute raycast, and the result's ``overflow`` says so.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -51,7 +51,10 @@ BIG = rc.BIG
 NOTRI = 2 ** 30          # "no triangle" id of a miss
 GROUP = 128              # triangles per cluster
 STREAM_ROWS = 11
-GROUP_RAYS = 1024        # rays one block holds at a time (rt_sweep.cu)
+GROUP_RAYS = 1024        # rays of one group of `swept` (rt_sweep.cu)
+# Rays of one part of a bundle in csrc/rt_sweep.cu: consecutive rays that
+# one warp sweeps with its own early exit.
+PART_RAYS = 32
 # The most (bundle, ray, slot) triples one chunk of the plain twin
 # evaluates: each scalar temporary then holds 64 MB of float32.
 PLAIN_BLOCK = 1 << 24
@@ -117,31 +120,75 @@ def _entry():
     from softwarerenderer_tpu_torch.kernels import build
     fn = build.load("rt_sweep").rt_sweep_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def bundle_order(counts: torch.Tensor) -> torch.Tensor:
+    """The order in which rt_sweep.cu's blocks take the bundles: longest
+    survivor list first, equal counts in bundle order (a stable sort), so
+    the long lists start in the first wave of blocks, short ones fill the
+    tail and the bundles that list nothing come last.  counts (B,) int32;
+    returns a permutation of range(B) as int64 on counts' device, with no
+    host read.  The sweep does not depend on it: any permutation gives the
+    same outputs."""
+    return torch.argsort(counts, descending=True, stable=True)
+
+
 def rt_sweep(rays, stream, lists, counts, t0q, *, any_hit: bool,
-             face_mask: int, swept: Optional[torch.Tensor] = None):
+             face_mask: int, swept: Optional[torch.Tensor] = None,
+             boxes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             tested: Optional[torch.Tensor] = None):
     """Sweep every bundle's listed clusters (module docstring layouts).
 
     Returns (t (B, R) f32, g (B, R) i32): in nearest mode the winner's t
     and global id (float32 max and NOTRI on a miss), in any-hit mode zeros
     and the occlusion flag (1 occluded, 0 clear).  With `swept`, a (B,)
-    int32 tensor, each bundle's count of clusters swept is written there
-    (the kernel stops early, summed over its groups of GROUP_RAYS rays; the
+    int32 tensor, each bundle's count of clusters swept is written there:
+    the clusters it had to go through before all its rays were done by the
+    kernel's early exit, summed over its groups of GROUP_RAYS rays (the
     twin sweeps every listed cluster).  A count above capb sweeps the first
     capb clusters.  CUDA tensors launch csrc/rt_sweep.cu; CPU tensors run
-    rt_sweep_plain."""
+    rt_sweep_plain.
+
+    boxes: (cl_lo, cl_hi), the clusters' (NC, 3) boxes of
+    rt_accel.build_rt_accel.  They change no result: with them a part of a
+    bundle (PART_RAYS rays) skips the clusters its own rays cannot reach.
+    tested: a (B,) int32 tensor that takes each bundle's count of (part,
+    cluster) pairs whose triangles were tested; without skipping that is
+    swept times the parts of a group."""
     global LAUNCHES, ANY_HIT_LAUNCHES
     if rays.device.type == "cpu":
         return rt_sweep_plain(rays, stream, lists, counts, t0q,
                               any_hit=any_hit, face_mask=face_mask,
-                              swept=swept)
+                              swept=swept, boxes=boxes, tested=tested)
     if rays.device.type != "cuda":
         raise ValueError(f"rt_sweep runs on cuda or cpu, not {rays.device}")
+    (out_t, out_g), call, (_order, groups, counted) = sweep_launch_args(
+        rays, stream, lists, counts, t0q, any_hit=any_hit,
+        face_mask=face_mask, swept=swept, boxes=boxes, tested=tested)
+    err = _entry()(*call, torch.cuda.current_stream(rays.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rt_sweep kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    if any_hit:
+        ANY_HIT_LAUNCHES += 1
+    if swept is not None:
+        torch.sum(groups, 1, dtype=I32, out=swept)
+    if tested is not None:
+        tested.copy_(counted)
+    return out_t, out_g
+
+
+def sweep_launch_args(rays, stream, lists, counts, t0q, *, any_hit: bool,
+                      face_mask: int, swept=None, boxes=None, tested=None):
+    """What rt_sweep hands csrc/rt_sweep.cu, on rays' device: checks the
+    inputs, computes the bundle order and allocates the outputs and, for
+    `swept` and `tested`, the zeroed counters the kernel adds to.  Returns
+    ((out_t, out_g), the entry point's arguments up to the stream, (bundle
+    order, per-group swept counters or None, tested counter or None))."""
     dev = rays.device
     B, six, R = rays.shape
     Tp = stream.shape[1]
@@ -151,34 +198,44 @@ def rt_sweep(rays, stream, lists, counts, t0q, *, any_hit: bool,
     _check("lists", lists, I32, (B, capb), dev)
     _check("counts", counts, I32, (B,), dev)
     _check("t0q", t0q, I32, (B, capb), dev)
-    if swept is not None:
-        _check("swept", swept, I32, (B,), dev)
     if Tp % GROUP:
         raise ValueError(f"stream width {Tp} is not a multiple of {GROUP}")
+    box_ptrs = (None, None)
+    if boxes is not None:
+        for name, box in zip(("cl_lo", "cl_hi"), boxes):
+            _check(name, box, F32, (Tp // GROUP, 3), dev)
+        box_ptrs = tuple(box.data_ptr() for box in boxes)
+    groups = counted = None
+    if swept is not None:
+        _check("swept", swept, I32, (B,), dev)
+        groups = torch.zeros((B, -(-R // GROUP_RAYS)), dtype=I32, device=dev)
+    if tested is not None:
+        _check("tested", tested, I32, (B,), dev)
+        counted = torch.zeros((B,), dtype=I32, device=dev)
+    order = bundle_order(counts)
     out_t = torch.empty((B, R), dtype=F32, device=dev)
     out_g = torch.empty((B, R), dtype=I32, device=dev)
-    err = _entry()(rays.data_ptr(), stream.data_ptr(), lists.data_ptr(),
-                   counts.data_ptr(), t0q.data_ptr(), out_t.data_ptr(),
-                   out_g.data_ptr(),
-                   None if swept is None else swept.data_ptr(),
-                   B, R, Tp, capb, int(bool(any_hit)), int(face_mask),
-                   torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rt_sweep kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    if any_hit:
-        ANY_HIT_LAUNCHES += 1
-    return out_t, out_g
+    call = (rays.data_ptr(), stream.data_ptr(), lists.data_ptr(),
+            counts.data_ptr(), t0q.data_ptr(), order.data_ptr(), *box_ptrs,
+            out_t.data_ptr(), out_g.data_ptr(),
+            None if groups is None else groups.data_ptr(),
+            None if counted is None else counted.data_ptr(),
+            B, R, Tp, capb, int(bool(any_hit)), int(face_mask))
+    return (out_t, out_g), call, (order, groups, counted)
 
 
 def rt_sweep_plain(rays, stream, lists, counts, t0q, *, any_hit: bool,
-                   face_mask: int, swept: Optional[torch.Tensor] = None):
+                   face_mask: int, swept: Optional[torch.Tensor] = None,
+                   boxes=None, tested: Optional[torch.Tensor] = None):
     """rt_sweep in plain PyTorch: same inputs, outputs and rounding, no
-    early exit.  Each chunk of bundles gathers its listed clusters' slots
-    (slots past a bundle's count masked), runs Möller–Trumbore over
-    (bundles, rays, slots), and reduces t with amin and then the id with
-    amin among the slots at the best t; the t returned is the winning
-    slot's own (a tie of +0.0 and -0.0 keeps the winner's sign)."""
+    early exit and no skipping (`boxes` is not read: every listed cluster
+    is tested against every ray, so `tested` is the listed clusters times
+    the parts of a bundle).  Each chunk of bundles gathers its listed
+    clusters' slots (slots past a bundle's count masked), runs
+    Möller–Trumbore over (bundles, rays, slots), and reduces t with amin
+    and then the id with amin among the slots at the best t; the t
+    returned is the winning slot's own (a tie of +0.0 and -0.0 keeps the
+    winner's sign)."""
     B, _, R = rays.shape
     dev = rays.device
     capb = lists.shape[1]
@@ -190,6 +247,8 @@ def rt_sweep_plain(rays, stream, lists, counts, t0q, *, any_hit: bool,
     counts = counts.clamp(max=capb)
     if swept is not None:
         swept.copy_(counts * -(-R // GROUP_RAYS))
+    if tested is not None:
+        tested.copy_(counts * -(-R // PART_RAYS))
     ids = stream[9].contiguous().view(I32)
     slot = torch.arange(GROUP, device=dev)
     cmax = counts.amax().item() if B else 0
@@ -257,7 +316,8 @@ def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
     else:
         with record_function("rt.sweep_nearest"):
             tbest, g = sweep(rays, stream, lists, counts, t0q, any_hit=False,
-                             face_mask=face_mask)
+                             face_mask=face_mask,
+                             boxes=(accel["cl_lo"], accel["cl_hi"]))
         with record_function("rt.winner"):
             hit = g < NOTRI
             wtri = torch.where(hit, g, 0).long()
@@ -304,6 +364,7 @@ def raycast_bundles_any(origins, directions, world: Dict, accel: Dict,
     else:
         with record_function("rt.sweep_any"):
             _t, g = sweep(rays, stream, lists, counts, t0q, any_hit=True,
-                          face_mask=face_mask)
+                          face_mask=face_mask,
+                          boxes=(accel["cl_lo"], accel["cl_hi"]))
         hit = g > 0
     return {"hit": hit, "n_pairs": counts.sum(), "overflow": overflow}

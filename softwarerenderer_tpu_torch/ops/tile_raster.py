@@ -189,12 +189,12 @@ def _check_layout(plan, kp, kpi, sl_screen, sl_ia, clip_w_off):
         raise ValueError(f"payload slots outside the {kp}-column payload")
 
 
-def _check_cuda_inputs(name, fbd, setup, order, n_global, sorted_tri,
-                       starts, counts, payload, tile_h, tile_w, kp):
-    """Device, dtype, shape and contiguity of a kernel's inputs; returns
+def _check_inputs(fbd, setup, order, n_global, sorted_tri, starts, counts,
+                  payload, tile_h, tile_w, kp):
+    """What a tile kernel takes: dtype, shape, contiguity and one device
+    (fbd's) for every input, a tiling that divides the frame and a set-up
+    table on an 8-byte boundary (the kernels read it as float2); returns
     (ntx, nty)."""
-    if fbd.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {fbd.device}")
     dev = fbd.device
     Hp, Wp = fbd.shape
     if tile_h <= 0 or tile_w <= 0 or Hp % tile_h or Wp % tile_w:
@@ -209,6 +209,8 @@ def _check_cuda_inputs(name, fbd, setup, order, n_global, sorted_tri,
     check_tensor("starts", starts, I32, (ntx * nty,), dev)
     check_tensor("counts", counts, I32, (ntx * nty,), dev)
     check_tensor("payload", payload, F32, (n, 3 * kp), dev)
+    if setup.data_ptr() % 8:
+        raise ValueError("setup must start on an 8-byte boundary")
     return ntx, nty
 
 
@@ -279,9 +281,10 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
             payload, plan, tile_h=tile_h, tile_w=tile_w, kp=kp, kpi=kpi,
             sl_screen=sl_screen, sl_ia=sl_ia, clip_w_off=clip_w_off,
             prev_d=prev_d, prev_i=prev_i)
-    ntx, nty = _check_cuda_inputs(
-        "tile_fold", fbd, setup, order, n_global, sorted_tri, starts,
-        counts, payload, tile_h, tile_w, kp)
+    if fbd.device.type != "cuda":
+        raise ValueError(f"tile_fold runs on cuda or cpu, not {fbd.device}")
+    ntx, nty = _check_inputs(fbd, setup, order, n_global, sorted_tri, starts,
+                             counts, payload, tile_h, tile_w, kp)
     dev = fbd.device
     Hp, Wp = fbd.shape
     prev_ptrs = (None, None)
@@ -289,8 +292,6 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
         check_tensor("prev_d", prev_d, F32, (Hp, Wp), dev)
         check_tensor("prev_i", prev_i, I32, (Hp, Wp), dev)
         prev_ptrs = (prev_d.data_ptr(), prev_i.data_ptr())
-    if setup.data_ptr() % 8:
-        raise ValueError("setup must start on an 8-byte boundary")
     plan_t = _plan_tensor(plan, dev)
     tiles = tile_order(counts)
     gbuf = torch.empty((kpi, Hp, Wp), dtype=F32, device=dev)
@@ -327,7 +328,11 @@ def tile_fold_kdeep(fbd, setup, order, n_global, sorted_tri, starts, counts,
     (gbuf (K*kpi, Hp, Wp) f32, layer s in planes [s*kpi, (s+1)*kpi),
     best_d (K, Hp, Wp) f32 with -inf in empty slots, best_i (K, Hp, Wp)
     i32 with -1 in empty slots).  1 <= K <= MAX_KDEEP.  CUDA tensors
-    launch csrc/tile_kdeep.cu; CPU tensors run tile_fold_kdeep_plain."""
+    launch csrc/tile_kdeep.cu; CPU tensors run tile_fold_kdeep_plain.
+
+    The kernel takes any tile_h x tile_w that divides the frame, in blocks
+    of BLOCK_PX pixels that take the tiles in tile_order, as tile_fold's
+    does; none of that shows in the outputs."""
     global KDEEP_LAUNCHES
     if not 1 <= K <= MAX_KDEEP:
         raise ValueError(f"tile_fold_kdeep takes 1 <= K <= {MAX_KDEEP}, "
@@ -339,28 +344,46 @@ def tile_fold_kdeep(fbd, setup, order, n_global, sorted_tri, starts, counts,
             payload, plan, K=K, tile_h=tile_h, tile_w=tile_w, kp=kp,
             kpi=kpi, sl_screen=sl_screen, sl_ia=sl_ia,
             clip_w_off=clip_w_off)
-    ntx, nty = _check_cuda_inputs(
-        "tile_fold_kdeep", fbd, setup, order, n_global, sorted_tri, starts,
-        counts, payload, tile_h, tile_w, kp)
-    dev = fbd.device
-    Hp, Wp = fbd.shape
-    plan_t = _plan_tensor(plan, dev)
-    gbuf = torch.empty((K * kpi, Hp, Wp), dtype=F32, device=dev)
-    best_d = torch.empty((K, Hp, Wp), dtype=F32, device=dev)
-    best_i = torch.empty((K, Hp, Wp), dtype=I32, device=dev)
-    fn = _entry("tile_kdeep", "tile_kdeep_launch", 9, 10)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(fbd.data_ptr(), setup.data_ptr(), order.data_ptr(),
-             n_global.data_ptr(), sorted_tri.data_ptr(), starts.data_ptr(),
-             counts.data_ptr(), payload.data_ptr(), plan_t.data_ptr(),
-             len(plan), gbuf.data_ptr(), best_d.data_ptr(),
-             best_i.data_ptr(), ntx, nty, tile_h, tile_w, kp, kpi,
-             sl_screen, sl_ia, clip_w_off, K, stream)
+    if fbd.device.type != "cuda":
+        raise ValueError(f"tile_fold_kdeep runs on cuda or cpu, not "
+                         f"{fbd.device}")
+    outputs, call, _keep = kdeep_launch_args(
+        fbd, setup, order, n_global, sorted_tri, starts, counts, payload,
+        plan, K=K, tile_h=tile_h, tile_w=tile_w, kp=kp, kpi=kpi,
+        sl_screen=sl_screen, sl_ia=sl_ia, clip_w_off=clip_w_off)
+    fn = _entry("tile_kdeep", "tile_kdeep_launch", 10, 10)
+    err = fn(*call, torch.cuda.current_stream(fbd.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tile_kdeep kernel launch failed: CUDA error "
                            f"{err}")
     KDEEP_LAUNCHES += 1
-    return gbuf, best_d, best_i
+    return outputs
+
+
+def kdeep_launch_args(fbd, setup, order, n_global, sorted_tri, starts,
+                      counts, payload, plan, *, K, tile_h, tile_w, kp, kpi,
+                      sl_screen, sl_ia, clip_w_off):
+    """What tile_fold_kdeep hands csrc/tile_kdeep.cu, on fbd's device:
+    checks the inputs (_check_inputs), computes the tile order and
+    allocates the outputs.  Returns ((gbuf, best_d, best_i), the entry
+    point's arguments up to the stream, the tensors made here that the
+    launch reads: (tile order, plan))."""
+    ntx, nty = _check_inputs(fbd, setup, order, n_global, sorted_tri, starts,
+                             counts, payload, tile_h, tile_w, kp)
+    dev = fbd.device
+    Hp, Wp = fbd.shape
+    plan_t = _plan_tensor(plan, dev)
+    tiles = tile_order(counts)
+    gbuf = torch.empty((K * kpi, Hp, Wp), dtype=F32, device=dev)
+    best_d = torch.empty((K, Hp, Wp), dtype=F32, device=dev)
+    best_i = torch.empty((K, Hp, Wp), dtype=I32, device=dev)
+    call = (fbd.data_ptr(), setup.data_ptr(), order.data_ptr(),
+            n_global.data_ptr(), sorted_tri.data_ptr(), starts.data_ptr(),
+            counts.data_ptr(), tiles.data_ptr(), payload.data_ptr(),
+            plan_t.data_ptr(), len(plan), gbuf.data_ptr(),
+            best_d.data_ptr(), best_i.data_ptr(), ntx, nty, tile_h, tile_w,
+            kp, kpi, sl_screen, sl_ia, clip_w_off, K)
+    return (gbuf, best_d, best_i), call, (tiles, plan_t)
 
 
 def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
@@ -709,13 +732,25 @@ def render_tile_kbuffer_single(tris: Dict, fragment_shader: Callable,
     same replay as render_tile_kbuffer.  Counterpart of
     pallas_tile.render_tile_pallas_kbuffer_single; equal to the peel route
     without the short-circuit's stops (and within one blend ulp of it with
-    them).  K <= MAX_KDEEP; LESS_EQUAL only.
+    them).  LESS_EQUAL only.
 
-    fold: tile_fold_kdeep (the default) or tile_fold_kdeep_plain."""
+    The K-deep kernel holds at most MAX_KDEEP slots a pixel (the reference
+    takes any K in one pass).  A deeper K-buffer goes through the route
+    this one equals, render_tile_kbuffer with kbuffer_short_circuit off:
+    the same layers, from K peel passes instead of one fold.
+
+    fold: tile_fold_kdeep (the default) or tile_fold_kdeep_plain; above
+    MAX_KDEEP the peel passes run tile_fold, or tile_fold_plain for the
+    latter."""
     K = params.kbuffer
-    if not 1 <= K <= MAX_KDEEP:
-        raise ValueError(f"the K-deep fold takes 1 <= K <= {MAX_KDEEP}, "
-                         f"got kbuffer={K}")
+    if K < 1:
+        raise ValueError(f"the K-deep fold takes kbuffer >= 1, got {K}")
+    if K > MAX_KDEEP:
+        return render_tile_kbuffer(
+            tris, fragment_shader, uniforms,
+            params.replace(kbuffer_short_circuit=False), fb_color, fb_depth,
+            per_tri_extra=per_tri_extra, with_stats=with_stats,
+            fold=tile_fold_plain if fold is tile_fold_kdeep_plain else None)
     ctx = _prepare_for(tris, fragment_shader, params, fb_depth,
                        per_tri_extra)
     H, W, kpi = ctx["H"], ctx["W"], ctx["kpi"]

@@ -8,8 +8,9 @@ host layer (numpy, no JAX).
     ``bench.config_workload`` at ``scripts/make_goldens.py``'s sizes;
   * ``translucent_scene``: the bench soup with six alpha-0.5 glass panes
     (``scripts/profile_translucent.py:52-63``), the K-buffer workload;
-  * ``kbuffer_golden_frame``: ``scripts/make_goldens.py``'s
-    feature_kbuffer frame.
+  * ``kbuffer_golden_frame``, ``wireframe_golden_frame`` and
+    ``config4_golden_frame``: ``scripts/make_goldens.py``'s feature_kbuffer,
+    feature_wireframe and config4 frames.
 
 Each equals its source array for array (tests/test_torch_package.py).
 """
@@ -163,3 +164,33 @@ def kbuffer_golden_frame():
     u = default_frame_uniforms(320, 240)
     u["camera_position"] = np.float32([0, 0.8, 2.0])
     return scene_mod.build_scene_buffers(insts), params, u
+
+
+def wireframe_golden_frame():
+    """scripts/make_goldens.py's feature_wireframe frame: a checkered cube
+    and an untextured sphere through DebugMode.WIREFRAME at 320x240.
+    Returns (packed scene, RenderParams, uniforms)."""
+    from softwarerenderer_tpu_torch.config import DebugMode, RenderParams
+    from softwarerenderer_tpu_torch.engine import default_frame_uniforms
+    checker = np.asarray(checkerboard(32, 4)["data"])
+    insts = [scene_mod.MeshInstance(primitives.cube(1.2),
+                                    ml.translation([0, 0, -3]),
+                                    texture=checker),
+             scene_mod.MeshInstance(
+                 primitives.uv_sphere(0.7, rings=10, sectors=16),
+                 ml.translation([1.4, 0.3, -4]))]
+    params = RenderParams(width=320, height=240,
+                          debug_mode=DebugMode.WIREFRAME)
+    return (scene_mod.build_scene_buffers(insts), params,
+            default_frame_uniforms(320, 240))
+
+
+def config4_golden_frame():
+    """scripts/make_goldens.py's config4 frame, the render half of the
+    physics-coupled config: the bench scene through the default route at
+    320x180 from the bench camera's frame 0.  Returns (packed scene,
+    RenderParams, uniforms)."""
+    from softwarerenderer_tpu_torch.config import RenderParams
+    from softwarerenderer_tpu_torch.engine import default_frame_uniforms
+    return (bench_scene(), RenderParams(width=320, height=180),
+            camera_uniforms(default_frame_uniforms(320, 180), 0))

@@ -329,11 +329,171 @@ def test_kdeep_route_matches_peel_route(short_circuit):
 
 
 def test_kdeep_route_refuses_k_above_its_maximum():
-    params = RenderParams(width=32, height=32,
-                          kbuffer=tile_raster.MAX_KDEEP + 1)
+    """The K-deep fold refuses a K above the deepest its kernel is built
+    for, and the route refuses K < 1; a K above the maximum on the route
+    goes through the peel passes instead
+    (test_kdeep_route_above_its_maximum_takes_peel_passes)."""
+    kw = dict(tile_h=16, tile_w=128, kp=8, kpi=4, sl_screen=1, sl_ia=3,
+              clip_w_off=4)
     with pytest.raises(ValueError, match=str(tile_raster.MAX_KDEEP)):
+        tile_raster.tile_fold_kdeep(*[None] * 8, (), **kw,
+                                    K=tile_raster.MAX_KDEEP + 1)
+    with pytest.raises(ValueError, match="kbuffer >= 1"):
         tile_raster.render_tile_kbuffer_single(
-            {}, tr.scene_fragment_shader, {}, params, None, None)
+            {}, tr.scene_fragment_shader, {},
+            RenderParams(width=32, height=32, kbuffer=0), None, None)
+
+
+def _deep_stack_frame(K):
+    """Thirteen stacked translucent quads at 96x64 with kbuffer = K: the
+    frame_setup dict and the parameters."""
+    scene = build([engine_quad(-2.0 - 0.25 * i,
+                               (0.3 + 0.05 * i, 0.9 - 0.05 * i, 0.5, 0.5),
+                               s=1.0 - 0.05 * i) for i in range(13)])
+    params = SMALL.replace(kbuffer=K)
+    u = frame_uniforms(params, np.float32([0.03, 0.02, 0.07]))
+    return tr.frame_setup(scene_to_torch(scene, "cpu"), u, params), params
+
+
+@pytest.mark.parametrize("K", [9, 12])
+def test_kdeep_route_above_its_maximum_takes_peel_passes(K, monkeypatch):
+    """Above MAX_KDEEP the single-pass route renders through K peel passes
+    with no short-circuit: K tile_fold calls, K - 1 of them peeling, no
+    K-deep fold, and the frame that K layers peeled one by one (the twin of
+    the K-deep fold takes any K), each shaded and replayed, give."""
+    assert K > tile_raster.MAX_KDEEP
+    f, params = _deep_stack_frame(K)
+    a = (f["tris"], tr.scene_fragment_shader, f["uniforms"], params,
+         f["fb_color"], f["fb_depth"])
+    calls = []
+    fold = tile_raster.tile_fold
+
+    def counting(*args, **kwargs):
+        calls.append("prev_d" in kwargs)
+        return fold(*args, **kwargs)
+
+    def no_kdeep(*args, **kwargs):
+        raise AssertionError("the K-deep fold takes no K above its maximum")
+
+    monkeypatch.setattr(tile_raster, "tile_fold", counting)
+    monkeypatch.setattr(tile_raster, "tile_fold_kdeep", no_kdeep)
+    c, d, stats = tile_raster.render_tile_kbuffer_single(
+        *a, per_tri_extra=f["per_tri"], with_stats=True)
+    assert calls == [False] + [True] * (K - 1)
+
+    ctx = tile_raster._prepare_for(f["tris"], tr.scene_fragment_shader,
+                                   params, f["fb_depth"], f["per_tri"])
+    args, kwargs = tile_raster.fold_inputs(ctx)
+    gbuf, bd, bi = tile_raster.tile_fold_kdeep_plain(*args, K=K, **kwargs)
+    H, W, kpi = ctx["H"], ctx["W"], ctx["kpi"]
+    assert int((bi[K - 1] >= 0).sum()) > 0          # K layers deep somewhere
+    src = torch.stack([tr.scene_fragment_shader(tile_raster.frag_from_planes(
+        ctx, gbuf[s * kpi:(s + 1) * kpi, :H, :W]), f["uniforms"])
+        for s in range(K)])
+    wc, wd, wstats = tile_raster.replay_layers(
+        src, bd[:, :H, :W], bi[:, :H, :W], f["fb_color"], f["fb_depth"],
+        params, True)
+    assert torch.equal(c, wc) and torch.equal(d, wd)
+    assert int(stats["kbuffer_saturated_px"]) \
+        == int(wstats["kbuffer_saturated_px"]) > 0
+    # And through the twins, as a check on the card asks for them.
+    c2, d2 = tile_raster.render_tile_kbuffer_single(
+        *a, per_tri_extra=f["per_tri"],
+        fold=tile_raster.tile_fold_kdeep_plain)
+    assert torch.equal(c2, c) and torch.equal(d2, d)
+
+
+def test_kdeep_above_its_maximum_matches_jax():
+    """kbuffer = 9 through the single-pass route against JAX's render_frame
+    on its XLA K-slot fold, which takes any K."""
+    f, params = _deep_stack_frame(9)
+    scene = build([engine_quad(-2.0 - 0.25 * i,
+                               (0.3 + 0.05 * i, 0.9 - 0.05 * i, 0.5, 0.5),
+                               s=1.0 - 0.05 * i) for i in range(13)])
+    u = frame_uniforms(params, np.float32([0.03, 0.02, 0.07]))
+    jc, jd = jax_frame(scene, u, params, jr.scene_fragment_shader, False)
+    c, d = tile_raster.render_tile_kbuffer_single(
+        f["tris"], tr.scene_fragment_shader, f["uniforms"], params,
+        f["fb_color"], f["fb_depth"], per_tri_extra=f["per_tri"])
+    assert (np.abs(c.numpy() - jc).max(-1) > 1e-5).mean() <= 1e-3
+    assert (np.abs(d.numpy() - jd) > 1e-5).mean() <= 1e-3
+
+
+def _kdeep_inputs():
+    """Fold inputs of the K-deep test scene at 136x92 on the CPU."""
+    params = RenderParams(width=136, height=92, tile_h=16, span_cap=6,
+                          kbuffer=3, cull_mode=0)
+    u = jr.default_frame_uniforms(136, 92)
+    u["camera_position"] = np.float32([0, 0.5, 3.0])
+    f = tr.frame_setup(scene_to_torch(_tile_kernel_scene(), "cpu"), u,
+                       params)
+    ctx = tile_raster._prepare_for(f["tris"], tr.scene_fragment_shader,
+                                   params, f["fb_depth"], f["per_tri"])
+    return tile_raster.fold_inputs(ctx)
+
+
+@pytest.fixture(scope="module")
+def kdeep_inputs():
+    return _kdeep_inputs()
+
+
+def test_kdeep_launch_args_pass_the_tile_order(kdeep_inputs):
+    """What tile_fold_kdeep hands its kernel: the tile order (a
+    permutation, longest list first, stable), the inputs' pointers in the
+    entry point's order, fresh outputs of K layers, the tiling and K."""
+    args, kwargs = kdeep_inputs
+    (gbuf, bd, bi), call, (tiles, plan_t) = tile_raster.kdeep_launch_args(
+        *args, K=3, **kwargs)
+    counts = args[6]
+    assert torch.equal(tiles, tile_raster.tile_order(counts))
+    assert sorted(tiles.tolist()) == list(range(counts.numel()))
+    assert bool((counts[tiles][:-1] >= counts[tiles][1:]).all())
+    assert call[:7] == tuple(a.data_ptr() for a in args[:7])
+    assert call[7] == tiles.data_ptr()
+    assert call[8:10] == (args[7].data_ptr(), plan_t.data_ptr())
+    assert call[10] == len(args[8]) == plan_t.shape[0]
+    assert call[11:14] == (gbuf.data_ptr(), bd.data_ptr(), bi.data_ptr())
+    Hp, Wp = args[0].shape
+    th, tw = kwargs["tile_h"], kwargs["tile_w"]
+    assert call[14:18] == (Wp // tw, Hp // th, th, tw)
+    assert call[18:] == (kwargs["kp"], kwargs["kpi"], kwargs["sl_screen"],
+                         kwargs["sl_ia"], kwargs["clip_w_off"], 3)
+    assert gbuf.shape == (3 * kwargs["kpi"], Hp, Wp)
+    assert bd.shape == bi.shape == (3, Hp, Wp)
+    assert bi.dtype == torch.int32
+
+
+@pytest.mark.parametrize("what", ["counts dtype", "fbd not contiguous",
+                                  "tiling", "setup misaligned",
+                                  "payload width", "K too deep", "K zero",
+                                  "other device"])
+def test_kdeep_wrapper_rejects(what, kdeep_inputs):
+    """tile_fold_kdeep raises on what its kernel does not take."""
+    args, kwargs = kdeep_inputs
+    args, kwargs, K = list(args), dict(kwargs), 3
+    check = tile_raster.kdeep_launch_args
+    if what == "counts dtype":
+        args[6] = args[6].long()
+    elif what == "fbd not contiguous":
+        args[0] = args[0].T.contiguous().T
+    elif what == "tiling":
+        kwargs["tile_h"] = 15
+    elif what == "setup misaligned":
+        n = args[1].shape[0]
+        shifted = torch.empty(n * tile_raster.N_SETUP + 1)[1:]
+        assert shifted.data_ptr() % 8 == 4
+        args[1] = shifted.view(n, tile_raster.N_SETUP).copy_(args[1])
+    elif what == "payload width":
+        args[7] = args[7][:, :-1].contiguous()
+    elif what == "K too deep":
+        K, check = tile_raster.MAX_KDEEP + 1, tile_raster.tile_fold_kdeep
+    elif what == "K zero":
+        K, check = 0, tile_raster.tile_fold_kdeep
+    else:
+        args[0] = torch.empty(args[0].shape, device="meta")
+        check = tile_raster.tile_fold_kdeep
+    with pytest.raises(ValueError):
+        check(*args, K=K, **kwargs)
 
 
 def kbuffer_golden_scene():

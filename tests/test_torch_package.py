@@ -420,6 +420,33 @@ def test_sky_panorama_uniform_raises():
         render_frame(eng.scene, u, eng.params)
 
 
+@pytest.mark.parametrize("through", ["Engine", "render_frame"])
+def test_unpacked_tri_extras_channel_raises(through):
+    """A fragment shader whose tri_extras names a per-triangle channel
+    that frame_setup does not pack (the reference's PBR shaders read
+    mat_metallic and its siblings) is refused by name, before any shader
+    runs, not by a KeyError inside it; the channels that are packed pass."""
+    from softwarerenderer_tpu_torch.engine import renderer
+
+    def pbr_like(frag, uniforms):
+        return frag["color"] * frag["tri"]["mat_metallic"][..., None]
+
+    pbr_like.varyings = ("color",)
+    pbr_like.tri_extras = ("tex_oy", "mat_metallic", "mat_roughness")
+    params = RenderParams(64, 48)
+    with pytest.raises(NotImplementedError,
+                       match="tri_extras channel mat_metallic"):
+        if through == "Engine":
+            Engine(small_scene(), params, fragment_shader=pbr_like,
+                   device="cpu")
+        else:
+            eng = Engine(small_scene(), params, device="cpu")
+            render_frame(eng.scene, eng.uniforms, params,
+                         fragment_shader=pbr_like)
+    pbr_like.tri_extras = renderer.PACKED_TRI_EXTRAS
+    renderer.check_supported(params, fragment_shader=pbr_like)
+
+
 @pytest.mark.parametrize("mode", list(BlendMode))
 def test_blend_modes_render(mode):
     """Blend mode is a supported field: every mode renders a finite frame

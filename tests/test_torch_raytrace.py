@@ -301,8 +301,9 @@ def test_plain_sweep_counts_every_listed_cluster(sweep_inputs):
 def test_k4_edge_cases_on_the_twin():
     """chip_smoke's K4 edge cases (ties, tri_mask, +0.0 and -0.0, det at
     EPSILON, face masks, NaN-origin bundles with no survivor, the winner in
-    the last cluster) hold for the plain twin on the CPU."""
-    assert chip_smoke.check_k4_edge_cases("cpu") == 11
+    the last cluster, coplanar triangles across clusters, a NaN ray among
+    healthy ones) hold for the plain twin on the CPU."""
+    assert chip_smoke.check_k4_edge_cases("cpu") == 13
 
 
 def test_sweep_has_no_fallback_for_other_devices():
@@ -438,3 +439,146 @@ def test_engine_frame_fn_renders_raytraced_frame():
     assert rgb.shape == (48, 64, 3) and rgb.dtype == np.uint8
     with pytest.raises(NotImplementedError, match="sky_panorama"):
         eng.render(dict(u, sky_panorama=np.zeros((4, 8, 4), np.float32)))
+
+
+# ---- the sweep wrapper's own Python: bundle order, launch arguments -------
+
+def test_bundle_order_longest_first_stable_empty_last():
+    """bundle_order is a permutation of the bundles, longest survivor list
+    first, equal counts in bundle order, the bundles that list nothing
+    last; it stays on the counts' device and reads nothing back (it runs on
+    a meta tensor, which has no data to read)."""
+    counts = torch.tensor([0, 3, 7, 0, 3, 1, 7, 0], dtype=torch.int32)
+    order = rt_sweep.bundle_order(counts)
+    assert order.dtype == torch.int64 and order.device == counts.device
+    assert order.tolist() == [2, 6, 1, 4, 5, 0, 3, 7]
+    assert sorted(order.tolist()) == list(range(8))
+    assert int((counts[order][-3:] != 0).sum()) == 0
+    meta = rt_sweep.bundle_order(torch.empty(5, dtype=torch.int32,
+                                             device="meta"))
+    assert meta.device.type == "meta" and meta.shape == (5,)
+
+
+def _prepped(sweep_inputs):
+    world, _, o, d = sweep_inputs
+    accel = rt_sweep.build_rt_accel_pl(world)
+    prep = rt_sweep._prep(torch.from_numpy(o), torch.from_numpy(d), accel,
+                          accel["slot_ok"], None)
+    return accel, prep[2:7]
+
+
+@pytest.mark.parametrize("order", ["reversed", "plain", "raises"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sweep_on_cpu_equals_twin_whatever_the_order(order, any_hit,
+                                                    sweep_inputs,
+                                                    monkeypatch):
+    """On CPU tensors rt_sweep's results are rt_sweep_plain's whatever
+    order the wrapper would hand the kernel, with or without the clusters'
+    boxes; `tested` counts every listed cluster once per part."""
+    accel, args = _prepped(sweep_inputs)
+
+    def raises(counts):
+        raise AssertionError("the twin takes no bundle order")
+
+    monkeypatch.setattr(rt_sweep, "bundle_order", {
+        "reversed": lambda c: torch.arange(c.numel() - 1, -1, -1),
+        "plain": lambda c: torch.arange(c.numel()),
+        "raises": raises}[order])
+    want_t, want_g = rt_sweep.rt_sweep_plain(*args, any_hit=any_hit,
+                                             face_mask=0)
+    tested = torch.zeros_like(args[3])
+    t, g = rt_sweep.rt_sweep(*args, any_hit=any_hit, face_mask=0,
+                             boxes=(accel["cl_lo"], accel["cl_hi"]),
+                             tested=tested)
+    assert torch.equal(t.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(g, want_g)
+    R = args[0].shape[2]
+    assert torch.equal(tested, args[3] * -(-R // rt_sweep.PART_RAYS))
+
+
+def test_sweep_launch_args_pass_the_order_and_the_boxes(sweep_inputs):
+    """What the wrapper hands the kernel: the bundle order it computed, the
+    boxes' pointers (or none), fresh outputs, zeroed counters for `swept`
+    (one per group of GROUP_RAYS rays) and `tested`."""
+    accel, args = _prepped(sweep_inputs)
+    B, _, R = args[0].shape
+    boxes = (accel["cl_lo"], accel["cl_hi"])
+    swept = torch.zeros(B, dtype=torch.int32)
+    tested = torch.zeros(B, dtype=torch.int32)
+    (out_t, out_g), call, (order, groups, counted) = \
+        rt_sweep.sweep_launch_args(*args, any_hit=True, face_mask=2,
+                                   swept=swept, boxes=boxes, tested=tested)
+    assert torch.equal(order, rt_sweep.bundle_order(args[3]))
+    assert call[:5] == tuple(a.data_ptr() for a in args)
+    assert call[5] == order.data_ptr()
+    assert call[6:8] == tuple(b.data_ptr() for b in boxes)
+    assert call[8:12] == (out_t.data_ptr(), out_g.data_ptr(),
+                          groups.data_ptr(), counted.data_ptr())
+    assert call[12:] == (B, R, args[1].shape[1], args[2].shape[1], 1, 2)
+    assert out_t.shape == out_g.shape == (B, R)
+    assert groups.shape == (B, 1) and int(groups.abs().sum()) == 0
+    assert int(counted.abs().sum()) == 0
+    _, call, (_, groups, counted) = rt_sweep.sweep_launch_args(
+        *args, any_hit=False, face_mask=0)
+    assert call[6:8] == (None, None) and call[10:12] == (None, None)
+    assert groups is None and counted is None and call[16] == 0
+
+
+@pytest.mark.parametrize("what", ["boxes shape", "boxes dtype", "swept shape",
+                                  "tested dtype", "lists dtype",
+                                  "rays not contiguous", "stream width"])
+def test_sweep_launch_args_reject(what, sweep_inputs):
+    """The wrapper raises on what the kernel does not take."""
+    accel, args = _prepped(sweep_inputs)
+    rays, stream, lists, counts, t0q = args
+    B = rays.shape[0]
+    lo, hi = accel["cl_lo"], accel["cl_hi"]
+    kw = dict(any_hit=False, face_mask=0)
+    if what == "boxes shape":
+        kw["boxes"] = (lo[:-1], hi)
+    elif what == "boxes dtype":
+        kw["boxes"] = (lo.double(), hi)
+    elif what == "swept shape":
+        kw["swept"] = torch.zeros(B + 1, dtype=torch.int32)
+    elif what == "tested dtype":
+        kw["tested"] = torch.zeros(B, dtype=torch.int64)
+    elif what == "lists dtype":
+        lists = lists.long()
+    elif what == "rays not contiguous":
+        rays = rays.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        stream = stream[:, :-1].contiguous()
+    with pytest.raises(ValueError):
+        rt_sweep.sweep_launch_args(rays, stream, lists, counts, t0q, **kw)
+
+
+@pytest.fixture(scope="module")
+def sweep_study_casts():
+    """utils.sweep_study on the CPU: both casts of a 96x64 ray-traced
+    frame of the bench scene from the bench view."""
+    from softwarerenderer_tpu_torch import scenes
+    from softwarerenderer_tpu_torch.utils import sweep_study
+    params = RenderParams(96, 64)
+    eng = Engine(scenes.bench_scene(), params, device="cpu")
+    calls, accel = sweep_study.capture_casts(
+        eng, scenes.camera_uniforms(eng.uniforms, 0), params, 24)
+    return [sweep_study.study_cast(a, kw, accel) for a, kw in calls]
+
+
+@pytest.mark.parametrize("cast", [0, 1], ids=["primary", "shadow"])
+def test_part_skipping_rules_drop_no_passing_sweep(cast, sweep_study_casts):
+    """The rules by which a part of a bundle skips a cluster in
+    csrc/rt_sweep.cu, in their PyTorch form (rt_accel's slab test on the
+    part's own bounds, the entry time against every ray's best hit, the
+    stop once the part's rays are done), never drop a (part, cluster) pair
+    in which a ray's result would change (for the slab test: in which a
+    ray passes at all), at any part size; and they do drop pairs."""
+    study = sweep_study_casts[cast]
+    assert study["mode"] == ("any_hit" if cast else "nearest")
+    for name, row in study["layouts"].items():
+        assert row["wrong_done"] == 0, name
+        assert row["wrong_slab"] == 0, name
+        assert row.get("wrong_entry", 0) == 0, name
+        assert 0 < row["left_that_pass"] <= row["part_sweeps"] \
+            - row["no_ray_passes"], name
+        assert row["left_after_slab"] < row["part_sweeps"], name
