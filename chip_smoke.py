@@ -39,7 +39,14 @@ drives the port's four paths at 1080p:
     route (phase 15); and at 320x180 the brute and binned routes of LESS,
     GREATER, GREATER_EQUAL and ALWAYS, the forward route for EQUAL, the
     wireframe, overdraw and depth views, each equal to the same call on
-    the CPU (phase 16).
+    the CPU (phase 16).  Phase 14 also holds K5 at each part length of
+    K5_PART_LENS (no split, then lists cut into parts merged by 64-bit
+    atomics), times them in turns, and runs the split edge cases;
+  * the K-slot K-buffer (``RenderParams(..., kbuffer=4, depth_test=X)``,
+    ops.kbuffer): at 320x180 the translucent scene under LESS, GREATER,
+    GREATER_EQUAL, ALWAYS and DISABLED equal to the same call on the CPU;
+    at 1080p the route under LESS_EQUAL equal to the peel route without
+    its short-circuit, and one GREATER frame timed (phase 17).
 
 Any failed check raises and exits non-zero.  The last three lines of
 standard output are the card's name and power limit, a JSON line with the
@@ -50,11 +57,13 @@ Needs a CUDA device: without one it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,9 +81,9 @@ GBUF_ATOL = 1e-5           # G-buffer, kernel vs plain
 # background pixels count against it too).
 FRAME_COVERED_MISMATCH_MAX = 1e-4
 KBUFFER = 4
-# Registers a thread of K1 and of K2 may use: 4 and 3 blocks of 256
+# Registers a thread of K1, K2 and K5 may use: 4, 3 and 4 blocks of 256
 # threads an SM.
-TILE_REGISTERS = {"K1": 64, "K2": 80}
+TILE_REGISTERS = {"K1": 64, "K2": 80, "K5": 64}
 # Phase 3's other tilings of the bench frame: a tile smaller than a block
 # of 1,024 pixels, one of three whole blocks, one with a ragged last block
 # and one whose width does not divide 256 (the kernel's other pixel layout).
@@ -92,10 +101,13 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # FP32 operations of one test, per-triangle terms hoisted: a tile fold's
 # (triangle, pixel) test is 3 edge functions of 5 and a depth of 8
-# (tile_common.cuh:fragment); a sweep's (ray, triangle) Möller–Trumbore
+# (tile_common.cuh:Row); a sweep's (ray, triangle) Möller–Trumbore
 # test is 46 (csrc/rt_sweep.cu).  Comparisons are not counted.
 FOLD_OPS = 23
 MT_OPS = 46
+# Phase 14's part lengths of K5, timed in turns: no split (part (a) of the
+# design alone), then lists cut into parts of this many triangles.
+K5_PART_LENS = (2 ** 31 - 1, 512, 256, 128, 64)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -128,6 +140,34 @@ def cuda_ms(fn, runs: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, runs: int, *kernels: str) -> float:
+    """Mean device milliseconds a call of fn() spends in the kernels whose
+    names hold one of `kernels`, each launched once a call, over `runs`
+    back-to-back calls traced by torch.profiler after one warm-up: the
+    kernels alone, without the host work or the other launches of their
+    wrapper."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    total = 0.0
+    for kernel in kernels:
+        durs = [e["dur"] for e in events if e.get("ph") == "X"
+                and e.get("cat") == "kernel" and kernel in e.get("name", "")]
+        check(len(durs) == runs, f"profiled {len(durs)} launches of "
+              f"{kernel} for {runs} calls")
+        total += sum(durs)
+    return total / runs * 1e-3
 
 
 def edge_case_inputs(device):
@@ -383,6 +423,77 @@ def vis_fold_edge_cases(device):
     return cases
 
 
+def vis_fold_split_cases(device):
+    """K5's edge cases of split lists as [(name, args, kwargs, part_len,
+    expected best_i, expected best_d)], the expectations on the CPU.  A
+    tile's list is its globals, then its segment; part_len cuts it.
+
+    part ties: tile 0's list (global 0, then 1, 2, all at -0.5) in parts
+    [0, 1] (a tie across the globals-segment boundary inside one part) and
+    [2] (a tie between parts): 2 wins; tile 1's [0, 3] is one part: 3.
+    NaN seed: a split tile whose left column is NaN keeps it (id -1, the
+    seed's bits).  signed zeros: -0.0 and +0.0 in different parts, each
+    order; the later id wins, written +0.0.  -inf: a -inf fragment takes a
+    -inf seed in a split tile, the later of two wins their tie, a NaN
+    fragment never.  P and P + 1: lists of 2 and 3 at part_len 2, the
+    winner alone in the second part.  one tile: a 32x128 tile (four
+    blocks) holding 300 triangles, half of them global, in five parts of
+    64; expected from the plain twin."""
+    from softwarerenderer_tpu_torch.ops import vis_fold
+    big = ((-8.0, -8.0), (24.0, -8.0), (-8.0, 24.0))
+    nan, inf = float("nan"), float("inf")
+    clear = torch.finfo(torch.float32).min
+    i32 = torch.int32
+    cases = []
+
+    def halves(a, b):
+        return torch.tensor([[a] * 4 + [b] * 4] * 2, dtype=i32)
+
+    args, kw = _vis_case([big + (-0.5,)] * 4, [0], [[1, 2], [3]],
+                         torch.full((2, 8), clear), 2, 4, 0, device)
+    cases.append(("ties between parts and across the lists in one part",
+                  args, kw, 2, halves(2, 3), torch.full((2, 8), -0.5)))
+    fbd = torch.full((2, 8), clear)
+    fbd[:, 0] = nan
+    args, kw = _vis_case([big + (-0.75,), big + (-0.5,)], [], [[0, 1], [0]],
+                         fbd, 2, 4, 0, device)
+    want_i = halves(1, 0)
+    want_i[:, 0] = -1
+    want_d = torch.where(want_i == 1, -0.5, -0.75)
+    want_d[:, 0] = nan
+    cases.append(("NaN seed in a split tile", args, kw, 1, want_i, want_d))
+    args, kw = _vis_case([big + (-0.0,), big + (0.0,), big + (0.0,),
+                          big + (-0.0,)], [], [[0, 1], [2, 3]],
+                         torch.full((2, 8), -0.5), 2, 4, 0, device)
+    cases.append(("-0.0 and +0.0 in different parts", args, kw, 1,
+                  halves(1, 3), torch.zeros((2, 8))))
+    args, kw = _vis_case([big + (-inf,), big + (nan,), big + (-inf,)], [],
+                         [[0, 1], [0, 2]], torch.full((2, 8), -inf), 2, 4,
+                         0, device)
+    cases.append(("a -inf seed and -inf fragments in split tiles", args, kw,
+                  1, halves(0, 2), torch.full((2, 8), -inf)))
+    args, kw = _vis_case([big + (-0.75,), big + (-0.5,), big + (-0.5,),
+                          big + (-0.75,), big + (-0.25,)], [],
+                         [[0, 1], [2, 3, 4]], torch.full((2, 8), clear), 2,
+                         4, 0, device)
+    cases.append(("lists of exactly P and P + 1 entries", args, kw, 2,
+                  halves(1, 4), torch.where(halves(1, 4) == 1, -0.5, -0.25)))
+    rng = np.random.default_rng(7)
+    tris = []
+    for _ in range(300):
+        c = rng.uniform(-8.0, 136.0, (3, 2)).round()
+        tris.append(tuple(map(tuple, c)) + (float(rng.uniform(-1.0, 0.0)),))
+    fbd = torch.full((32, 128), clear)
+    fbd[:8] = -0.5
+    args, kw = _vis_case(tris, list(range(0, 300, 2)),
+                         [list(range(1, 300, 2))], fbd, 32, 128, 0, "cpu")
+    want_d, want_i = vis_fold.visibility_fold_plain(*args, **kw)
+    args = tuple(a.to(device) for a in args)
+    cases.append(("one tile holding every triangle", args, kw, 64, want_i,
+                  want_d))
+    return cases
+
+
 def nbytes(*values) -> int:
     """Bytes of every tensor among values (other values count 0)."""
     return sum(v.numel() * v.element_size() for v in values
@@ -466,7 +577,9 @@ def report_ptxas(output: str) -> None:
                                             "one column a thread>",
              "tile_raster_kernelILb0ELb0E": "K1 tile_raster_kernel<opaque>",
              "tile_raster_kernelILb1ELb0E": "K2 tile_raster_kernel<peel>",
-             "vis_fold_kernel": "K5 vis_fold_kernel"}
+             "vis_fold_kernelILb1E": "K5 vis_fold_kernel<one column a "
+                                     "thread>",
+             "vis_fold_kernelILb0E": "K5 vis_fold_kernel"}
     fn = "?"
     for line in output.splitlines():
         if "Compiling entry function" in line:
@@ -485,7 +598,7 @@ def report_ptxas(output: str) -> None:
             log(f"  ptxas {fn}: {line.strip()}")
             check(" 0 bytes spill stores" in line or "spill" not in line,
                   f"{fn} spills: {line.strip()}")
-            if fn.startswith(("K1", "K2")) and "Used " in line:
+            if fn.startswith(("K1", "K2", "K5")) and "Used " in line:
                 regs = int(line.split("Used ")[1].split()[0])
                 most = TILE_REGISTERS[fn[:2]]
                 check(regs <= most, f"{fn} uses {regs} registers, more "
@@ -1319,8 +1432,13 @@ def check_vis_fold_kernel(card, k1_args, k1_kwargs, k1_out,
     """Phase 14: K5 against its plain twin on the bench frame's bins (the
     K1 fold's own inputs, 32x128 tiles): best_i equal on every pixel and
     best_d bit for bit, and equal to K1's winners and depths on the same
-    bins; the same at 64x128 tiles (two blocks a tile); the edge cases.
-    Returns K5's timing, bound and largest difference."""
+    bins; the same, and timed, at each part length of K5_PART_LENS (no
+    split, then lists cut into parts merged by 64-bit atomics); the same
+    at 64x128 tiles (two blocks a tile); the edge cases, at the shipped
+    part length and at one triangle a part; the split edge cases.
+    Returns K5's times at the shipped part length (ms: the kernel alone,
+    the lower of two profiled means; wrapper_ms: with its wrapper), bound
+    and largest difference."""
     from softwarerenderer_tpu_torch.ops import binning, vis_fold
     args = k1_args[:7]
     kwargs = dict(tile_h=k1_kwargs["tile_h"], tile_w=k1_kwargs["tile_w"],
@@ -1335,24 +1453,74 @@ def check_vis_fold_kernel(card, k1_args, k1_kwargs, k1_out,
     diff_k1_d = int((kd != k1_d).sum())
     d_err = float((kd - pd).abs().max())
     n_cov = int((ki >= 0).sum())
-    ms = cuda_ms(lambda: vis_fold.vis_fold(*args, **kwargs), KERNEL_RUNS)
     plain_ms = cuda_ms(lambda: vis_fold.visibility_fold_plain(*args,
                                                               **kwargs),
                        PLAIN_RUNS)
     b = fold_bound(args, kwargs, (kd, ki))
     Hp, Wp = args[0].shape
+    lens = args[3].long() + args[6].long()
     log(f"phase 14 K5 vs plain @{Wp}x{Hp} padded, {kwargs['tile_h']}x"
-        f"{kwargs['tile_w']} tiles: {n_cov} covered pixels; best_i differs "
-        f"on {diff_i}, best_d (bits) on {diff_d} pixels; vs K1 on the same "
-        f"bins: best_i differs on {diff_k1_i}, best_d on {diff_k1_d}; kernel "
-        f"{ms:.3f} ms (median of {KERNEL_RUNS}), plain {plain_ms:.3f} ms "
-        f"(median of {PLAIN_RUNS}); bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}, {b['tests']} tests) [{card}]")
+        f"{kwargs['tile_w']} tiles ({lens.numel()} tiles, lists of mean "
+        f"{float(lens.float().mean()):.1f} and at most {int(lens.max())} "
+        f"triangles): {n_cov} covered pixels; best_i differs on {diff_i}, "
+        f"best_d (bits) on {diff_d} pixels; vs K1 on the same bins: best_i "
+        f"differs on {diff_k1_i}, best_d on {diff_k1_d}; plain "
+        f"{plain_ms:.3f} ms (median of {PLAIN_RUNS}); bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['tests']} tests) "
+        f"[{card}]")
     check(n_cov > 0.05 * ki.numel(), f"K5 covers only {n_cov} pixels")
     check(diff_i == 0 and diff_d == 0,
           f"K5 vs twin: best_i {diff_i}, best_d {diff_d}")
     check(diff_k1_i == 0 and diff_k1_d == 0,
           f"K5 vs K1: best_i {diff_k1_i}, best_d {diff_k1_d}")
+
+    # Each part length, held against the twin and timed in turns: the
+    # wrapper with CUDA events (as every kernel of this script), and the
+    # kernel alone with the profiler (the wrapper also builds the work
+    # list, a few small launches).
+    blocks = -(-kwargs["tile_h"] * kwargs["tile_w"] // 1024)
+    times = {p: [] for p in K5_PART_LENS}
+    alone = {p: [] for p in K5_PART_LENS}
+    items = {}
+    for p in K5_PART_LENS:
+        d, i = vis_fold.vis_fold(*args, **kwargs, part_len=p)
+        n = int((i != pi).sum()) + int(
+            (d.view(torch.int32) != pd.view(torch.int32)).sum())
+        check(n == 0, f"K5 at part_len {p}: {n} values differ from the twin")
+        # The plan kernel's work list against its twin on the CPU.
+        tiles, first = vis_fold.fold_items(args[3], args[6], p, blocks)
+        want_t, want_f = vis_fold.fold_items(args[3].cpu(), args[6].cpu(), p,
+                                             blocks)
+        check(torch.equal(tiles.cpu(), want_t)
+              and torch.equal(first.cpu(), want_f),
+              f"K5 work list at part_len {p} differs from its twin")
+        items[p] = int(want_f[-1])
+    for _ in range(2):
+        for p in K5_PART_LENS:
+            def call():
+                return vis_fold.vis_fold(*args, **kwargs, part_len=p)
+            times[p].append(cuda_ms(call, KERNEL_RUNS))
+            alone[p].append(device_ms(call, KERNEL_RUNS, "vis_fold_kernel",
+                                      "vis_fold_plan_kernel"))
+    wrapped = {}
+    for p in K5_PART_LENS:
+        wrapped[p] = statistics.median(times[p])
+        name = "no split" if p >= 2 ** 31 - 1 else f"part_len {p}"
+        log(f"phase 14 K5 {name}: {items[p]} work items, equal to the twin "
+            f"on every pixel, work list equal to its twin; kernel alone "
+            f"{', '.join(f'{t:.4f}' for t in alone[p])} ms (two means of "
+            f"{KERNEL_RUNS}, profiler), {b['bound_ms'] / min(alone[p]):.1%} "
+            f"of the bound; with its wrapper "
+            f"{', '.join(f'{t:.3f}' for t in times[p])} ms (two medians "
+            f"of {KERNEL_RUNS}, CUDA events) [{card}]")
+    ms = wrapped[vis_fold.PART_LEN]
+    kernel_ms = min(alone[vis_fold.PART_LEN])
+    order_ms = cuda_ms(lambda: vis_fold.fold_items(
+        args[3], args[6], vis_fold.PART_LEN, blocks), KERNEL_RUNS)
+    log(f"phase 14 K5 shipped part_len {vis_fold.PART_LEN}: kernel alone "
+        f"(plan and fold) {kernel_ms:.4f} ms, with its wrapper {ms:.3f} ms; "
+        f"fold_items alone {order_ms:.3f} ms; "
+        f"{vis_fold.blocks_per_sm(kwargs['tile_w'])} blocks an SM [{card}]")
 
     # Tiles of 64 rows: the bins of the tile_h the deferred route takes
     # uncapped, each tile split over two blocks.
@@ -1373,20 +1541,35 @@ def check_vis_fold_kernel(card, k1_args, k1_kwargs, k1_out,
         f"values; winners differ from the 32-row tiles' on {same64} pixels")
     check(n64 == 0 and same64 == 0, "K5 at 64-row tiles")
 
-    for name, e_args, e_kwargs, want_i, want_d in vis_fold_edge_cases(device):
-        for who, fold in (("kernel", vis_fold.vis_fold),
+    def holds(name, e_args, e_kwargs, part_len, want_i, want_d):
+        for who, fold in (("kernel", functools.partial(
+                vis_fold.vis_fold, part_len=part_len)),
                           ("plain", vis_fold.visibility_fold_plain)):
             d, i = fold(*e_args, **e_kwargs)
             check(torch.equal(i.cpu(), want_i),
-                  f"K5 edge case {name} {who} best_i {i.cpu().tolist()}")
+                  f"K5 edge case {name} {who} part_len {part_len} best_i "
+                  f"{i.cpu().tolist()}")
             check(torch.equal(d.cpu().view(torch.int32),
                               want_d.view(torch.int32)),
-                  f"K5 edge case {name} {who} best_d {d.cpu().tolist()}")
+                  f"K5 edge case {name} {who} part_len {part_len} best_d "
+                  f"{d.cpu().tolist()}")
+
+    for name, e_args, e_kwargs, want_i, want_d in vis_fold_edge_cases(device):
+        for part_len in (vis_fold.PART_LEN, 1):
+            holds(name, e_args, e_kwargs, part_len, want_i, want_d)
     log("phase 14 K5 edge cases (a -inf seed and a NaN fragment, ties at "
         "the seed and between the lists, -0.0 vs +0.0, row_offset 4, "
-        "tile_h 64, an empty frame): kernel and plain equal the expected "
-        "winners, depth bit for bit")
-    return dict(b, ms=ms, plain_ms=plain_ms, max_abs_err=d_err)
+        "tile_h 64, an empty frame), whole and at one triangle a part: "
+        "kernel and plain equal the expected winners, depth bit for bit")
+    for case in vis_fold_split_cases(device):
+        holds(*case)
+    log("phase 14 K5 split edge cases (ties between parts and across the "
+        "lists inside a part, a NaN seed, -0.0 and +0.0 in different "
+        "parts, a -inf seed with -inf fragments, lists of P and P + 1, one "
+        "tile holding 300 triangles over four blocks): kernel and plain "
+        "equal the expected winners, depth bit for bit")
+    return dict(b, ms=kernel_ms, wrapper_ms=ms, plain_ms=plain_ms,
+                max_abs_err=d_err)
 
 
 def check_deferred_frames(card, device, size, frames) -> dict:
@@ -1519,6 +1702,91 @@ def check_small_routes(card, size, device="cuda") -> None:
               f"phase 16 {name}: {n_c} color, {n_d} depth pixels differ")
         check(torch.isfinite(out["card"][0]).all() and drawn > 0,
               f"phase 16 {name}: nothing drawn")
+
+
+def check_kslot_route(card, small, size, device="cuda") -> None:
+    """Phase 17: the K-slot K-buffer (ops.kbuffer) on the card.  At
+    `small` the translucent scene at K=4 under LESS, GREATER and
+    GREATER_EQUAL (over a MaxValue depth buffer), ALWAYS and DISABLED,
+    each against the same call on the CPU: no pixel may differ, and the
+    saturation counts agree.  At `size` the route called directly under
+    LESS_EQUAL against the peel route with the short-circuit off, which
+    must render the same frame (no pixel off by more than 1e-5); and one
+    GREATER frame at K=4 through render_frame, timed."""
+    from softwarerenderer_tpu_torch import DepthTest, RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import (Engine, frame_setup,
+                                                   render_frame,
+                                                   scene_fragment_shader)
+    from softwarerenderer_tpu_torch.ops import kbuffer, tile_raster
+    scene = scenes.translucent_scene()
+    fmax = torch.finfo(torch.float32).max
+
+    def max_seed(w, h):
+        return (torch.zeros((h, w, 4)), torch.full((h, w), fmax))
+
+    w, h = small
+    engs = {"card": Engine(scene, RenderParams(w, h), device=device),
+            "cpu": Engine(scene, RenderParams(w, h), device="cpu")}
+    u = scenes.camera_uniforms(engs["cpu"].uniforms, 0)
+    for mode in (DepthTest.LESS, DepthTest.GREATER, DepthTest.GREATER_EQUAL,
+                 DepthTest.ALWAYS, DepthTest.DISABLED):
+        params = RenderParams(w, h, kbuffer=KBUFFER, cull_mode=0,
+                              depth_test=mode, kbuffer_stats=True)
+        fb = max_seed(w, h) if mode in (DepthTest.GREATER,
+                                        DepthTest.GREATER_EQUAL) else None
+        out = {dev: render_frame(eng.scene, u, params, fb=fb)
+               for dev, eng in engs.items()}
+        card_f = tuple(x.cpu() for x in out["card"][:2])
+        n_c, n_d, n_rgb = _frame_diff(card_f, out["cpu"][:2])
+        sat = {dev: int(o[2]["kbuffer_saturated_px"]) for dev, o in
+               out.items()}
+        drawn = int((card_f[0] != card_f[0][0, 0]).any(-1).sum())
+        log(f"phase 17 K-slot {mode.name} K={KBUFFER} @{w}x{h}, card vs "
+            f"CPU: {n_c} pixels differ > 1e-5 in color, {n_d} in depth, "
+            f"{n_rgb} in to_rgb8; saturated {sat['card']} / {sat['cpu']}; "
+            f"{drawn} pixels differ from the top-left one [{card}]")
+        check(n_c == 0 and n_d == 0 and sat["card"] == sat["cpu"],
+              f"phase 17 {mode.name}: {n_c} color, {n_d} depth pixels, "
+              f"saturation {sat}")
+        check(torch.isfinite(card_f[0]).all() and drawn > 0,
+              f"phase 17 {mode.name}: nothing drawn")
+
+    w, h = size
+    params = RenderParams(w, h, kbuffer=KBUFFER, cull_mode=0,
+                          kbuffer_short_circuit=False)
+    eng = Engine(scene, params, device=device)
+    u = scenes.camera_uniforms(eng.uniforms, 0)
+    f = frame_setup(eng.scene, u, params)
+    args = (f["tris"], scene_fragment_shader, f["uniforms"], params,
+            f["fb_color"], f["fb_depth"])
+    kc, kd, ks = kbuffer.render_binned_kbuffer(
+        *args, per_tri_extra=f["per_tri"], with_stats=True)
+    pc, pd, ps = tile_raster.render_tile_kbuffer(
+        *args, per_tri_extra=f["per_tri"], with_stats=True)
+    n_c = int(((kc - pc).abs().amax(-1) > 1e-5).sum())
+    n_d = int(((kd - pd).abs() > 1e-5).sum())
+    sat = (int(ks["kbuffer_saturated_px"]), int(ps["kbuffer_saturated_px"]))
+    log(f"phase 17 K-slot LESS_EQUAL K={KBUFFER} @{w}x{h} against the peel "
+        f"route without short-circuit: {n_c} pixels differ > 1e-5 in "
+        f"color, {n_d} in depth; saturated {sat[0]} / {sat[1]} [{card}]")
+    check(n_c == 0 and n_d == 0 and sat[0] == sat[1] > 0,
+          f"phase 17 K-slot vs peel: {n_c} color, {n_d} depth, {sat}")
+
+    params = RenderParams(w, h, kbuffer=KBUFFER, cull_mode=0,
+                          depth_test=DepthTest.GREATER)
+    fb = tuple(x.to(device) for x in max_seed(w, h))
+    render_frame(eng.scene, u, params, fb=fb)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    color, depth = render_frame(eng.scene, u, params, fb=fb)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t) * 1e3
+    drawn = int((depth < fmax).sum())
+    log(f"phase 17 K-slot GREATER K={KBUFFER} frame @{w}x{h}: "
+        f"{frame_ms:.1f} ms (one frame after one warm-up), {drawn} pixels "
+        f"drawn [{card}]")
+    check(torch.isfinite(color).all() and drawn > 0.05 * w * h,
+          f"phase 17 GREATER frame: {drawn} pixels drawn")
 
 
 def check_frame_goldens(device="cuda") -> None:
@@ -1824,6 +2092,9 @@ def main() -> int:
     k5 = check_vis_fold_kernel(card, args, kwargs, (kg, kd, ki), "cuda")
     deferred = check_deferred_frames(card, "cuda", (W, H), FRAMES)
     check_small_routes(card, SMALL_ROUTES_SIZE)
+
+    # ---- phase 17: the K-slot K-buffer, the other depth tests ----------
+    check_kslot_route(card, SMALL_ROUTES_SIZE, (W, H))
 
     def entry(name, source, replaces, launches, numbers):
         return {"name": name, "route": "cuda",

@@ -1,9 +1,7 @@
 // Shared by the tile kernels (tile_raster.cu, tile_kdeep.cu, vis_fold.cu):
-// the setup-row staging in two forms (16-float rows with the edge
-// differences taken, which tile_raster.cu and tile_kdeep.cu fold; plain
-// columns, which vis_fold.cu folds), one fragment's edge functions and
-// depth, and the winner resolve that interpolates a triangle's payload row
-// into the G-buffer.
+// the setup-row staging as 16-float rows with the edge differences taken,
+// and the winner resolve that interpolates a triangle's payload row into
+// the G-buffer.
 //
 // Arithmetic follows softwarerenderer_tpu/ops/pallas_tile.py operand for
 // operand (edge functions, barycentric depth, the cw == 0 and wsum == 0
@@ -24,54 +22,14 @@ constexpr int kMaxPlan = 64;
 
 enum Kind { kPc = 0, kPw = 1, kPw3 = 2, kBary = 3, kV0 = 4 };
 
-// One staged triangle's setup row.
-struct Tri {
-  float s0x, s0y, s1x, s1y, s2x, s2y, d0, d1, d2, ia;
-};
-
-// Stage list[begin + c0, begin + c0 + n) into shared memory, one triangle
-// per thread; the caller brackets it with __syncthreads().
-__device__ __forceinline__ void stage(
-    const int* __restrict__ list, int begin, int c0, int n,
-    const float* __restrict__ setup, float (*s_set)[kThreads], int* s_idx) {
-  const int t = threadIdx.x;
-  if (t < n) {
-    const int tri = list[begin + c0 + t];
-    s_idx[t] = tri;
-#pragma unroll
-    for (int k = 0; k < kSetup; ++k) s_set[k][t] = setup[tri * kSetup + k];
-  }
-}
-
-__device__ __forceinline__ Tri load_tri(const float (*s_set)[kThreads],
-                                        int j) {
-  return Tri{s_set[0][j], s_set[1][j], s_set[2][j], s_set[3][j],
-             s_set[4][j], s_set[5][j], s_set[6][j], s_set[7][j],
-             s_set[8][j], s_set[9][j]};
-}
-
-// Whether pixel (px, py) is inside the triangle (either winding), and its
-// barycentric depth in `d` (pallas_tile.py:162-169).
-__device__ __forceinline__ bool fragment(const Tri& s, float px, float py,
-                                         float& d) {
-  const float w0 = (s.s1y - s.s2y) * (px - s.s1x)
-                   + (s.s2x - s.s1x) * (py - s.s1y);
-  const float w1 = (s.s2y - s.s0y) * (px - s.s2x)
-                   + (s.s0x - s.s2x) * (py - s.s2y);
-  const float w2 = (s.s0y - s.s1y) * (px - s.s0x)
-                   + (s.s1x - s.s0x) * (py - s.s0y);
-  d = s.d0 * (w0 * s.ia) + s.d1 * (w1 * s.ia) + s.d2 * (w2 * s.ia);
-  return (w0 >= 0.f && w1 >= 0.f && w2 >= 0.f)
-         || (w0 <= 0.f && w1 <= 0.f && w2 <= 0.f);
-}
-
 constexpr int kRow = 16;        // floats of one staged Row
 
-// One staged triangle with the edge differences taken: fragment()'s
-// operands, so edge e at a pixel is a_e * (px - x_e) + b_e * (py - y_e) and
-// the depth d0 * (w0 * ia) + d1 * (w1 * ia) + d2 * (w2 * ia), bit for bit
-// what fragment() computes (the same subtractions, taken once per triangle
-// instead of once per thread).
+// One staged triangle with the edge differences taken, so edge e at a pixel
+// is a_e * (px - x_e) + b_e * (py - y_e) and the depth
+// d0 * (w0 * ia) + d1 * (w1 * ia) + d2 * (w2 * ia): pallas_tile.py:162-169
+// operand for operand, inside where the three edges share a sign (either
+// winding), the subtractions taken once per triangle instead of once per
+// pixel.
 struct Row {
   float x0, y0, a0, b0;       // s1x, s1y, s1y - s2y, s2x - s1x
   float x1, y1, a1, b1;       // s2x, s2y, s2y - s0y, s0x - s2x

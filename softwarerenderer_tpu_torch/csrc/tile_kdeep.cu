@@ -68,7 +68,7 @@ __device__ __forceinline__ bool above(float d, int i, float sd, int si) {
 // Fold list[begin, begin + len) into the K sorted slots of the first wn
 // pixels of the thread; wn is the same for every lane of a warp.  Every
 // thread stages and reaches every barrier, whatever its wn.  The arithmetic
-// is tile::fragment's on a staged Row, operation for operation.
+// is the staged Row's (tile_common.cuh), operation for operation.
 template <int K, bool kColumn>
 __device__ __forceinline__ void fold_list(
     float (&ld)[K][kPix], int (&li)[K][kPix], const float (&px)[kPix],

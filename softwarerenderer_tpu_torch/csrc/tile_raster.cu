@@ -38,8 +38,8 @@
 //     tail.
 //   * Set-up rows are staged through shared memory 256 triangles at a time,
 //     as 16-float rows that carry the six edge differences (exact: the same
-//     subtractions fragment() does, taken once per triangle instead of once
-//     per thread), and are read back as four 16-byte broadcast loads.
+//     subtractions the edge functions take, once per triangle instead of
+//     once per thread), and are read back as four 16-byte broadcast loads.
 //   * Fewer instructions a test, none of them rounding differently: where
 //     256 is a multiple of tile_w a thread's four pixels lie in one column,
 //     so the opaque mode takes each edge's a * (px - x) once per triangle;
@@ -102,8 +102,8 @@ struct Pixels {
 // wn is the same for every lane of a warp.  Every thread stages and
 // reaches every barrier, whatever its wn.
 //
-// The arithmetic is tile::fragment's on a staged row, operation for
-// operation, so the same bits: edge e at a pixel is
+// The arithmetic is the staged Row's (tile_common.cuh), operation for
+// operation, so the same bits as the plain twin: edge e at a pixel is
 // a_e * (px - x_e) + b_e * (py - y_e), and the depth
 // d0 * (w0 * ia) + d1 * (w1 * ia) + d2 * (w2 * ia).  With kColumn the
 // thread's pixels share px (f.px[0]), so the three a_e * (px - x_e) are

@@ -13,14 +13,17 @@ picks as JAX's ``_dispatch`` does:
     (ops.forward);
   * binned LESS_EQUAL frames with ``kbuffer > 1``: the depth-peeled
     K-buffer (K tile-kernel passes and a submission-order replay),
-    whatever ``use_pallas`` says;
+    whatever ``use_pallas`` says; binned frames with ``kbuffer > 1``
+    under the other monotone depth tests: the K-slot K-buffer
+    (ops.kbuffer, K rounds of the binned fold and the same replay);
   * binned LESS_EQUAL frames with ``use_pallas=True`` (the default): the
     opaque tile route (the tile kernel's fold, resolve and interpolation,
     one full-frame shading pass, blend);
   * every other frame: the deferred route (ops.raster.render_deferred),
     whose visibility pass is the visibility-fold kernel for binned
     LESS_EQUAL frames (``use_pallas=False``), the binned fold for the
-    other monotone depth tests and the brute force with ``binned=False``;
+    other monotone depth tests and the brute force with ``binned=False``
+    (which ignores ``kbuffer``, as JAX's does);
 
 and ``to_rgb8`` for present.  The vertex and fragment shaders are
 arguments, the game's by default; ``fb=(color, depth)`` seeds the
@@ -45,7 +48,7 @@ from softwarerenderer_tpu_torch.config import (BlendMode, DebugMode,
 from softwarerenderer_tpu_torch import shaders
 from softwarerenderer_tpu_torch.models.convert import scene_to_torch
 from softwarerenderer_tpu_torch.ops import (culling, debugviz, forward,
-                                            geometry, raster)
+                                            geometry, kbuffer, raster)
 from softwarerenderer_tpu_torch.ops import texture as tex_ops
 from softwarerenderer_tpu_torch.ops import tile_raster
 from softwarerenderer_tpu_torch.utils import mathlib as ml
@@ -228,8 +231,6 @@ def check_supported(params: RenderParams, scene_keys=(), uniforms=None,
         ("ssao", params.ssao), ("bloom", params.bloom),
         ("tonemap", params.tonemap is not None), ("fxaa", params.fxaa),
         ("post_fx callables", any(callable(f) for f in params.post_fx)),
-        ("kbuffer with a depth_test other than LESS_EQUAL",
-         params.kbuffer > 1 and params.depth_test != DepthTest.LESS_EQUAL),
         ("active_cap", bool(params.active_cap)),
         ("active_cap_stats", params.active_cap_stats),
         ("geom_cap", bool(params.geom_cap)),
@@ -349,14 +350,18 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
     if params.debug_mode == DebugMode.WIREFRAME or not params.deferred \
             or order_dependent:
         return forward.render_forward(*args, per_tri_extra=f["per_tri"])
-    if params.binned and params.depth_test == DepthTest.LESS_EQUAL:
-        if params.kbuffer > 1:
+    less_equal = params.depth_test == DepthTest.LESS_EQUAL
+    if params.binned and params.kbuffer > 1:
+        if less_equal:
             return tile_raster.render_tile_kbuffer(
                 *args, per_tri_extra=f["per_tri"], fold=fold,
                 with_stats=params.kbuffer_stats)
-        if params.use_pallas:
-            return tile_raster.render_tile(*args, per_tri_extra=f["per_tri"],
-                                           fold=fold)
+        return kbuffer.render_binned_kbuffer(
+            *args, per_tri_extra=f["per_tri"],
+            with_stats=params.kbuffer_stats)
+    if params.binned and less_equal and params.use_pallas:
+        return tile_raster.render_tile(*args, per_tri_extra=f["per_tri"],
+                                       fold=fold)
     return raster.render_deferred(*args, per_tri_extra=f["per_tri"])
 
 

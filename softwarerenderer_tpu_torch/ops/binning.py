@@ -142,7 +142,7 @@ def to_image(t: torch.Tensor, Hp: int, Wp: int, tile_h: int,
 
 def fold_binned(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
                 tile_h: int, tile_w: int, row_offset: int = 0,
-                mode: DepthTest = DepthTest.LESS_EQUAL):
+                mode: DepthTest = DepthTest.LESS_EQUAL, below=None):
     """The binned per-pixel winner under `mode` over padded (Hp, Wp)
     tiles: each pixel's seed fbd, then every tile's globals and segment.
 
@@ -151,7 +151,9 @@ def fold_binned(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
     y + row_offset.  Pairs are expanded over their tile's pixels at most
     raster.MAX_CHUNK_ELEMS at a time, each fragment becomes a
     raster.fold_keys key and a scatter-amax keeps each pixel's largest.
-    Returns (best_d (Hp, Wp) f32, best_i (Hp, Wp) i32)."""
+    below: None, or (Hp, Wp) int64 keys; a fragment then enters only if
+    its key is strictly below its pixel's (the K-slot fold's rounds,
+    ops.kbuffer).  Returns (best_d (Hp, Wp) f32, best_i (Hp, Wp) i32)."""
     dev = fbd.device
     Hp, Wp = fbd.shape
     ntx, tpx = Wp // tile_w, tile_h * tile_w
@@ -162,6 +164,8 @@ def fold_binned(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
     seed = to_tiles(fbd, tile_h, tile_w)
     keys = raster.fold_keys(seed, torch.full_like(
         seed, raster.NO_TRI, dtype=torch.long), mode)
+    if below is not None:
+        below = to_tiles(below, tile_h, tile_w)
     step = max(1, raster.MAX_CHUNK_ELEMS // tpx)
     for c0 in range(0, pair_tile.numel(), step):
         tl = pair_tile[c0:c0 + step]
@@ -169,10 +173,12 @@ def fold_binned(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
         px = (((tl % ntx) * tile_w)[:, None] + lx).to(torch.float32)
         py = (((tl // ntx) * tile_h)[:, None] + ly).to(torch.float32)
         inside, d = raster.fragments(setup[tri], px, py)
-        key = torch.where(raster.admitted(inside, d, mode),
-                          raster.fold_keys(d, tri[:, None], mode),
-                          raster.NEVER)
+        key = raster.fold_keys(d, tri[:, None], mode)
         pix = (tl[:, None] * tpx + lane).reshape(-1)
+        ok = raster.admitted(inside, d, mode)
+        if below is not None:
+            ok &= key < below[pix].reshape(key.shape)
+        key = torch.where(ok, key, raster.NEVER)
         keys.scatter_reduce_(0, pix, key.reshape(-1), reduce="amax")
     best_d, best_i = raster.decode_keys(keys, seed, mode)
     return (to_image(best_d, Hp, Wp, tile_h, tile_w),

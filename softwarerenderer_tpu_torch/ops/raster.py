@@ -351,6 +351,20 @@ def write(color, written, best_depth, params: RenderParams, fb_color,
     return out_c, torch.where(written, best_depth, fb_depth)
 
 
+def winner_fragments(tris: Dict, best_tri: torch.Tensor,
+                     per_tri_extra: Optional[Dict] = None,
+                     row_offset=0) -> Dict:
+    """The fragment shader's input at each pixel's winner best_tri (H, W)
+    (interpolate_at_pixels; a pixel at NO_TRI reads triangle 0), with
+    per_tri_extra's (T,) per-triangle tensors gathered into frag["tri"]."""
+    covered = best_tri != NO_TRI
+    frag = interpolate_at_pixels(tris, best_tri, covered, row_offset)
+    if per_tri_extra:
+        t = torch.where(covered, best_tri, 0).long()
+        frag["tri"] = {k: v[t] for k, v in per_tri_extra.items()}
+    return frag
+
+
 def shade_deferred(tris: Dict, best_depth, best_tri,
                    fragment_shader: Callable, uniforms: Dict,
                    params: RenderParams, fb_color: torch.Tensor,
@@ -362,10 +376,7 @@ def shade_deferred(tris: Dict, best_depth, best_tri,
     per_tri_extra: (T,) per-triangle tensors gathered into frag["tri"]."""
     covered = best_tri != NO_TRI
     with record_function("deferred.interp"):
-        frag = interpolate_at_pixels(tris, best_tri, covered, row_offset)
-        if per_tri_extra:
-            t = torch.where(covered, best_tri, 0).long()
-            frag["tri"] = {k: v[t] for k, v in per_tri_extra.items()}
+        frag = winner_fragments(tris, best_tri, per_tri_extra, row_offset)
     with record_function("deferred.shade"):
         color = fragment_shader(frag, uniforms)
         return write(color, covered & (color[..., 3] > 0), best_depth,

@@ -34,7 +34,7 @@ from softwarerenderer_tpu_torch.ops.binning import (bin_triangles, cdiv,
                                                    tile_pairs, to_image,
                                                    to_tiles)
 from softwarerenderer_tpu_torch.ops.geometry import unflatten_varyings
-from softwarerenderer_tpu_torch.ops import raster
+from softwarerenderer_tpu_torch.ops import forward, raster
 from softwarerenderer_tpu_torch.ops.raster import (DEPTH_CLEAR, blend,
                                                   setup_rows)
 
@@ -776,9 +776,11 @@ def replay_layers(src: torch.Tensor, sd: torch.Tensor, si: torch.Tensor,
     src (n, H, W, 4) shaded colors, sd (n, H, W) depths, si (n, H, W) int32
     triangle ids (-1: no fragment) of the n <= params.kbuffer layers
     computed; a pixel's ids are distinct.  Round r takes each pixel's r-th
-    smallest id and applies the reference's depth test (new >= old),
-    alpha > 0 discard and blend against the running buffer.  Rounds past
-    the n layers would find no fragment, so there are n of them.
+    smallest id and applies the reference's depth test (params.depth_test,
+    forward._depth_passes: new >= old under LESS_EQUAL), alpha > 0
+    discard and blend against the running buffer, and writes the depth
+    unless the test is DISABLED.  Rounds past the n layers would find no
+    fragment, so there are n of them.
     with_stats adds {"kbuffer_saturated_px": pixels whose K-th layer holds
     a fragment} (0 unless all K layers were computed)."""
     n = si.shape[0]
@@ -786,6 +788,7 @@ def replay_layers(src: torch.Tensor, sd: torch.Tensor, si: torch.Tensor,
     none = torch.iinfo(I32).max
     key = torch.where(si >= 0, si, none)
     cur_c, cur_d = fb_color, fb_depth
+    depth_writes = params.depth_test != DepthTest.DISABLED
     for r in range(n):
         # Each pixel's smallest id not replayed yet: a masked minimum over
         # the layers, as pallas_tile's K-way selects (a per-pixel sort of
@@ -795,10 +798,13 @@ def replay_layers(src: torch.Tensor, sd: torch.Tensor, si: torch.Tensor,
             key = key.scatter(0, pick, none)
         sel_d = sd.gather(0, pick)[0]
         sel_c = src.gather(0, pick[..., None].expand(1, *src.shape[1:]))[0]
-        written = (sel[0] != none) & (sel_d >= cur_d) & (sel_c[..., 3] > 0)
+        written = (sel[0] != none) \
+            & forward._depth_passes(params.depth_test, sel_d, cur_d) \
+            & (sel_c[..., 3] > 0)
         cur_c = torch.where(written[..., None],
                             blend(sel_c, cur_c, params.blend_mode), cur_c)
-        cur_d = torch.where(written, sel_d, cur_d)
+        if depth_writes:
+            cur_d = torch.where(written, sel_d, cur_d)
     if not with_stats:
         return cur_c, cur_d
     saturated = (si[K - 1] >= 0).sum(dtype=I32) if n >= K \

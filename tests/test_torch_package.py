@@ -345,15 +345,12 @@ def test_tile_fold_rejects_a_bad_plan(plan, kpi, match):
 
 @pytest.mark.parametrize("field,value", [
     ("ssaa", 2), ("ssao", True), ("bloom", True), ("tonemap", "aces"),
-    ("fxaa", True), ("kbuffer", 4), ("active_cap", 1000),
+    ("fxaa", True), ("active_cap", 1000),
     ("geom_cap", 1000), ("pair_cap", 1000), ("global_cap", 512),
     ("use_mipmaps", True), ("shade_rate", 2), ("active_cap_stats", True),
 ])
 def test_unsupported_params_raise(field, value):
-    # kbuffer > 1 renders on its LESS_EQUAL route; with any other depth
-    # test it is still refused.
-    also = {"kbuffer": {"depth_test": DepthTest.GREATER}}.get(field, {})
-    params = RenderParams(64, 48).replace(**{field: value}, **also)
+    params = RenderParams(64, 48).replace(**{field: value})
     with pytest.raises(NotImplementedError, match=field):
         Engine(small_scene(), params, device="cpu")
 
@@ -390,9 +387,24 @@ def test_once_refused_params_render_and_match_jax(field, value):
 
 
 def test_kbuffer_with_another_depth_test_still_raises():
-    params = RenderParams(64, 48, kbuffer=4, depth_test=DepthTest.LESS)
-    with pytest.raises(NotImplementedError, match="kbuffer"):
-        Engine(small_scene(), params, device="cpu")
+    """The name is kept from when a K-buffer under a depth test other than
+    LESS_EQUAL was refused.  It no longer raises: Engine takes it and
+    render_frame sends it to the K-slot route (ops.kbuffer), whose frame
+    it returns (held against JAX in tests/test_torch_kbuffer_modes.py)."""
+    from softwarerenderer_tpu_torch.engine import (frame_setup,
+                                                   scene_fragment_shader)
+    from softwarerenderer_tpu_torch.ops import kbuffer
+    params = RenderParams(64, 48, kbuffer=4, depth_test=DepthTest.LESS,
+                          cull_mode=0)
+    eng = Engine(small_scene(), params, device="cpu")
+    u = dict(eng.uniforms)
+    c, d = eng.render(u)
+    f = frame_setup(eng.scene, u, params)
+    kc, kd = kbuffer.render_binned_kbuffer(
+        f["tris"], scene_fragment_shader, f["uniforms"], params,
+        f["fb_color"], f["fb_depth"], per_tri_extra=f["per_tri"])
+    assert torch.equal(c, kc) and torch.equal(d, kd)
+    assert (d != d[0, 0]).float().mean() > 0.02
 
 
 @pytest.mark.parametrize("kbuffer", [0, 1])
