@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel) and
-drives the port's four paths at 1080p:
+drives the port's paths at 1080p (config 5 at 4K):
 
   * the opaque frame (``Engine(scene, RenderParams(1920, 1080),
     device="cuda")``): K1, the tile kernel, against its plain PyTorch twin
@@ -46,7 +46,20 @@ drives the port's four paths at 1080p:
     ops.kbuffer): at 320x180 the translucent scene under LESS, GREATER,
     GREATER_EQUAL, ALWAYS and DISABLED equal to the same call on the CPU;
     at 1080p the route under LESS_EQUAL equal to the peel route without
-    its short-circuit, and one GREATER frame timed (phase 17).
+    its short-circuit, and one GREATER frame timed (phase 17);
+  * the lit frames (phase 18): golden config 3 (41 meshes under four
+    lights through ``ops.lighting``'s shaders) at 1920x1080, 30 counted
+    frames, and config 5 (1,100 cubes) at 3840x2160, 10 counted frames,
+    one K1 launch each, frame 0 against the plain path; goldens config 3
+    and 5; a PBR frame at 320x180 against the CPU's;
+  * the shadowed frames at 1920x1080 (phase 19), through
+    ``Engine(frame_fn=render_frame_with_shadows / _with_point_shadows /
+    _with_spot_shadow)`` with 512, 6 x 256 and 512-texel maps: 10
+    counted frames each with K1 + K5 launches of 1 + 1, 1 + 6 and 1 + 1,
+    frame 0's light passes through K5 against the plain fold on the same
+    triangles on every texel,
+    frame 0 against the plain path (K1's and K5's twins), the three
+    feature goldens.  Phases 18-19 also profile each frame's kernels.
 
 Any failed check raises and exits non-zero.  The last three lines of
 standard output are the card's name and power limit, a JSON line with the
@@ -142,12 +155,10 @@ def cuda_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int, *kernels: str) -> float:
-    """Mean device milliseconds a call of fn() spends in the kernels whose
-    names hold one of `kernels`, each launched once a call, over `runs`
-    back-to-back calls traced by torch.profiler after one warm-up: the
-    kernels alone, without the host work or the other launches of their
-    wrapper."""
+def kernel_events(fn, runs: int) -> list:
+    """The device kernels of `runs` back-to-back calls of fn(), traced by
+    torch.profiler after one warm-up, as chrome-trace events (name, dur
+    in microseconds)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -160,10 +171,36 @@ def device_ms(fn, runs: int, *kernels: str) -> float:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
+    return [e for e in events if e.get("ph") == "X"
+            and e.get("cat") == "kernel"]
+
+
+def frame_kernel_ms(fn, runs: int) -> dict:
+    """Device milliseconds a call of fn() spends in all its kernels, in
+    K1 (tile_raster_kernel) and in K5 (its plan and fold kernels), means
+    over `runs` profiled calls."""
+    events = kernel_events(fn, runs)
+
+    def ms(pred):
+        return sum(e["dur"] for e in events if pred(e.get("name", ""))) \
+            / runs * 1e-3
+
+    return {"kernels": ms(lambda n: True),
+            "K1": ms(lambda n: "tile_raster_kernel" in n),
+            "K5": ms(lambda n: "vis_fold_kernel" in n
+                     or "vis_fold_plan_kernel" in n)}
+
+
+def device_ms(fn, runs: int, *kernels: str) -> float:
+    """Mean device milliseconds a call of fn() spends in the kernels whose
+    names hold one of `kernels`, each launched once a call, over `runs`
+    back-to-back calls traced by torch.profiler after one warm-up: the
+    kernels alone, without the host work or the other launches of their
+    wrapper."""
+    events = kernel_events(fn, runs)
     total = 0.0
     for kernel in kernels:
-        durs = [e["dur"] for e in events if e.get("ph") == "X"
-                and e.get("cat") == "kernel" and kernel in e.get("name", "")]
+        durs = [e["dur"] for e in events if kernel in e.get("name", "")]
         check(len(durs) == runs, f"profiled {len(durs)} launches of "
               f"{kernel} for {runs} calls")
         total += sum(durs)
@@ -1589,25 +1626,11 @@ def check_deferred_frames(card, device, size, frames) -> dict:
     def u_at(i):
         return scenes.camera_uniforms(eng.uniforms, i)
 
-    vis_fold.VIS_LAUNCHES = 0
-    frame_ms, per_frame, finite = [], [], True
-    for i in range(frames):
-        n0 = vis_fold.VIS_LAUNCHES
-        t = time.perf_counter()
-        color, depth = eng.render(u_at(i))
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t) * 1e3)
-        per_frame.append(vis_fold.VIS_LAUNCHES - n0)
-        finite &= bool(torch.isfinite(color).all()
-                       and torch.isfinite(depth).all())
-        check(color.shape == (h, w, 4) and depth.shape == (h, w),
-              f"frame shapes {tuple(color.shape)} {tuple(depth.shape)}")
-        if i == 0:
-            first = (color, depth)
-    launches = vis_fold.VIS_LAUNCHES
-    check(finite, "non-finite deferred output")
-    check(launches == frames and all(n == 1 for n in per_frame),
-          f"K5 launches per frame {per_frame}")
+    run = counted_frames(lambda i: eng.render(u_at(i)), frames, size)
+    per_frame, first, frame_ms = run["k5"], run["first"], run["frame_ms"]
+    launches = sum(per_frame)
+    check(per_frame == [1] * frames and run["k1"] == [0] * frames,
+          f"K5 launches per frame {per_frame}, K1 {run['k1']}")
     syncs = host_syncs(lambda i: eng.render(u_at(i)), 3)
     f = frame_setup(eng.scene, u_at(0), params)
     plain = raster.render_deferred(
@@ -1616,7 +1639,7 @@ def check_deferred_frames(card, device, size, frames) -> dict:
         visibility_fn=vis_fold.make_visibility_fold(
             vis_fold.visibility_fold_plain))
     tile = render_frame(eng.scene, u_at(0), params.replace(use_pallas=True))
-    steady = statistics.median(frame_ms[1:])
+    steady = run["median_ms"]
     out = {"launches": launches, "frame_ms": steady}
     cov = (first[1] != raster.DEPTH_CLEAR)
     n_cov = int(cov.sum())
@@ -1826,6 +1849,257 @@ def check_frame_goldens(device="cuda") -> None:
     check(got.shape == cpu.shape and off < 2e-3, "golden config4's frame")
 
 
+def counted_frames(render, frames: int, size) -> dict:
+    """Phases 18-19: `frames` calls of render(i), each synchronised and
+    timed on the host clock, with K1's and K5's counts set to 0 just
+    before and read after each frame.  Returns the frame times, the K1
+    and K5 launches of each frame and frame 0."""
+    from softwarerenderer_tpu_torch.ops import tile_raster, vis_fold
+    w, h = size
+    tile_raster.LAUNCHES = vis_fold.VIS_LAUNCHES = 0
+    frame_ms, k1, k5 = [], [], []
+    first, finite = None, True
+    for i in range(frames):
+        n1, n5 = tile_raster.LAUNCHES, vis_fold.VIS_LAUNCHES
+        t = time.perf_counter()
+        color, depth = render(i)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        k1.append(tile_raster.LAUNCHES - n1)
+        k5.append(vis_fold.VIS_LAUNCHES - n5)
+        finite &= bool(torch.isfinite(color).all()
+                       and torch.isfinite(depth).all())
+        check(color.shape == (h, w, 4) and depth.shape == (h, w),
+              f"frame shapes {tuple(color.shape)} {tuple(depth.shape)}")
+        if i == 0:
+            first = (color, depth)
+    check(finite, "non-finite frame")
+    return {"frame_ms": frame_ms, "k1": k1, "k5": k5, "first": first,
+            "median_ms": statistics.median(frame_ms[1:])}
+
+
+def against_plain(name, first, plain) -> str:
+    """Frame 0 against the same frame through the plain twins: at most
+    FRAME_COVERED_MISMATCH_MAX of the covered pixels may differ (> 1e-5
+    in color, in depth, in present).  Returns the counts as text."""
+    from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
+    n_cov = int(((first[1] != DEPTH_CLEAR) | (plain[1] != DEPTH_CLEAR)).sum())
+    n_c, n_d, n_rgb = _frame_diff(first, plain)
+    limit = FRAME_COVERED_MISMATCH_MAX * n_cov
+    h, w = first[1].shape
+    check(n_cov > 0.05 * w * h, f"{name}: only {n_cov} pixels covered")
+    check(max(n_c, n_d, n_rgb) <= limit, f"{name} frame 0 vs its plain "
+          f"path: {n_c} color, {n_d} depth, {n_rgb} present pixels differ")
+    return (f"frame 0 vs plain path: of {n_cov} covered pixels, {n_c} "
+            f"differ > 1e-5 in color, {n_d} in depth, {n_rgb} in present")
+
+
+def golden_off(got: np.ndarray, png: str) -> float:
+    """tests/test_goldens.py's measure against tests/goldens/<png>: the
+    share of pixels off by > 2 (1.0 for a shape mismatch)."""
+    from PIL import Image
+    want = np.asarray(Image.open(os.path.join(REPO, "tests", "goldens",
+                                              png)))
+    if got.shape != want.shape:
+        return 1.0
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    return float(np.mean(np.any(diff > 2, axis=-1)))
+
+
+def timing_text(run, prof, w, h) -> str:
+    steady = run["median_ms"]
+    return (f"first frame {run['frame_ms'][0]:.1f} ms, median frame "
+            f"{steady:.3f} ms = {w * h / steady / 1e3:.1f} Mpixels/s; "
+            f"profiled: kernels {prof['kernels']:.3f} ms a frame, K1 "
+            f"{prof['K1']:.3f} ms, K5 {prof['K5']:.3f} ms")
+
+
+# Phase 18: counted frames of golden configs 3 and 5 at bench.py's sizes.
+LIT_FRAMES = {3: 30, 5: 10}
+# A PBR frame may differ card against CPU where torch.pow rounds
+# differently on the two devices (the specular exponent amplifies an ulp
+# up to 2048 times): at most this share of covered pixels by > 1e-5, and
+# no pixel by more than 1e-3.
+PBR_CPU_MISMATCH_MAX = 1e-3
+
+
+def pbr_frame(device, size):
+    """A glossy metal sphere and an emissive cube through the PBR shader,
+    tests/test_pbr.py's materials and light: (color, depth) on the
+    device."""
+    from softwarerenderer_tpu_torch import RenderParams
+    from softwarerenderer_tpu_torch.engine import Engine
+    from softwarerenderer_tpu_torch.models import primitives
+    from softwarerenderer_tpu_torch.models import scene as scene_mod
+    from softwarerenderer_tpu_torch.ops import lighting
+    from softwarerenderer_tpu_torch.utils import mathlib as ml
+    metal = scene_mod.Material(base_color=(0.6, 0.6, 0.6, 1.0),
+                               metallic=1.0, roughness=0.15)
+    glow = scene_mod.Material(base_color=(1, 1, 1, 1), metallic=0.3,
+                              roughness=0.6, emissive=(0.0, 0.9, 0.0))
+    scene = scene_mod.build_scene_buffers([
+        scene_mod.MeshInstance(primitives.uv_sphere(1.0, rings=24,
+                                                    sectors=48),
+                               ml.translation([-0.9, 0, -3.0]),
+                               material=metal),
+        scene_mod.MeshInstance(primitives.cube(1.0),
+                               ml.matrix_from_yaw_pitch_roll(0.5, 0.3, 0)
+                               @ ml.translation([1.2, 0, -3.5]),
+                               material=glow)])
+    eng = Engine(scene, RenderParams(*size), device=device,
+                 vertex_shader=lighting.lit_scene_vertex_shader,
+                 fragment_shader=lighting.pbr_scene_fragment_shader)
+    u = dict(eng.uniforms)
+    ld = np.float32([0.3, -0.5, -1.0])
+    u["light_direction"] = ld / np.linalg.norm(ld)
+    u["fog_start"], u["fog_end"] = np.float32(900.0), np.float32(1000.0)
+    return eng.render(u)
+
+
+def check_lit_frames(card, device="cuda") -> dict:
+    """Phase 18: golden config 3 (41 meshes under four lights, the lit
+    shaders) at 1920x1080 and config 5 (1,100 cubes) at 3840x2160 through
+    Engine: LIT_FRAMES counted frames with one K1 launch each, frame 0
+    against the plain path, the kernels' share; goldens config 3 and 5 on
+    the card; a PBR frame at 320x180 against the CPU's."""
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import Engine, render_frame
+    from softwarerenderer_tpu_torch.models.scene import build_scene_buffers
+    from softwarerenderer_tpu_torch.ops import tile_raster
+    out = {}
+    for n, frames in LIT_FRAMES.items():
+        w, h = scenes.BENCH_SIZES[n]
+        params = RenderParams(w, h)
+        shaders = scenes.golden_shaders(n)
+        eng = Engine(build_scene_buffers(scenes.golden_config(n)), params,
+                     device=device, **shaders)
+        u = scenes.golden_uniforms(n, eng.uniforms)
+        run = counted_frames(lambda i: eng.render(u), frames, (w, h))
+        check(run["k1"] == [1] * frames and run["k5"] == [0] * frames,
+              f"config {n}: K1 launches {run['k1']}, K5 {run['k5']}")
+        plain = render_frame(eng.scene, u, params,
+                             fold=tile_raster.tile_fold_plain, **shaders)
+        text = against_plain(f"config {n}", run["first"], plain)
+        prof = frame_kernel_ms(lambda: eng.render(u), 5)
+        log(f"phase 18 config {n} @{w}x{h} ({len(scenes.golden_config(n))} "
+            f"meshes, {'lit shaders' if shaders else 'game shaders'}): "
+            f"{frames} frames, K1 launches {sum(run['k1'])}, "
+            f"{timing_text(run, prof, w, h)}; {text} [{card}]")
+        out[n] = dict(run, prof=prof)
+        del run, plain
+
+        gw, gh = scenes.GOLDEN_SIZES[n]
+        g_eng = Engine(build_scene_buffers(scenes.golden_config(n)),
+                       RenderParams(gw, gh), device=device, **shaders)
+        off = golden_off(g_eng.present(scenes.golden_uniforms(
+            n, g_eng.uniforms)), f"config{n}.png")
+        log(f"phase 18 golden config{n} {gw}x{gh}: {off:.6f} of pixels off "
+            f"by > 2")
+        check(off < 2e-3, f"golden config{n}")
+
+    size = SMALL_ROUTES_SIZE
+    card_f = [x.cpu() for x in pbr_frame(device, size)]
+    cpu_f = pbr_frame("cpu", size)
+    n_c, n_d, n_rgb = _frame_diff(card_f, cpu_f)
+    err = float((card_f[0] - cpu_f[0]).abs().max())
+    n_cov = int((cpu_f[1] > -3e38).sum())
+    log(f"phase 18 PBR frame @{size[0]}x{size[1]}, card vs CPU: of {n_cov} "
+        f"covered pixels {n_c} differ > 1e-5 in color (max abs diff "
+        f"{err:.3g}), {n_d} in depth, {n_rgb} in to_rgb8 [{card}]")
+    check(n_cov > 0.05 * size[0] * size[1], "PBR frame: nothing drawn")
+    check(n_c <= PBR_CPU_MISMATCH_MAX * n_cov and err <= 1e-3 and n_d == 0,
+          f"PBR frame card vs CPU: {n_c} color, {n_d} depth pixels differ")
+    return out
+
+
+# Phase 19: the shadowed frames at 1080p, their maps at the frame
+# functions' default sizes, and the K1 and K5 launches of a frame.
+SHADOW_FRAMES = 10
+SHADOW_SIZES = {"shadows": 512, "point_shadows": 256, "spot_shadows": 512}
+SHADOW_LAUNCHES = {"shadows": (1, 1), "point_shadows": (1, 6),
+                   "spot_shadows": (1, 1)}
+
+
+def checked_light_fold(texels: list):
+    """A light-pass visibility_fn for the timed frames: the fold the frame
+    would run itself (shadows.light_pass_visibility) and, while texels[0]
+    is set, visibility_fold_plain on the same triangles, appending
+    (texels that differ, texels covered) a pass to texels[1]."""
+    from softwarerenderer_tpu_torch.ops import shadows, vis_fold
+    from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
+    plain = vis_fold.make_visibility_fold(vis_fold.visibility_fold_plain)
+
+    def fold(tris, sp):
+        out = shadows.light_pass_visibility(sp, tris["depth"].device)(
+            tris, sp)
+        if texels[0]:
+            q, _ = plain(tris, sp)
+            texels[1].append((int((out[0] != q).sum()),
+                              int((q != DEPTH_CLEAR).sum())))
+        return out
+    return fold
+
+
+def check_shadowed_frames(card, device="cuda", size=(W, H)) -> dict:
+    """Phase 19: the directional, point and spot shadowed frames
+    (scenes.shadow_golden_frame's scenes) at `size` through
+    Engine(frame_fn=...) with the lit shaders: SHADOW_FRAMES counted
+    frames with their K1 and K5 launches, frame 0's light passes each
+    held against visibility_fold_plain on the same triangles on every
+    texel; frame 0 against the plain path (K1's and K5's twins); the
+    kernels' share; the three feature goldens on the card."""
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import Engine, to_rgb8
+    from softwarerenderer_tpu_torch.models.convert import scene_to_torch
+    from softwarerenderer_tpu_torch.ops import tile_raster, vis_fold
+    plain_vis = vis_fold.make_visibility_fold(vis_fold.visibility_fold_plain)
+    w, h = size
+    params = RenderParams(w, h)
+    out = {}
+    for name, S in SHADOW_SIZES.items():
+        scene, g_params, u, golden_fn, shaders = \
+            scenes.shadow_golden_frame(name)
+        fn = functools.partial(golden_fn.func, shadow_size=S)
+        texels = [False, []]
+        eng = Engine(scene, params, device=device, frame_fn=functools.partial(
+            fn, visibility_fn=checked_light_fold(texels)), **shaders)
+
+        def render(i):
+            texels[0] = i == 0
+            return eng.render(u)
+        run = counted_frames(render, SHADOW_FRAMES, size)
+        n1, n5 = SHADOW_LAUNCHES[name]
+        maps = texels[1]
+        check(run["k1"] == [n1] * SHADOW_FRAMES
+              and run["k5"] == [n5] * SHADOW_FRAMES and len(maps) == n5,
+              f"{name}: K1 launches {run['k1']}, K5 {run['k5']}, "
+              f"{len(maps)} light passes checked")
+        check(all(d == 0 for d, _ in maps),
+              f"{name}: K5's light-pass maps differ from the plain fold's "
+              f"on {[d for d, _ in maps]} texels")
+        check(sum(c for _, c in maps) > 0, f"{name}: empty shadow maps")
+        plain = fn(eng.scene, u, params, fold=tile_raster.tile_fold_plain,
+                   visibility_fn=plain_vis, **shaders)
+        text = against_plain(name, run["first"], plain)
+        prof = frame_kernel_ms(lambda: eng.render(u), 5)
+        log(f"phase 19 {name} @{w}x{h}, {len(maps)} light pass"
+            f"{'es' if len(maps) > 1 else ''} of {S}x{S}: frame 0's K5 maps "
+            f"vs the plain fold differ on {sum(d for d, _ in maps)} texels "
+            f"(of {sum(c for _, c in maps)} covered); {SHADOW_FRAMES} "
+            f"frames, launches a frame K1 {n1} + K5 {n5}; "
+            f"{timing_text(run, prof, w, h)}; {text} [{card}]")
+        out[name] = dict(run, prof=prof)
+        del run, plain
+
+        st = scene_to_torch(scene, device)
+        off = golden_off(to_rgb8(golden_fn(st, u, g_params)[0]).cpu().numpy(),
+                         f"feature_{name}.png")
+        log(f"phase 19 golden feature_{name} {g_params.width}x"
+            f"{g_params.height}: {off:.6f} of pixels off by > 2")
+        check(off < 2e-3, f"golden feature_{name}")
+    return out
+
+
 def build_kernels() -> None:
     """Phase 2: build every kernel from the checkout's sources and print
     what ptxas says of each."""
@@ -1991,10 +2265,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from softwarerenderer_tpu_torch import RenderParams, scenes
     from softwarerenderer_tpu_torch.engine import Engine, render_frame
-    from softwarerenderer_tpu_torch.engine import to_rgb8
     from softwarerenderer_tpu_torch.models.scene import build_scene_buffers
     from softwarerenderer_tpu_torch.ops import tile_raster
-    from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
 
     card = gpu_line()
     log(card)
@@ -2008,46 +2280,19 @@ def main() -> int:
     args, kwargs, (kg, kd, ki) = k1["args"], k1["kwargs"], k1["outputs"]
 
     # ---- phase 4: the main path, counted --------------------------------
-    tile_raster.LAUNCHES = 0
-    frame_ms, finite = [], True
-    first = None
-    for i in range(FRAMES):
-        u = scenes.camera_uniforms(eng.uniforms, i)
-        t = time.perf_counter()
-        color, depth = eng.render(u)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t) * 1e3)
-        finite &= bool(torch.isfinite(color).all() and
-                       torch.isfinite(depth).all())
-        check(color.shape == (H, W, 4) and depth.shape == (H, W),
-              f"frame shapes {tuple(color.shape)} {tuple(depth.shape)}")
-        if i == 0:
-            first, first_depth = color, depth
-    launches = tile_raster.LAUNCHES
-    check(launches == FRAMES, f"{launches} kernel launches for {FRAMES} "
-          "frames")
-    check(finite, "non-finite output")
-    plain_color, plain_depth = render_frame(
-        eng.scene, scenes.camera_uniforms(eng.uniforms, 0), params,
-        fold=tile_raster.tile_fold_plain)
-    n_cov = int(((first_depth != DEPTH_CLEAR) |
-                 (plain_depth != DEPTH_CLEAR)).sum())
-    n_diff = int(((first - plain_color).abs().amax(-1) > 1e-5).sum())
-    n_diff_d = int((first_depth != plain_depth).sum())
-    rgb = eng.present(u0)
-    rgb_plain = to_rgb8(plain_color).cpu().numpy()
-    n_diff_rgb = int((rgb != rgb_plain).any(-1).sum())
-    steady = statistics.median(frame_ms[1:])
+    run = counted_frames(
+        lambda i: eng.render(scenes.camera_uniforms(eng.uniforms, i)),
+        FRAMES, (W, H))
+    launches = sum(run["k1"])
+    check(run["k1"] == [1] * FRAMES, f"K1 launches per frame {run['k1']}")
+    text = against_plain("main path", run["first"], render_frame(
+        eng.scene, u0, params, fold=tile_raster.tile_fold_plain))
+    steady = run["median_ms"]
     log(f"phase 4 main path @{W}x{H}: {FRAMES} frames, {launches} kernel "
-        f"launches, first frame {frame_ms[0]:.1f} ms, median frame "
-        f"{steady:.3f} ms = {W * H / steady / 1e3:.1f} Mpixels/s; frame 0 vs "
-        f"plain path: of {n_cov} covered pixels, {n_diff} differ > 1e-5 in "
-        f"color, {n_diff_d} in depth, {n_diff_rgb} in present [{card}]")
-    limit = FRAME_COVERED_MISMATCH_MAX * n_cov
-    check(n_cov > 0.05 * W * H, f"only {n_cov} pixels covered")
-    check(n_diff <= limit, f"frame 0 color differs on {n_diff} pixels")
-    check(n_diff_d <= limit, f"frame 0 depth differs on {n_diff_d} pixels")
-    check(n_diff_rgb <= limit, f"present differs on {n_diff_rgb} pixels")
+        f"launches, first frame {run['frame_ms'][0]:.1f} ms, median frame "
+        f"{steady:.3f} ms = {W * H / steady / 1e3:.1f} Mpixels/s; {text} "
+        f"[{card}]")
+    del run
 
     # ---- phase 5: golden configs through the kernel ---------------------
     from PIL import Image
@@ -2095,6 +2340,10 @@ def main() -> int:
 
     # ---- phase 17: the K-slot K-buffer, the other depth tests ----------
     check_kslot_route(card, SMALL_ROUTES_SIZE, (W, H))
+
+    # ---- phases 18-19: lit and shadowed frames -------------------------
+    check_lit_frames(card)
+    check_shadowed_frames(card)
 
     def entry(name, source, replaces, launches, numbers):
         return {"name": name, "route": "cuda",

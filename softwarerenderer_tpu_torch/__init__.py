@@ -15,9 +15,12 @@ the ``shaders`` ABI: the opaque tile route, the deferred route
 (``RenderParams(use_pallas=False)``, every monotone depth test,
 ``binned=False``), the exact forward route (``deferred=False``, EQUAL and
 NOT_EQUAL), the wireframe, overdraw and depth views, with
-``RenderParams(kbuffer=K)`` the depth-peeled K-buffer (LESS_EQUAL depth),
-and with ``frame_fn=ops.raytrace.render_frame_raytraced`` the ray-traced
-frame; every option outside them raises ``NotImplementedError``.
+``RenderParams(kbuffer=K)`` the K-buffer, with
+``frame_fn=ops.raytrace.render_frame_raytraced`` the ray-traced frame,
+with ``ops.lighting``'s shaders multi-light and PBR frames, and through
+``engine.render_frame_with_shadows`` / ``_with_point_shadows`` /
+``_with_spot_shadow`` frames with shadow maps; every option outside them
+raises ``NotImplementedError``.
 """
 
 from softwarerenderer_tpu_torch.config import (  # noqa: F401

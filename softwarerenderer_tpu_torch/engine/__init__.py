@@ -7,6 +7,9 @@ from softwarerenderer_tpu_torch.engine.renderer import (  # noqa: F401
     frame_setup,
     opaque_tri_flags,
     render_frame,
+    render_frame_with_point_shadows,
+    render_frame_with_shadows,
+    render_frame_with_spot_shadow,
     scene_fragment_shader,
     scene_vertex_shader,
     to_rgb8,

@@ -27,8 +27,12 @@ picks as JAX's ``_dispatch`` does:
 
 and ``to_rgb8`` for present.  The vertex and fragment shaders are
 arguments, the game's by default; ``fb=(color, depth)`` seeds the
-framebuffer, so passes stack.  PyTorch runs it eagerly; the scene stays on
-the device and the per-frame uniforms cross from the host in one copy.
+framebuffer, so passes stack.  ``render_frame_with_shadows``,
+``render_frame_with_point_shadows`` and ``render_frame_with_spot_shadow``
+run one or six depth-only light passes (ops.shadows) and then
+render_frame with the maps in the uniforms.  PyTorch runs it eagerly; the
+scene stays on the device and the host uniforms cross in one copy a
+dtype.
 
 A ``RenderParams`` field or scene key whose feature this package does not
 implement yet raises ``NotImplementedError`` instead of rendering another
@@ -48,8 +52,8 @@ from softwarerenderer_tpu_torch.config import (BlendMode, DebugMode,
 from softwarerenderer_tpu_torch import shaders
 from softwarerenderer_tpu_torch.models.convert import scene_to_torch
 from softwarerenderer_tpu_torch.ops import (culling, debugviz, forward,
-                                            geometry, kbuffer, raster)
-from softwarerenderer_tpu_torch.ops import texture as tex_ops
+                                            geometry, kbuffer, lighting,
+                                            raster, shadows)
 from softwarerenderer_tpu_torch.ops import tile_raster
 from softwarerenderer_tpu_torch.utils import mathlib as ml
 
@@ -65,11 +69,8 @@ scene_vertex_shader = shaders.default_vertex_shader
 def scene_fragment_shader(frag: Dict, uniforms: Dict) -> torch.Tensor:
     """Texture(atlas) × vertex color, half-Lambert max(0.25, N·-L),
     smoothstep fog on clip-space z, alpha unfogged (Renderer.cs:848-860)."""
-    tri = frag["tri"]
-    tex_color = tex_ops.sample_atlas_region(
-        uniforms["atlas_data"], tri["tex_oy"], tri["tex_ox"], tri["tex_h"],
-        tri["tex_w"], frag["uv"])
-    return shaders.lit_and_fogged(frag, uniforms, tex_color)
+    return shaders.lit_and_fogged(frag, uniforms,
+                                  shaders.atlas_sample(frag, uniforms))
 
 
 # The same registries as the JAX shader: the varyings it reads (the rest
@@ -147,29 +148,12 @@ def camera_matrices(uniforms: Dict, width: int, height: int):
     return view, proj
 
 
-# Uniforms the frame reads on the device, packed into one host->device copy.
+# The camera and shading uniforms every frame reads on the device.
 _DEVICE_UNIFORMS = (("view", (4, 4)), ("projection", (4, 4)),
                     ("camera_position", (3,)),
                     ("light_direction", (3,)), ("light_color", (4,)),
                     ("fog_color", (4,)), ("clear_color", (4,)),
                     ("fog_start", ()), ("fog_end", ()), ("near_clip", ()))
-
-
-def _upload_uniforms(uniforms: Dict, width: int, height: int,
-                     device) -> Dict[str, torch.Tensor]:
-    """Camera matrices and the shading uniforms as device tensors, moved
-    in one host->device copy."""
-    view, proj = camera_matrices(uniforms, width, height)
-    host = dict(uniforms, view=view.numpy(), projection=proj.numpy())
-    packed = torch.from_numpy(np.concatenate(
-        [np.asarray(host[k], np.float32).reshape(-1)
-         for k, _ in _DEVICE_UNIFORMS])).to(device)
-    u, off = {}, 0
-    for k, shape in _DEVICE_UNIFORMS:
-        size = int(np.prod(shape))
-        u[k] = packed[off:off + size].reshape(shape)
-        off += size
-    return u
 
 
 # Uniforms the host reads (the camera) or render_frame applies itself; any
@@ -179,28 +163,49 @@ _HOST_UNIFORMS = frozenset(("camera_position", "camera_rotation",
                             "fov_degrees", "far_clip", "mesh_visible"))
 
 
+def _host_array(v) -> np.ndarray:
+    """A host uniform as the array the device gets (float64 as float32,
+    the JAX package's default precision)."""
+    a = np.asarray(v)
+    return a.astype(np.float32) if a.dtype == np.float64 else a
+
+
 def _to_device(v, device):
-    """A uniform, or a dict of them, as device tensors (float64 as
-    float32, the JAX package's default precision)."""
+    """A uniform, or a dict of them, as device tensors."""
     if isinstance(v, dict):
         return {k: _to_device(x, device) for k, x in v.items()}
     if isinstance(v, torch.Tensor):
         return v.to(device)
-    a = np.asarray(v)
-    if a.dtype == np.float64:
-        a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(_host_array(v))).to(device)
 
 
 def device_uniforms(uniforms: Dict, width: int, height: int,
                     device) -> Dict[str, torch.Tensor]:
-    """The uniforms the frame reads on the device: the camera matrices and
-    shading uniforms in one host->device copy, and every other key the
-    caller added (a shader's texture, say) as device tensors."""
-    u = _upload_uniforms(uniforms, width, height, device)
+    """The uniforms the frame reads on the device: the camera matrices,
+    the shading uniforms and every other key the caller added (a shader's
+    lights or texture, say).  Host arrays move in one host->device copy a
+    dtype, as each copy waits for the device; tensors and dicts move as
+    they are."""
+    view, proj = camera_matrices(uniforms, width, height)
+    host = dict(uniforms, view=view.numpy(), projection=proj.numpy())
+    f32 = {k: np.asarray(host[k], np.float32).reshape(shape)
+           for k, shape in _DEVICE_UNIFORMS}
+    groups, u = {np.dtype(np.float32): f32}, {}
     for k, v in uniforms.items():
-        if k not in u and k not in _HOST_UNIFORMS:
+        if k in f32 or k in _HOST_UNIFORMS:
+            continue
+        if isinstance(v, (torch.Tensor, dict)):
             u[k] = _to_device(v, device)
+        else:
+            a = _host_array(v)
+            groups.setdefault(a.dtype, {})[k] = a
+    for arrays in groups.values():
+        packed = torch.from_numpy(np.concatenate(
+            [a.reshape(-1) for a in arrays.values()])).to(device)
+        off = 0
+        for k, a in arrays.items():
+            u[k] = packed[off:off + a.size].reshape(a.shape)
+            off += a.size
     return u
 
 
@@ -209,18 +214,27 @@ _UNSUPPORTED_SCENE_PREFIXES = ("tangent", "anim_", "morph_", "skin_",
 
 
 # The per-triangle channels frame_setup packs for a fragment shader's
-# `tri_extras` ("opq" rides along for the K-buffer's short-circuit).
+# `tri_extras` ("opq" rides along for the K-buffer's short-circuit): ids
+# and atlas regions, and the PBR material channels, each quantised to
+# 1/256 (scene key of the table, column or None).
+MATERIAL_TRI_EXTRAS = {
+    "mat_m256": ("mesh_metallic", None), "mat_r256": ("mesh_roughness", None),
+    "mat_er256": ("mesh_emissive", 0), "mat_eg256": ("mesh_emissive", 1),
+    "mat_eb256": ("mesh_emissive", 2), "mat_br256": ("base_color", 0),
+    "mat_bg256": ("base_color", 1), "mat_bb256": ("base_color", 2)}
 PACKED_TRI_EXTRAS = ("tex_id", "mesh_id", "tex_oy", "tex_ox", "tex_h",
-                     "tex_w")
+                     "tex_w") + tuple(MATERIAL_TRI_EXTRAS)
+# Uniforms of features not ported: the sky panorama of the ray-traced
+# route and the PBR shader's environment terms (ops.sky.sample_panorama).
+_UNSUPPORTED_UNIFORMS = ("sky_panorama", "env_panorama", "env_irradiance")
 
 
 def check_supported(params: RenderParams, scene_keys=(), uniforms=None,
                     fragment_shader: Optional[Callable] = None):
     """Raise NotImplementedError for anything outside the routes this
     package renders (a fragment shader whose `tri_extras` names a channel
-    frame_setup does not pack, the reference's mat_* material channels for
-    one, among them), and JAX's ValueError for kbuffer_stats without a
-    binned deferred K-buffer."""
+    frame_setup does not pack among them), and JAX's ValueError for
+    kbuffer_stats without a binned deferred K-buffer."""
     if params.kbuffer_stats and (params.kbuffer <= 1 or not (
             params.binned and params.deferred)):
         raise ValueError("kbuffer_stats needs kbuffer > 1 on the binned "
@@ -240,14 +254,19 @@ def check_supported(params: RenderParams, scene_keys=(), uniforms=None,
         ("shade_rate", params.shade_rate != 1)) if off]
     bad += [f"scene key {k}" for k in scene_keys
             if k.startswith(_UNSUPPORTED_SCENE_PREFIXES)]
-    if uniforms is not None and "sky_panorama" in uniforms:
-        bad.append("sky_panorama")
+    bad += [k for k in _UNSUPPORTED_UNIFORMS if k in (uniforms or ())]
     bad += [f"tri_extras channel {k}"
             for k in getattr(fragment_shader, "tri_extras", None) or ()
             if k not in PACKED_TRI_EXTRAS]
     if bad:
         raise NotImplementedError(
             f"not implemented in softwarerenderer_tpu_torch yet: {bad}")
+
+
+def quantize256(x: torch.Tensor) -> torch.Tensor:
+    """A material value as an 8-bit-step int32 channel: round(x · 256),
+    half to even as JAX's, clipped to [0, 1020]."""
+    return torch.round(x.to(F32) * 256.0).clamp(0, 1020).to(torch.int32)
 
 
 def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
@@ -287,15 +306,22 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
     # Per-triangle material channels, ×2 for the clipper's fan slots, as
     # JAX's render_frame packs them: texture and mesh ids and the atlas
     # regions, resolved per triangle so the shader's only per-pixel memory
-    # access is the texel fetch; pruned to the shader's `tri_extras`.
+    # access is the texel fetch, and with "mesh_metallic" in the scene the
+    # PBR channels; pruned to the shader's `tri_extras` (the material
+    # channels are computed only when kept).
     with record_function("frame.extras"):
+        keep = getattr(fragment_shader, "tri_extras", None)
         tid2 = scene["tri_texture_id"].long().repeat_interleave(2)
+        mid2 = tri_mesh.repeat_interleave(2)
         aoff, asiz = scene["atlas_offsets"], scene["atlas_sizes"]
-        per_tri = {"tex_id": tid2, "mesh_id": tri_mesh.repeat_interleave(2),
+        per_tri = {"tex_id": tid2, "mesh_id": mid2,
                    "tex_oy": aoff[:, 0][tid2], "tex_ox": aoff[:, 1][tid2],
                    "tex_h": asiz[:, 0][tid2], "tex_w": asiz[:, 1][tid2]}
-        assert tuple(per_tri) == PACKED_TRI_EXTRAS
-        keep = getattr(fragment_shader, "tri_extras", None)
+        if "mesh_metallic" in scene:
+            for k, (table, col) in MATERIAL_TRI_EXTRAS.items():
+                if keep is None or k in keep:
+                    t = scene[table] if col is None else scene[table][:, col]
+                    per_tri[k] = quantize256(t[mid2])
         if keep is not None:
             per_tri = {k: v for k, v in per_tri.items() if k in keep}
         if params.kbuffer > 1 and params.kbuffer_short_circuit:
@@ -363,6 +389,86 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
         return tile_raster.render_tile(*args, per_tri_extra=f["per_tri"],
                                        fold=fold)
     return raster.render_deferred(*args, per_tri_extra=f["per_tri"])
+
+
+def render_frame_with_shadows(scene: Dict[str, torch.Tensor], uniforms: Dict,
+                              params: RenderParams, shadow_size: int = 512,
+                              vertex_shader: Optional[Callable] = None,
+                              fragment_shader: Optional[Callable] = None,
+                              fold: Optional[Callable] = None,
+                              visibility_fn: Optional[Callable] = None):
+    """A frame with a directional shadow map: one depth-only light pass
+    (ops.shadows.render_shadow_depth) from an orthographic light camera
+    fitted to the scene's world bounds, then render_frame with the map in
+    the uniforms (shadow_map, shadow_view, shadow_proj).
+
+    The shaders default to the lit vertex shader and
+    shadows.shadowed_scene_fragment_shader only when not given: Engine
+    hands its own to a frame_fn, so through Engine name them.  fold is
+    render_frame's; visibility_fn folds the light pass
+    (shadows.light_pass_visibility by default)."""
+    fragment_shader = fragment_shader or shadows.shadowed_scene_fragment_shader
+    check_supported(params, scene.keys(), uniforms, fragment_shader)
+    center, radius = shadows.scene_bounds(scene)
+    view, proj, _ = shadows.directional_light_camera(
+        uniforms["light_direction"], center, radius)
+    smap = shadows.render_shadow_depth(scene, uniforms, view, proj,
+                                       shadow_size, params, visibility_fn)
+    u = dict(uniforms, shadow_map=smap, shadow_view=view, shadow_proj=proj)
+    return render_frame(scene, u, params,
+                        vertex_shader or lighting.lit_scene_vertex_shader,
+                        fragment_shader, fold=fold)
+
+
+def render_frame_with_point_shadows(scene: Dict[str, torch.Tensor],
+                                    uniforms: Dict, params: RenderParams,
+                                    shadow_size: int = 256,
+                                    vertex_shader: Optional[Callable] = None,
+                                    fragment_shader: Optional[Callable] = None,
+                                    fold: Optional[Callable] = None,
+                                    visibility_fn: Optional[Callable] = None):
+    """A frame lit by one point light with cube shadows: six depth-only
+    light passes, one a face, then render_frame.  uniforms carry
+    point_light_position and point_light_color (point_light_range
+    optional).  Shaders, fold and visibility_fn as
+    render_frame_with_shadows (default fragment shader
+    shadows.point_shadowed_fragment_shader)."""
+    fragment_shader = fragment_shader or shadows.point_shadowed_fragment_shader
+    check_supported(params, scene.keys(), uniforms, fragment_shader)
+    smap, views, projs = shadows.render_point_shadow_depth(
+        scene, uniforms, uniforms["point_light_position"], shadow_size,
+        params=params, visibility_fn=visibility_fn)
+    u = dict(uniforms, point_shadow_map=smap, point_shadow_views=views,
+             point_shadow_projs=projs)
+    return render_frame(scene, u, params,
+                        vertex_shader or lighting.lit_scene_vertex_shader,
+                        fragment_shader, fold=fold)
+
+
+def render_frame_with_spot_shadow(scene: Dict[str, torch.Tensor],
+                                  uniforms: Dict, params: RenderParams,
+                                  shadow_size: int = 512,
+                                  vertex_shader: Optional[Callable] = None,
+                                  fragment_shader: Optional[Callable] = None,
+                                  fold: Optional[Callable] = None,
+                                  visibility_fn: Optional[Callable] = None):
+    """A frame lit by one spot light with a shadow map: one perspective
+    depth-only light pass along the cone axis, then render_frame.
+    uniforms carry spot_position, spot_direction, spot_inner and
+    spot_outer (radians) and spot_color (spot_range optional).  Shaders,
+    fold and visibility_fn as render_frame_with_shadows (default
+    fragment shader shadows.spot_shadowed_fragment_shader)."""
+    fragment_shader = fragment_shader or shadows.spot_shadowed_fragment_shader
+    check_supported(params, scene.keys(), uniforms, fragment_shader)
+    view, proj = shadows.spot_light_camera(
+        uniforms["spot_position"], uniforms["spot_direction"],
+        uniforms["spot_outer"], device=scene["position"].device)
+    smap = shadows.render_shadow_depth(scene, uniforms, view, proj,
+                                       shadow_size, params, visibility_fn)
+    u = dict(uniforms, shadow_map=smap, shadow_view=view, shadow_proj=proj)
+    return render_frame(scene, u, params,
+                        vertex_shader or lighting.lit_scene_vertex_shader,
+                        fragment_shader, fold=fold)
 
 
 def to_rgb8(color: torch.Tensor) -> torch.Tensor:

@@ -4,13 +4,17 @@ host layer (numpy, no JAX).
   * ``bench_scene`` and ``camera_uniforms``: ``bench.build_scene``'s
     fallback workload (a seeded 9,061-triangle soup with a checkerboard;
     the Dust2 asset is not in the repo) and ``bench.camera_uniforms``;
-  * ``golden_config(n)`` and ``GOLDEN_SIZES``: golden configs 1 and 2 of
-    ``bench.config_workload`` at ``scripts/make_goldens.py``'s sizes;
+  * ``golden_config(n)``, ``golden_uniforms(n, u)``, ``golden_shaders(n)``
+    and ``GOLDEN_SIZES``: golden configs 1, 2, 3 (41 meshes under four
+    lights, the lit shaders) and 5 (1,100 cubes) of
+    ``bench.config_workload`` at ``scripts/make_goldens.py``'s sizes, and
+    ``BENCH_SIZES``, bench.py's own sizes of configs 3 and 5;
   * ``translucent_scene``: the bench soup with six alpha-0.5 glass panes
     (``scripts/profile_translucent.py:52-63``), the K-buffer workload;
-  * ``kbuffer_golden_frame``, ``wireframe_golden_frame`` and
-    ``config4_golden_frame``: ``scripts/make_goldens.py``'s feature_kbuffer,
-    feature_wireframe and config4 frames.
+  * ``kbuffer_golden_frame``, ``wireframe_golden_frame``,
+    ``config4_golden_frame`` and ``shadow_golden_frame(name)``:
+    ``scripts/make_goldens.py``'s feature_kbuffer, feature_wireframe,
+    config4 and feature_shadows / _point_shadows / _spot_shadows frames.
 
 Each equals its source array for array (tests/test_torch_package.py).
 """
@@ -23,13 +27,29 @@ import numpy as np
 
 from softwarerenderer_tpu_torch.models import primitives
 from softwarerenderer_tpu_torch.models import scene as scene_mod
+from softwarerenderer_tpu_torch.models.scene import Light, LightType
+from softwarerenderer_tpu_torch.ops import lighting
 from softwarerenderer_tpu_torch.ops.texture import checkerboard
 from softwarerenderer_tpu_torch.utils import mathlib as ml
 
 F32 = np.float32
 
-# Golden sizes of configs 1 and 2 (scripts/make_goldens.py:23).
-GOLDEN_SIZES = {1: (320, 240), 2: (320, 180)}
+# Golden sizes of configs 1, 2, 3 and 5 (scripts/make_goldens.py:23), and
+# bench.py's sizes of configs 3 and 5 (bench.config_workload).
+GOLDEN_SIZES = {1: (320, 240), 2: (320, 180), 3: (480, 270), 5: (480, 270)}
+BENCH_SIZES = {3: (1920, 1080), 5: (3840, 2160)}
+# Config 3's lights: a directional key light, a red and a blue point light
+# and a white spot light pointing down.
+CONFIG3_LIGHTS = [
+    Light(light_type=LightType.DIRECTIONAL, direction=(0.4, -1.0, -0.3),
+          color=(0.8, 0.8, 0.7)),
+    Light(light_type=LightType.POINT, position=(0, 3, -5), color=(4, 1, 1),
+          attenuation_linear=0.3),
+    Light(light_type=LightType.POINT, position=(8, 2, 4), color=(1, 1, 5),
+          attenuation_quadratic=0.1),
+    Light(light_type=LightType.SPOT, position=(-5, 6, 0),
+          direction=(0, -1, 0), color=(3, 3, 3), spot_inner=0.4,
+          spot_outer=0.7)]
 
 
 def _bench_texture() -> np.ndarray:
@@ -105,8 +125,33 @@ def _obj_round_trip(mesh: Dict) -> Dict:
 
 def golden_config(n: int) -> List[scene_mod.MeshInstance]:
     """The instances of golden config n (1: a textured cube; 2: a
-    textured OBJ sphere), as bench.config_workload(n) builds them."""
+    textured OBJ sphere; 3: a floor and 40 cubes (seed 0); 5: 1,100
+    turned cubes (seed 1)), as bench.config_workload(n) builds them."""
     checker = np.asarray(checkerboard(64, 8)["data"])
+    if n == 3:
+        rng = np.random.default_rng(0)
+        insts = [scene_mod.MeshInstance(
+            primitives.plane(60.0), ml.translation([0, -1, 0]),
+            texture=checker)]
+        for _ in range(40):
+            pos = rng.uniform(-25, 25, 3).astype(np.float32)
+            pos[1] = rng.uniform(0, 2)
+            insts.append(scene_mod.MeshInstance(
+                primitives.cube(1.0), ml.translation(pos), texture=checker))
+        return insts
+    if n == 5:
+        rng = np.random.default_rng(1)
+        insts = []
+        for _ in range(1100):
+            pos = rng.uniform(-40, 40, 3).astype(np.float32)
+            pos[1] = rng.uniform(-2, 6)
+            insts.append(scene_mod.MeshInstance(
+                primitives.cube(1.2),
+                (ml.matrix_from_yaw_pitch_roll(
+                    float(rng.uniform(0, 3)), 0.0, 0.0)
+                 @ ml.translation(pos)).astype(np.float32),
+                texture=checker))
+        return insts
     if n == 1:
         return [scene_mod.MeshInstance(
             primitives.cube(1.5), ml.matrix_from_yaw_pitch_roll(0.5, 0.3, 0)
@@ -117,8 +162,31 @@ def golden_config(n: int) -> List[scene_mod.MeshInstance]:
         return [scene_mod.MeshInstance(
             mesh=mesh, model_matrix=ml.translation([0.0, 0.0, -3.0]),
             texture=checker, material=mesh["material"])]
-    raise ValueError(f"golden config {n} is not ported (configs 1 and 2 "
-                     f"are)")
+    raise ValueError(f"golden config {n} is not ported (configs 1, 2, 3 "
+                     f"and 5 are; config 4's frame is config4_golden_frame)")
+
+
+def golden_uniforms(n: int, uniforms: Dict) -> Dict:
+    """A copy of `uniforms` with golden config n's own (the uniforms
+    function of bench.config_workload(n)): config 3's packed lights and
+    camera, config 5's camera and far clip."""
+    u = dict(uniforms)
+    if n == 3:
+        u.update(lighting.pack_lights(CONFIG3_LIGHTS))
+        u["camera_position"] = np.float32([0, 2, 10])
+    elif n == 5:
+        u["camera_position"] = np.float32([0, 2, 55])
+        u["far_clip"] = np.float32(300.0)
+    return u
+
+
+def golden_shaders(n: int) -> Dict:
+    """Golden config n's Engine shaders: config 3's lit pair, else none
+    (the game's)."""
+    if n == 3:
+        return dict(vertex_shader=lighting.lit_scene_vertex_shader,
+                    fragment_shader=lighting.multi_light_fragment_shader)
+    return {}
 
 
 def translucent_scene() -> Dict[str, np.ndarray]:
@@ -194,3 +262,66 @@ def config4_golden_frame():
     from softwarerenderer_tpu_torch.engine import default_frame_uniforms
     return (bench_scene(), RenderParams(width=320, height=180),
             camera_uniforms(default_frame_uniforms(320, 180), 0))
+
+
+def shadow_golden_frame(name: str):
+    """scripts/make_goldens.py's feature frame `name`: "shadows" (a
+    directional map over a floor and a cube), "point_shadows" (a cube map
+    of a point light over a floor, a cube and a sphere) or "spot_shadows"
+    (a spot light's map over a floor and a cube), at 320x240 with
+    256-texel maps.  Returns (packed scene, RenderParams, uniforms,
+    frame_fn, shaders): frame_fn(scene tensors, uniforms, params) renders
+    the frame with its default (lit) shaders, which `shaders` names for
+    Engine(frame_fn=..., **shaders) (Engine hands a frame_fn its own)."""
+    import functools
+    from softwarerenderer_tpu_torch import engine
+    from softwarerenderer_tpu_torch.config import RenderParams
+    from softwarerenderer_tpu_torch.ops import shadows
+    checker = np.asarray(checkerboard(32, 4)["data"])
+    insts = [scene_mod.MeshInstance(primitives.plane(20.0),
+                                    ml.translation([0, -1, 0]),
+                                    texture=checker)]
+    u = engine.default_frame_uniforms(320, 240)
+    u["camera_rotation"] = ml.quat_from_yaw_pitch_roll(
+        np.float32(0.55), np.float32(-0.35), np.float32(0))
+    if name == "shadows":
+        insts.append(scene_mod.MeshInstance(primitives.cube(1.0),
+                                            ml.translation([0, 0.2, -4]),
+                                            texture=checker))
+        u["camera_position"] = np.float32([2.5, 2.0, 0.5])
+        fn = engine.render_frame_with_shadows
+        fs = shadows.shadowed_scene_fragment_shader
+    elif name == "point_shadows":
+        insts += [scene_mod.MeshInstance(primitives.cube(0.8),
+                                         ml.translation([0, 0.6, -4]),
+                                         texture=checker),
+                  scene_mod.MeshInstance(
+                      primitives.uv_sphere(0.5, rings=16, sectors=24),
+                      ml.translation([1.8, 0.0, -5]), texture=checker)]
+        u["camera_position"] = np.float32([2.5, 2.0, -0.5])
+        u["point_light_position"] = np.float32([0.0, 3.0, -4.0])
+        u["point_light_color"] = np.ones(4, np.float32)
+        u["point_light_range"] = np.float32(40.0)
+        fn = engine.render_frame_with_point_shadows
+        fs = shadows.point_shadowed_fragment_shader
+    elif name == "spot_shadows":
+        insts.append(scene_mod.MeshInstance(primitives.cube(0.8),
+                                            ml.translation([0, 0.2, -4]),
+                                            texture=checker))
+        u["camera_position"] = np.float32([2.5, 2.0, -0.5])
+        u["spot_position"] = np.float32([1.5, 3.0, -2.0])
+        d = np.float32([-0.35, -1.0, -0.55])
+        u["spot_direction"] = d / np.linalg.norm(d)
+        u["spot_inner"] = np.float32(0.35)
+        u["spot_outer"] = np.float32(0.6)
+        u["spot_color"] = np.ones(4, np.float32)
+        u["spot_range"] = np.float32(40.0)
+        fn = engine.render_frame_with_spot_shadow
+        fs = shadows.spot_shadowed_fragment_shader
+    else:
+        raise ValueError(f"no shadow golden frame {name!r}")
+    return (scene_mod.build_scene_buffers(insts),
+            RenderParams(width=320, height=240), u,
+            functools.partial(fn, shadow_size=256),
+            dict(vertex_shader=lighting.lit_scene_vertex_shader,
+                 fragment_shader=fs))

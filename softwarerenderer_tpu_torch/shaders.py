@@ -43,6 +43,28 @@ def default_vertex_shader(vin: Dict, uniforms: Dict) -> Dict:
             "normal": vin["normal"], "data": {"world_normal": world_normal}}
 
 
+def smoothstep01(t: torch.Tensor) -> torch.Tensor:
+    return t * t * (3.0 - 2.0 * t)
+
+
+def fog_factor(frag: Dict, uniforms: Dict) -> torch.Tensor:
+    """Smoothstep fog on clip-space z (Renderer.cs:848-860): 1 up to
+    fog_start, 0 from fog_end."""
+    depth = frag["clip_position"][..., 2]
+    fog_end = uniforms["fog_end"]
+    fog = ((fog_end - depth) / (fog_end - uniforms["fog_start"])).clamp(0, 1)
+    return smoothstep01(fog)
+
+
+def atlas_sample(frag: Dict, uniforms: Dict) -> torch.Tensor:
+    """The texel of each fragment's atlas region: the scene shaders'
+    texture fetch, through the per-triangle tex_* channels."""
+    tri = frag["tri"]
+    return tex_ops.sample_atlas_region(
+        uniforms["atlas_data"], tri["tex_oy"], tri["tex_ox"], tri["tex_h"],
+        tri["tex_w"], frag["uv"])
+
+
 def lit_and_fogged(frag: Dict, uniforms: Dict,
                    tex_color: torch.Tensor) -> torch.Tensor:
     """Texture color × vertex color, half-Lambert max(0.25, N·-L),
@@ -50,12 +72,9 @@ def lit_and_fogged(frag: Dict, uniforms: Dict,
     diffuse = ml.dot(frag["data"]["world_normal"],
                      -uniforms["light_direction"]).clamp(min=0.25)
     base = frag["color"] * tex_color
-    depth = frag["clip_position"][..., 2]
-    fog_end = uniforms["fog_end"]
-    fog = ((fog_end - depth) / (fog_end - uniforms["fog_start"])).clamp(0, 1)
-    fog = fog * fog * (3.0 - 2.0 * fog)
     lit = base * (0.1 + 0.9 * diffuse[..., None]) * uniforms["light_color"]
     fog_color = uniforms["fog_color"]
+    fog = fog_factor(frag, uniforms)
     rgba = fog_color + (lit - fog_color) * fog[..., None]
     return torch.cat([rgba[..., :3], base[..., 3:4]], dim=-1)
 

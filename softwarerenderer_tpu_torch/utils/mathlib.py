@@ -3,7 +3,7 @@
 Counterpart of ``softwarerenderer_tpu/utils/mathlib.py`` for the functions the
 port uses, in two parts:
 
-  * torch functions for the frame path (``dot`` ... ``perspective_fov``,
+  * torch functions for the frame path (``dot`` ... ``orthographic``,
     ``invert``, ``safe_normalize``).  Every formula keeps the JAX module's
     float32 operation order (explicit left-to-right multiply-adds, never
     ``matmul``), so results agree with it and with .NET System.Numerics to
@@ -113,6 +113,22 @@ def perspective_fov(fov_radians: torch.Tensor, aspect: torch.Tensor,
         torch.stack([zero, y_scale, zero, zero]),
         torch.stack([zero, zero, neg_far_range, -one]),
         torch.stack([zero, zero, near * neg_far_range, zero]),
+    ])
+
+
+def orthographic(width: torch.Tensor, height: torch.Tensor,
+                 near: torch.Tensor, far: torch.Tensor) -> torch.Tensor:
+    """Matrix4x4.CreateOrthographic: row-vector RH ortho projection, ndcZ 0
+    at `near` and 1 at `far` as perspective_fov's (the directional light's
+    camera, ops.shadows).  Every argument is a 0-d float32 tensor."""
+    zero = torch.zeros_like(near)
+    one = torch.ones_like(near)
+    inv_nf = 1.0 / (near - far)
+    return torch.stack([
+        torch.stack([2.0 / width, zero, zero, zero]),
+        torch.stack([zero, 2.0 / height, zero, zero]),
+        torch.stack([zero, zero, inv_nf, zero]),
+        torch.stack([zero, zero, near * inv_nf, one]),
     ])
 
 

@@ -1,8 +1,8 @@
 """Where the time of one frame goes, on a CUDA card.
 
     python -m softwarerenderer_tpu_torch.utils.profiling [--frames N]
-        [--width W] [--height H] [--kbuffer K | --raytrace CAP | --deferred]
-        [--out DIR]
+        [--width W] [--height H] [--kbuffer K | --raytrace CAP | --deferred
+        | --config 3|5 | --shadows directional|point|spot] [--out DIR]
 
 Renders the bench scene (``scenes.bench_scene()``) through ``Engine(scene,
 RenderParams(W, H), device="cuda")`` with ``scenes.camera_uniforms(u, i)``;
@@ -12,7 +12,13 @@ cull_mode=0)``; with --raytrace CAP the ray-traced frame with hard shadows,
 ``Engine(..., frame_fn=functools.partial(render_frame_raytraced,
 cluster_cap=CAP))``; with --deferred the deferred route's frame,
 ``RenderParams(W, H, use_pallas=False)`` (K5, then the full-frame
-interpolation and shading).  It prints:
+interpolation and shading); with --config 3 or 5 golden config 3 (41
+meshes under four lights, the lit shaders) or 5 (1,100 cubes) from
+``scenes.golden_config``; with --shadows the directional, point or spot
+shadowed frame of ``scenes.shadow_golden_frame`` at the frame functions'
+map sizes (512, 6 x 256, 512), whose light passes show as
+``shadow.geometry`` and ``shadow.fold`` (K5).  Without --width and
+--height a frame is 1920x1080, config 5 bench.py's 3840x2160.  It prints:
 
   * the scene's statistics at frame 0: for a raster frame its binning
     (valid clip-fan slots, global triangles, binned (tile, triangle) pairs,
@@ -51,7 +57,10 @@ SPANS = ("frame.camera_cull", "frame.geometry", "frame.extras",
          "tile.peel_fold", "tile.peel_shade", "tile.replay",
          "rt.world", "rt.accel", "rt.prep", "rt.sweep_nearest",
          "rt.sweep_any", "rt.winner", "rt.shade", "rt.brute_cast",
-         "rt.composite", "vis.fold", "deferred.interp", "deferred.shade")
+         "rt.composite", "vis.fold", "deferred.interp", "deferred.shade",
+         "shadow.geometry", "shadow.fold")
+SHADOW_FRAMES = {"directional": "shadows", "point": "point_shadows",
+                 "spot": "spot_shadows"}
 
 
 def scene_stats(eng, uniforms) -> Dict:
@@ -196,11 +205,13 @@ def trace_summary(trace: Dict, frames: int) -> Dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=5)
-    ap.add_argument("--width", type=int, default=1920)
-    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--width", type=int)
+    ap.add_argument("--height", type=int)
     ap.add_argument("--kbuffer", type=int, default=0)
     ap.add_argument("--raytrace", type=int, default=0, metavar="CAP")
     ap.add_argument("--deferred", action="store_true")
+    ap.add_argument("--config", type=int, choices=(3, 5), default=0)
+    ap.add_argument("--shadows", choices=sorted(SHADOW_FRAMES))
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   "profile"))
     a = ap.parse_args(argv)
@@ -211,11 +222,27 @@ def main(argv=None) -> int:
     from softwarerenderer_tpu_torch.config import RenderParams
     from softwarerenderer_tpu_torch.engine import Engine
 
-    if sum((a.kbuffer > 1, bool(a.raytrace), a.deferred)) > 1:
-        print("profiling: --kbuffer, --raytrace and --deferred are "
-              "different frames; pick one", file=sys.stderr)
+    if sum((a.kbuffer > 1, bool(a.raytrace), a.deferred, bool(a.config),
+            bool(a.shadows))) > 1:
+        print("profiling: --kbuffer, --raytrace, --deferred, --config and "
+              "--shadows are different frames; pick one", file=sys.stderr)
         return 1
-    if a.kbuffer > 1:
+    default = scenes.BENCH_SIZES.get(a.config, (1920, 1080))
+    a.width, a.height = a.width or default[0], a.height or default[1]
+    fixed = None
+    if a.config:
+        from softwarerenderer_tpu_torch.models.scene import (
+            build_scene_buffers)
+        eng = Engine(build_scene_buffers(scenes.golden_config(a.config)),
+                     RenderParams(a.width, a.height), device="cuda",
+                     **scenes.golden_shaders(a.config))
+        fixed = scenes.golden_uniforms(a.config, eng.uniforms)
+    elif a.shadows:
+        scene, _, fixed, fn, shaders = scenes.shadow_golden_frame(
+            SHADOW_FRAMES[a.shadows])
+        eng = Engine(scene, RenderParams(a.width, a.height), device="cuda",
+                     frame_fn=fn.func, **shaders)
+    elif a.kbuffer > 1:
         eng = Engine(scenes.translucent_scene(),
                      RenderParams(a.width, a.height, kbuffer=a.kbuffer,
                                   cull_mode=0), device="cuda")
@@ -233,7 +260,7 @@ def main(argv=None) -> int:
                      device="cuda")
 
     def uniforms_at(i):
-        return scenes.camera_uniforms(eng.uniforms, i)
+        return fixed or scenes.camera_uniforms(eng.uniforms, i)
 
     if a.raytrace:
         stats = raytrace_stats(eng, uniforms_at(0), a.raytrace)
@@ -260,6 +287,7 @@ def main(argv=None) -> int:
     result = {"device": torch.cuda.get_device_name(0),
               "size": [a.width, a.height], "kbuffer": a.kbuffer,
               "raytrace": a.raytrace, "deferred": a.deferred,
+              "config": a.config, "shadows": a.shadows,
               "scene": stats,
               "frame_ms_back_to_back": back_to_back,
               "frame_ms_synchronised": synced,

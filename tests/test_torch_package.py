@@ -57,6 +57,16 @@ for fn, kw in ((None, {}), (None, {"use_pallas": False}),
                  device="cpu", frame_fn=fn)
     rgb = eng.present(scenes.camera_uniforms(eng.uniforms, 0))
     assert rgb.shape == (48, 64, 3), rgb.shape
+from softwarerenderer_tpu_torch.models.convert import scene_to_torch
+from softwarerenderer_tpu_torch.models.scene import build_scene_buffers
+eng = Engine(build_scene_buffers(scenes.golden_config(3)),
+             RenderParams(64, 48), device="cpu", **scenes.golden_shaders(3))
+assert eng.present(scenes.golden_uniforms(3, eng.uniforms)).shape == \
+    (48, 64, 3)
+for name in ("shadows", "point_shadows", "spot_shadows"):
+    sc, p, u, fn, _ = scenes.shadow_golden_frame(name)
+    c, d = fn(scene_to_torch(sc, "cpu"), u, RenderParams(64, 48))
+    assert c.shape == (48, 64, 4), c.shape
 bad = [m for m in sys.modules
        if m in ("jax", "jaxlib", "bench", "scripts", "softwarerenderer_tpu")
        or m.startswith(("jax.", "jaxlib.", "scripts.",
@@ -71,7 +81,8 @@ def test_port_never_imports_jax(what):
     """Import every module of the port (or chip_smoke.py), render a raster
     frame through the tile route, the deferred route (K5's twin), the
     forward route and a debug view, and a ray-traced CPU frame of the
-    port's own bench scene, and find
+    port's own bench scene, golden config 3's lit frame and the three
+    shadowed frames, and find
     neither JAX, nor bench or scripts, nor any module of the JAX package
     (``softwarerenderer_tpu_torch`` itself only shares its prefix)."""
     code = _IMPORTS[what] + _RENDER_AND_CHECK
@@ -187,17 +198,101 @@ def test_bench_scene_matches_bench():
     _assert_same_scene(scenes.bench_scene(), bench.build_scene())
 
 
-@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("n", [1, 2, 3, 5])
 def test_golden_config_matches_bench(n):
+    """scenes.golden_config(n) packs to bench.config_workload(n)'s scene,
+    golden_uniforms(n) gives its uniforms function's values and
+    golden_shaders(n) the port's shaders of the same names."""
     import bench
     from scripts.make_goldens import GOLDEN_SIZES
+    from softwarerenderer_tpu.engine.renderer import default_frame_uniforms
     from softwarerenderer_tpu.models import scene as scene_mod
     from softwarerenderer_tpu_torch import scenes
     from softwarerenderer_tpu_torch.models.scene import build_scene_buffers
     assert scenes.GOLDEN_SIZES[n] == GOLDEN_SIZES[n]
-    _assert_same_scene(
-        build_scene_buffers(scenes.golden_config(n)),
-        scene_mod.build_scene_buffers(bench.config_workload(n)[0]))
+    insts, w, h, ufn, ekw = bench.config_workload(n)
+    want_scene = scene_mod.build_scene_buffers(insts)
+    _assert_same_scene(build_scene_buffers(scenes.golden_config(n)),
+                       want_scene)
+    if n in scenes.BENCH_SIZES:
+        assert scenes.BENCH_SIZES[n] == (w, h)
+    base = default_frame_uniforms(64, 48)
+    want = dict(base)
+    if ufn is not None:
+        ufn(want, want_scene)
+    _assert_same_scene(scenes.golden_uniforms(n, base), want)
+    got_shaders = scenes.golden_shaders(n)
+    assert sorted(got_shaders) == sorted(ekw)
+    for k, fn in ekw.items():
+        assert got_shaders[k].__name__ == fn.__name__
+        assert got_shaders[k].__module__ == \
+            fn.__module__.replace("softwarerenderer_tpu.",
+                                  "softwarerenderer_tpu_torch.")
+
+
+def _shadow_golden_source(name, p, s, t, m):
+    """scripts/make_goldens.py:render_feature(name)'s instances, for the
+    three shadowed features."""
+    checker = np.asarray(t.checkerboard(32, 4)["data"])
+    insts = [s.MeshInstance(p.plane(20.0), m.translation([0, -1, 0]),
+                            texture=checker)]
+    if name == "shadows":
+        insts.append(s.MeshInstance(p.cube(1.0), m.translation([0, 0.2, -4]),
+                                    texture=checker))
+    elif name == "point_shadows":
+        insts += [s.MeshInstance(p.cube(0.8), m.translation([0, 0.6, -4]),
+                                 texture=checker),
+                  s.MeshInstance(p.uv_sphere(0.5, rings=16, sectors=24),
+                                 m.translation([1.8, 0.0, -5]),
+                                 texture=checker)]
+    else:
+        insts.append(s.MeshInstance(p.cube(0.8), m.translation([0, 0.2, -4]),
+                                    texture=checker))
+    return insts
+
+
+# make_goldens.render_feature's uniforms over default_frame_uniforms(320,
+# 240), beside the camera rotation every shadowed feature shares.
+_SHADOW_GOLDEN_UNIFORMS = {
+    "shadows": {"camera_position": np.float32([2.5, 2.0, 0.5])},
+    "point_shadows": {
+        "camera_position": np.float32([2.5, 2.0, -0.5]),
+        "point_light_position": np.float32([0.0, 3.0, -4.0]),
+        "point_light_color": np.ones(4, np.float32),
+        "point_light_range": np.float32(40.0)},
+    "spot_shadows": {
+        "camera_position": np.float32([2.5, 2.0, -0.5]),
+        "spot_position": np.float32([1.5, 3.0, -2.0]),
+        "spot_direction": (np.float32([-0.35, -1.0, -0.55])
+                           / np.linalg.norm(np.float32([-0.35, -1.0,
+                                                        -0.55]))),
+        "spot_inner": np.float32(0.35), "spot_outer": np.float32(0.6),
+        "spot_color": np.ones(4, np.float32),
+        "spot_range": np.float32(40.0)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SHADOW_GOLDEN_UNIFORMS))
+def test_shadow_golden_frames_match_their_sources(name):
+    """scenes.shadow_golden_frame(name): the scene, size, uniforms, frame
+    function and map size of make_goldens.render_feature(name)."""
+    from softwarerenderer_tpu.engine.renderer import default_frame_uniforms
+    from softwarerenderer_tpu.models import scene as scene_mod
+    from softwarerenderer_tpu_torch import scenes
+    got, params, u, frame_fn, _ = scenes.shadow_golden_frame(name)
+    _assert_same_scene(got, scene_mod.build_scene_buffers(
+        _shadow_golden_source(name, *_host_modules(False))))
+    assert (params.width, params.height) == (320, 240)
+    assert params == RenderParams(width=320, height=240)
+    want = dict(default_frame_uniforms(320, 240),
+                camera_rotation=ml.quat_from_yaw_pitch_roll(
+                    np.float32(0.55), np.float32(-0.35), np.float32(0)),
+                **_SHADOW_GOLDEN_UNIFORMS[name])
+    _assert_same_scene(u, want)
+    suffix = {"shadows": "shadows", "point_shadows": "point_shadows",
+              "spot_shadows": "spot_shadow"}[name]
+    assert frame_fn.func.__name__ == f"render_frame_with_{suffix}"
+    assert frame_fn.keywords == {"shadow_size": 256}
 
 
 def _translucent_source(p, s, t, m):
