@@ -59,7 +59,17 @@ drives the port's paths at 1080p (config 5 at 4K):
     frame 0's light passes through K5 against the plain fold on the same
     triangles on every texel,
     frame 0 against the plain path (K1's and K5's twins), the three
-    feature goldens.  Phases 18-19 also profile each frame's kernels.
+    feature goldens.  Phases 18-19 also profile each frame's kernels;
+  * the image-quality frames (phase 20): the bench frame at 1920x1080 with
+    ``ssaa=2`` (K1 once a frame at 3840x2160), trilinear mips, the whole
+    post chain (SSAO, bloom, ACES, FXAA) and a seeded sky panorama, 10
+    counted frames, frame 0 against the plain path, K1 at that size
+    against its twin beside its bound, the frame's launches and host syncs
+    by the profiler and what the post chain adds; goldens feature_mips
+    (against the same frame on the CPU), _trilinear, _ssaa and _ssao; the
+    ray-traced bench frame under the sky (K4 1 + 1 a frame, frame 0
+    against K4's twin); a PBR frame with env_panorama and env_irradiance
+    at 320x180 against the CPU's.
 
 Any failed check raises and exits non-zero.  The last three lines of
 standard output are the card's name and power limit, a JSON line with the
@@ -177,7 +187,8 @@ def kernel_events(fn, runs: int) -> list:
 
 def frame_kernel_ms(fn, runs: int) -> dict:
     """Device milliseconds a call of fn() spends in all its kernels, in
-    K1 (tile_raster_kernel) and in K5 (its plan and fold kernels), means
+    K1 (tile_raster_kernel), in K4 (rt_sweep_kernel, both modes) and in
+    K5 (its plan and fold kernels), and the kernels it launches, means
     over `runs` profiled calls."""
     events = kernel_events(fn, runs)
 
@@ -185,8 +196,9 @@ def frame_kernel_ms(fn, runs: int) -> dict:
         return sum(e["dur"] for e in events if pred(e.get("name", ""))) \
             / runs * 1e-3
 
-    return {"kernels": ms(lambda n: True),
+    return {"launches": len(events) / runs, "kernels": ms(lambda n: True),
             "K1": ms(lambda n: "tile_raster_kernel" in n),
+            "K4": ms(lambda n: "rt_sweep_kernel" in n),
             "K5": ms(lambda n: "vis_fold_kernel" in n
                      or "vis_fold_plan_kernel" in n)}
 
@@ -1923,10 +1935,10 @@ LIT_FRAMES = {3: 30, 5: 10}
 PBR_CPU_MISMATCH_MAX = 1e-3
 
 
-def pbr_frame(device, size):
+def pbr_frame(device, size, env=None):
     """A glossy metal sphere and an emissive cube through the PBR shader,
-    tests/test_pbr.py's materials and light: (color, depth) on the
-    device."""
+    tests/test_pbr.py's materials and light, with the uniforms `env` (the
+    environment terms) added: (color, depth) on the device."""
     from softwarerenderer_tpu_torch import RenderParams
     from softwarerenderer_tpu_torch.engine import Engine
     from softwarerenderer_tpu_torch.models import primitives
@@ -1953,7 +1965,7 @@ def pbr_frame(device, size):
     ld = np.float32([0.3, -0.5, -1.0])
     u["light_direction"] = ld / np.linalg.norm(ld)
     u["fog_start"], u["fog_end"] = np.float32(900.0), np.float32(1000.0)
-    return eng.render(u)
+    return eng.render(dict(u, **(env or {})))
 
 
 def check_lit_frames(card, device="cuda") -> dict:
@@ -2098,6 +2110,213 @@ def check_shadowed_frames(card, device="cuda", size=(W, H)) -> dict:
             f"{g_params.height}: {off:.6f} of pixels off by > 2")
         check(off < 2e-3, f"golden feature_{name}")
     return out
+
+
+# Phase 20: the image-quality frames.
+IQ_FRAMES = 10
+RT_SKY_FRAMES = 3
+# The PBR frame with its environment terms, card against CPU: atan2 and
+# asin may round differently on the two devices, and a panorama lookup
+# scales an ulp of its coordinate by the panorama's width; at most this
+# share of covered pixels may differ by > 1e-5, and none by more than
+# 1e-3 (as PBR_CPU_MISMATCH_MAX).
+PBR_ENV_CPU_MISMATCH_MAX = 0.05
+
+
+def sky_share(frame, clear) -> float:
+    """The share of a frame's clear-depth pixels whose color is not the
+    clear color `clear` (a device tensor): where the sky shows."""
+    from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
+    color, depth = frame
+    miss = depth == DEPTH_CLEAR
+    return float(((color - clear).abs().amax(-1) > 1e-3)[miss].float()
+                 .mean())
+
+
+def check_image_quality_frames(card, device="cuda", size=(W, H)) -> None:
+    """Phase 20: the bench scene at `size` with ssaa=2, trilinear mips,
+    SSAO, bloom, ACES and FXAA under a seeded sky (Engine with the
+    trilinear shader): IQ_FRAMES counted frames with one K1 launch each
+    at twice the size in each axis, frame 0 against the plain path; K1 on
+    that frame's inputs against its twin, timed beside its bound; the
+    frame's kernels, launches and host syncs by the profiler and those of
+    the same frame without the post chain; the goldens feature_mips (held
+    against the same frame on the CPU: its PNG has XLA's contracted
+    rounding, ROADMAP queue C), _trilinear, _ssaa and _ssao; the
+    ray-traced bench frame under the sky with K4 launches 1 + 1, frame 0
+    against K4's twin, and K4 on its two casts timed beside their bounds;
+    a PBR frame with env_panorama and env_irradiance against the CPU's."""
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import (
+        Engine, render_frame, scene_fragment_shader_trilinear)
+    from softwarerenderer_tpu_torch.ops import rt_sweep, tile_raster
+    from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
+    from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
+    w, h = size
+    trilinear = scene_fragment_shader_trilinear
+    params = RenderParams(w, h, ssaa=2, use_mipmaps="trilinear", ssao=True,
+                          bloom=True, tonemap="aces", fxaa=True)
+    pano = scenes.sky_panorama()
+    eng = Engine(scenes.bench_scene(), params, device=device,
+                 fragment_shader=trilinear)
+
+    def u_at(i):
+        return dict(scenes.camera_uniforms(eng.uniforms, i),
+                    sky_panorama=pano)
+
+    run = counted_frames(lambda i: eng.render(u_at(i)), IQ_FRAMES, size)
+    check(run["k1"] == [1] * IQ_FRAMES and run["k5"] == [0] * IQ_FRAMES,
+          f"image-quality frame: K1 launches {run['k1']}, K5 {run['k5']}")
+    plain = render_frame(eng.scene, u_at(0), params,
+                         fragment_shader=trilinear,
+                         fold=tile_raster.tile_fold_plain)
+    text = against_plain("image-quality frame", run["first"], plain)
+    clear = torch.as_tensor(eng.uniforms["clear_color"], device=device)
+    sky_px = sky_share(run["first"], clear)
+    check(sky_px > 0.9, f"the sky shows on {sky_px:.3f} of missed pixels")
+    del plain
+
+    _, calls = capture_folds(
+        lambda f: render_frame(eng.scene, u_at(0), params,
+                               fragment_shader=trilinear, fold=f),
+        tile_raster.tile_fold)
+    check(len(calls) == 1, f"{len(calls)} folds in one frame")
+    args, kwargs, (kg, kd, ki) = calls[0]
+    check(ki.shape[0] >= 2 * h and ki.shape[1] >= 2 * w,
+          f"K1 folded {tuple(ki.shape)}, not {2 * w}x{2 * h}")
+    pg, pd, pi = tile_raster.tile_fold_plain(*args, **kwargs)
+    n_i, n_d = int((ki != pi).sum()), int((kd != pd).sum())
+    g_err = float((kg - pg).abs().max())
+    check(n_i == 0 and n_d == 0 and g_err <= GBUF_ATOL,
+          f"K1 at {2 * w}x{2 * h}: best_i differs on {n_i}, best_d on "
+          f"{n_d} pixels, G-buffer {g_err}")
+    k1_ms = cuda_ms(lambda: tile_raster.tile_fold(*args, **kwargs),
+                    KERNEL_RUNS)
+    k1_plain_ms = cuda_ms(
+        lambda: tile_raster.tile_fold_plain(*args, **kwargs), 3)
+    k1_bound = fold_bound(args, kwargs, (kg, kd, ki))
+    del calls, args, kwargs, kg, kd, ki, pg, pd, pi
+    prof = frame_kernel_ms(lambda: eng.render(u_at(0)), 5)
+    prof["syncs"] = host_syncs(lambda i: eng.render(u_at(i)), 3)
+    bare = params.replace(ssao=False, bloom=False, tonemap=None, fxaa=False)
+    bare_eng = Engine(scenes.bench_scene(), bare, device=device,
+                      fragment_shader=trilinear)
+    bare_u = scenes.camera_uniforms(bare_eng.uniforms, 0)
+    bare_prof = frame_kernel_ms(lambda: bare_eng.render(bare_u), 5)
+    log(f"phase 20 image-quality frame @{w}x{h}, ssaa=2 (K1 at {2 * w}x"
+        f"{2 * h}), trilinear, SSAO, bloom, ACES, FXAA, sky: {IQ_FRAMES} "
+        f"frames, K1 launches {sum(run['k1'])}, "
+        f"{timing_text(run, prof, w, h)}; {prof['launches']:.0f} launches "
+        f"and {prof['syncs']:.1f} host syncs a frame; without the post "
+        f"chain and sky {bare_prof['launches']:.0f} launches, kernels "
+        f"{bare_prof['kernels']:.3f} ms; the sky on {sky_px:.4f} of missed "
+        f"pixels; {text} [{card}]")
+    log(f"phase 20 K1 at {2 * w}x{2 * h} (the ssaa frame's inputs): kernel "
+        f"vs plain equal (best_i, best_d, G-buffer max abs diff "
+        f"{g_err:.3g}); kernel {k1_ms:.3f} ms (median of {KERNEL_RUNS}), "
+        f"plain {k1_plain_ms:.3f} ms (median of 3); bound "
+        f"{k1_bound['bound_ms']:.4f} ms ({k1_bound['bound_by']}, "
+        f"{k1_bound['tests']} tests) [{card}]")
+    del run, eng, bare_eng
+
+    for name in ("mips", "trilinear", "ssaa", "ssao"):
+        scene, g_params, g_u, shaders = scenes.feature_golden_frame(name)
+        got = Engine(scene, g_params, device=device,
+                     **shaders).present(g_u)
+        off = golden_off(got, f"feature_{name}.png")
+        if name == "mips":
+            cpu = Engine(scene, g_params, device="cpu",
+                         **shaders).present(g_u)
+            diff = np.abs(got.astype(np.int32) - cpu.astype(np.int32))
+            cpu_off = float(np.mean(np.any(diff > 2, axis=-1)))
+            log(f"phase 20 golden feature_mips {g_params.width}x"
+                f"{g_params.height}: {cpu_off:.6f} of pixels off by > 2 "
+                f"from the same frame on the CPU; {off:.6f} from the PNG, "
+                f"whose floor rows sit on texel edges in XLA's contracted "
+                f"rounding")
+            check(cpu_off < 2e-3, "golden feature_mips' frame")
+            continue
+        log(f"phase 20 golden feature_{name} {g_params.width}x"
+            f"{g_params.height}: {off:.6f} of pixels off by > 2")
+        check(off < 2e-3, f"golden feature_{name}")
+
+    rt_eng = Engine(scenes.bench_scene(), RenderParams(w, h), device=device,
+                    frame_fn=functools.partial(render_frame_raytraced,
+                                               cluster_cap=RT_CAP))
+
+    def rt_u(i):
+        return dict(scenes.camera_uniforms(rt_eng.uniforms, i),
+                    sky_panorama=pano)
+
+    per_frame, rt_ms = [], []
+    for i in range(RT_SKY_FRAMES):
+        n0, a0 = rt_sweep.LAUNCHES, rt_sweep.ANY_HIT_LAUNCHES
+        t = time.perf_counter()
+        color, depth = rt_eng.render(rt_u(i))
+        torch.cuda.synchronize()
+        rt_ms.append((time.perf_counter() - t) * 1e3)
+        per_frame.append((rt_sweep.LAUNCHES - n0
+                          - (rt_sweep.ANY_HIT_LAUNCHES - a0),
+                          rt_sweep.ANY_HIT_LAUNCHES - a0))
+        if i == 0:
+            first = (color, depth)
+    check(all(p == (1, 1) for p in per_frame),
+          f"ray-traced sky frame: K4 launches per frame {per_frame}")
+    twin = render_frame_raytraced(rt_eng.scene, rt_u(0), RenderParams(w, h),
+                                  cluster_cap=RT_CAP,
+                                  sweep=rt_sweep.rt_sweep_plain)
+    n_c, n_d, n_rgb = _frame_diff(first, twin)
+    rt_miss = first[1] == DEPTH_CLEAR
+    rt_sky = sky_share(first, clear)
+    rt_prof = frame_kernel_ms(lambda: rt_eng.render(rt_u(0)), 3)
+    casts = capture_sweeps(lambda sw: render_frame_raytraced(
+        rt_eng.scene, rt_u(0), RenderParams(w, h), cluster_cap=RT_CAP,
+        sweep=sw))
+    check(len(casts) == 2, f"{len(casts)} K4 casts in the sky frame")
+    k4 = {}
+    for (args, kwargs), cast in zip(casts, ("nearest", "any-hit")):
+        tested = torch.zeros_like(args[3])
+        outs = rt_sweep.rt_sweep(*args, **kwargs, tested=tested)
+        k4[cast] = dict(
+            sweep_bound_tested(args, outs, tested),
+            ms=cuda_ms(lambda: rt_sweep.rt_sweep(*args, **kwargs),
+                       KERNEL_RUNS))
+    log(f"phase 20 ray-traced bench frame @{w}x{h} under the sky, "
+        f"cluster_cap={RT_CAP}: {RT_SKY_FRAMES} frames, K4 launches a "
+        f"frame {per_frame[0][0]} nearest + {per_frame[0][1]} any-hit, "
+        f"frames {', '.join(f'{t:.1f}' for t in rt_ms)} ms; profiled: "
+        f"kernels {rt_prof['kernels']:.3f} ms a frame, K4 "
+        f"{rt_prof['K4']:.3f} ms, {rt_prof['launches']:.0f} launches; K4 "
+        + "; ".join(f"{c} {b['ms']:.3f} ms (median of {KERNEL_RUNS}), "
+                    f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+                    for c, b in k4.items())
+        + f"; the sky on {rt_sky:.4f} of {int(rt_miss.sum())} missed "
+        f"pixels; frame 0 vs K4's twin: {n_c} pixels differ > 1e-5 in "
+        f"color, {n_d} in depth, {n_rgb} in to_rgb8 [{card}]")
+    limit = FRAME_COVERED_MISMATCH_MAX * w * h
+    check(max(n_c, n_d, n_rgb) <= limit, "ray-traced sky frame vs twin")
+    check(rt_sky > 0.9, f"the sky shows on {rt_sky:.3f} of missed pixels")
+    del rt_eng, first, twin, casts
+
+    from softwarerenderer_tpu_torch.ops.sky import irradiance_panorama
+    env = {"env_panorama": pano, "env_irradiance": irradiance_panorama(pano)}
+    small = SMALL_ROUTES_SIZE
+    card_f = [x.cpu() for x in pbr_frame(device, small, env)]
+    cpu_f = pbr_frame("cpu", small, env)
+    bare_f = pbr_frame("cpu", small)
+    n_c, n_d, n_rgb = _frame_diff(card_f, cpu_f)
+    err = float((card_f[0] - cpu_f[0]).abs().max())
+    n_cov = int((cpu_f[1] > -3e38).sum())
+    lit = int(((cpu_f[0] - bare_f[0]).abs().amax(-1) > 1e-3).sum())
+    log(f"phase 20 PBR frame with env_panorama and env_irradiance "
+        f"@{small[0]}x{small[1]}, card vs CPU: of {n_cov} covered pixels "
+        f"({lit} changed by the environment) {n_c} differ > 1e-5 in color "
+        f"(max abs diff {err:.3g}), {n_d} in depth, {n_rgb} in to_rgb8 "
+        f"[{card}]")
+    check(lit > 0.5 * n_cov, "the environment terms changed too little")
+    check(n_c <= PBR_ENV_CPU_MISMATCH_MAX * n_cov and err <= 1e-3
+          and n_d == 0, f"PBR environment frame card vs CPU: {n_c} color, "
+          f"{n_d} depth pixels differ")
 
 
 def build_kernels() -> None:
@@ -2344,6 +2563,9 @@ def main() -> int:
     # ---- phases 18-19: lit and shadowed frames -------------------------
     check_lit_frames(card)
     check_shadowed_frames(card)
+
+    # ---- phase 20: the image-quality frames ----------------------------
+    check_image_quality_frames(card)
 
     def entry(name, source, replaces, launches, numbers):
         return {"name": name, "route": "cuda",

@@ -11,6 +11,8 @@ from softwarerenderer_tpu_torch.engine.renderer import (  # noqa: F401
     render_frame_with_shadows,
     render_frame_with_spot_shadow,
     scene_fragment_shader,
+    scene_fragment_shader_bilinear,
+    scene_fragment_shader_trilinear,
     scene_vertex_shader,
     to_rgb8,
 )

@@ -25,9 +25,16 @@ picks as JAX's ``_dispatch`` does:
     other monotone depth tests and the brute force with ``binned=False``
     (which ignores ``kbuffer``, as JAX's does);
 
-and ``to_rgb8`` for present.  The vertex and fragment shaders are
-arguments, the game's by default; ``fb=(color, depth)`` seeds the
-framebuffer, so passes stack.  ``render_frame_with_shadows``,
+and ``to_rgb8`` for present.  Around the route, as in JAX's
+render_frame: ``ssaa=f`` renders the frame at f× in each axis and
+box-filters it down; the post chain (``params.post_fx``: the sky
+panorama, SSAO, bloom, tone mapping, FXAA and callable stages, in the
+order given) runs on the finished frame; ``use_mipmaps`` picks each
+triangle's mip (two and a fraction for "trilinear") in ``frame_setup``.
+The vertex and fragment shaders are arguments, the game's by default
+(``scene_fragment_shader_bilinear`` and ``_trilinear`` filter the
+atlas); ``fb=(color, depth)`` seeds the framebuffer, so passes stack.
+``render_frame_with_shadows``,
 ``render_frame_with_point_shadows`` and ``render_frame_with_spot_shadow``
 run one or six depth-only light passes (ops.shadows) and then
 render_frame with the maps in the uniforms.  PyTorch runs it eagerly; the
@@ -51,9 +58,12 @@ from softwarerenderer_tpu_torch.config import (BlendMode, DebugMode,
                                                DepthTest, RenderParams)
 from softwarerenderer_tpu_torch import shaders
 from softwarerenderer_tpu_torch.models.convert import scene_to_torch
-from softwarerenderer_tpu_torch.ops import (culling, debugviz, forward,
-                                            geometry, kbuffer, lighting,
-                                            raster, shadows)
+from softwarerenderer_tpu_torch.models.scene import MAX_MIP_LEVELS
+from softwarerenderer_tpu_torch.ops import (bloom, culling, debugviz,
+                                            forward, fxaa, geometry,
+                                            kbuffer, lighting, raster,
+                                            shadows, sky, ssao, tonemap)
+from softwarerenderer_tpu_torch.ops import texture as tex_ops
 from softwarerenderer_tpu_torch.ops import tile_raster
 from softwarerenderer_tpu_torch.utils import mathlib as ml
 
@@ -79,6 +89,43 @@ def scene_fragment_shader(frag: Dict, uniforms: Dict) -> torch.Tensor:
 scene_fragment_shader.varyings = ("color", "uv", "data.world_normal")
 scene_fragment_shader.tri_extras = ("tex_oy", "tex_ox", "tex_h", "tex_w")
 scene_fragment_shader.alpha_sources = ("color", "texture")
+
+
+def scene_fragment_shader_bilinear(frag: Dict,
+                                   uniforms: Dict) -> torch.Tensor:
+    """scene_fragment_shader with bilinear filtering of the texture's
+    base level, its region looked up by tex_id in the atlas tables (as
+    JAX's bilinear shader does, with or without use_mipmaps)."""
+    tex = tex_ops.sample_atlas_bilinear(
+        uniforms["atlas_data"], uniforms["atlas_offsets"],
+        uniforms["atlas_sizes"], frag["tri"]["tex_id"], frag["uv"])
+    return shaders.lit_and_fogged(frag, uniforms, tex)
+
+
+def scene_fragment_shader_trilinear(frag: Dict,
+                                    uniforms: Dict) -> torch.Tensor:
+    """Trilinear filtering: bilinear in each of the triangle's two mip
+    regions (tex_* and tex_*2), mixed by its 8-bit mip fraction; for
+    RenderParams(use_mipmaps="trilinear")."""
+    tri, atlas, uv = frag["tri"], uniforms["atlas_data"], frag["uv"]
+    t0 = tex_ops.sample_atlas_region_bilinear(
+        atlas, tri["tex_oy"], tri["tex_ox"], tri["tex_h"], tri["tex_w"], uv)
+    t1 = tex_ops.sample_atlas_region_bilinear(
+        atlas, tri["tex_oy2"], tri["tex_ox2"], tri["tex_h2"], tri["tex_w2"],
+        uv)
+    a = tri["mip_frac256"].to(F32)[..., None] / 256.0
+    return shaders.lit_and_fogged(frag, uniforms, t0 + (t1 - t0) * a)
+
+
+scene_fragment_shader_bilinear.varyings = scene_fragment_shader.varyings
+scene_fragment_shader_bilinear.tri_extras = (
+    "tex_id", "tex_oy", "tex_ox", "tex_h", "tex_w")
+scene_fragment_shader_bilinear.alpha_sources = ("color", "texture")
+scene_fragment_shader_trilinear.varyings = scene_fragment_shader.varyings
+scene_fragment_shader_trilinear.tri_extras = (
+    "tex_oy", "tex_ox", "tex_h", "tex_w",
+    "tex_oy2", "tex_ox2", "tex_h2", "tex_w2", "mip_frac256")
+scene_fragment_shader_trilinear.alpha_sources = ("color", "texture")
 
 
 def opaque_tri_flags(scene: Dict[str, torch.Tensor], vin: Dict,
@@ -190,10 +237,24 @@ def device_uniforms(uniforms: Dict, width: int, height: int,
     host = dict(uniforms, view=view.numpy(), projection=proj.numpy())
     f32 = {k: np.asarray(host[k], np.float32).reshape(shape)
            for k, shape in _DEVICE_UNIFORMS}
-    groups, u = {np.dtype(np.float32): f32}, {}
+    return _upload({**f32, **{k: v for k, v in uniforms.items()
+                             if k not in f32 and k not in _HOST_UNIFORMS}},
+                   device)
+
+
+def post_uniforms(uniforms: Dict, device) -> Dict[str, torch.Tensor]:
+    """The caller's uniforms as the post chain reads them (a callable
+    stage gets them as its third argument): every key but mesh_visible
+    as device tensors, host arrays in one copy a dtype."""
+    return _upload({k: v for k, v in uniforms.items()
+                    if k != "mesh_visible"}, device)
+
+
+def _upload(uniforms: Dict, device) -> Dict[str, torch.Tensor]:
+    """Host arrays as device tensors in one host->device copy a dtype;
+    tensors and dicts move as they are."""
+    groups, u = {}, {}
     for k, v in uniforms.items():
-        if k in f32 or k in _HOST_UNIFORMS:
-            continue
         if isinstance(v, (torch.Tensor, dict)):
             u[k] = _to_device(v, device)
         else:
@@ -222,39 +283,67 @@ MATERIAL_TRI_EXTRAS = {
     "mat_er256": ("mesh_emissive", 0), "mat_eg256": ("mesh_emissive", 1),
     "mat_eb256": ("mesh_emissive", 2), "mat_br256": ("base_color", 0),
     "mat_bg256": ("base_color", 1), "mat_bb256": ("base_color", 2)}
+# The mip regions use_mipmaps packs: the region of the triangle's mip
+# (tex_* then name it), and for "trilinear" the next mip's and the 8-bit
+# fraction between the two.
+MIP_TRI_EXTRAS = ("tex_oy2", "tex_ox2", "tex_h2", "tex_w2", "mip_frac256")
 PACKED_TRI_EXTRAS = ("tex_id", "mesh_id", "tex_oy", "tex_ox", "tex_h",
-                     "tex_w") + tuple(MATERIAL_TRI_EXTRAS)
-# Uniforms of features not ported: the sky panorama of the ray-traced
-# route and the PBR shader's environment terms (ops.sky.sample_panorama).
-_UNSUPPORTED_UNIFORMS = ("sky_panorama", "env_panorama", "env_irradiance")
+                     "tex_w") + tuple(MATERIAL_TRI_EXTRAS) + MIP_TRI_EXTRAS
+
+
+def enabled_post_fx(params: RenderParams, uniforms: Dict) -> tuple:
+    """The params.post_fx entries whose switches are on, in order (JAX's
+    _enabled_post_fx): "sky" when uniforms hold "sky_panorama", "ssao",
+    "bloom", "tonemap" and "fxaa" by their flags, callables always.  An
+    unknown name, or a switch that is on while its name is absent, is a
+    ValueError."""
+    on = {"sky": "sky_panorama" in uniforms,
+          "ssao": bool(params.ssao),
+          "bloom": bool(params.bloom),
+          "tonemap": bool(params.tonemap),
+          "fxaa": bool(params.fxaa)}
+    names = [f for f in params.post_fx if isinstance(f, str)]
+    unknown = [f for f in names if f not in on]
+    if unknown:
+        raise ValueError(f"unknown post_fx entries {unknown!r}; "
+                         f"valid: {sorted(on)} or a callable "
+                         "(color, depth, uniforms) -> (color, depth)")
+    for f in on:
+        if on[f] and f not in names:
+            raise ValueError(f"post-fx {f!r} is enabled but absent from "
+                             f"params.post_fx {params.post_fx!r}")
+    return tuple(f for f in params.post_fx
+                 if not isinstance(f, str) or on[f])
 
 
 def check_supported(params: RenderParams, scene_keys=(), uniforms=None,
                     fragment_shader: Optional[Callable] = None):
     """Raise NotImplementedError for anything outside the routes this
     package renders (a fragment shader whose `tri_extras` names a channel
-    frame_setup does not pack among them), and JAX's ValueError for
-    kbuffer_stats without a binned deferred K-buffer."""
-    if params.kbuffer_stats and (params.kbuffer <= 1 or not (
+    frame_setup does not pack among them), and JAX's ValueErrors: an
+    unknown or absent post_fx entry, kbuffer_stats without a binned
+    deferred K-buffer, kbuffer_stats or active_cap_stats with ssaa or
+    post-FX (their stats are a third return value the wrappers do not
+    pass on)."""
+    wrapped = params.ssaa > 1 or bool(enabled_post_fx(params,
+                                                      uniforms or {}))
+    if params.kbuffer_stats and (wrapped or params.kbuffer <= 1 or not (
             params.binned and params.deferred)):
         raise ValueError("kbuffer_stats needs kbuffer > 1 on the binned "
-                         "deferred route (the stats dict is the K-buffer's "
-                         "third return value)")
+                         "deferred route and no ssaa/post-fx (the stats "
+                         "dict is the K-buffer's third return value)")
+    if params.active_cap_stats and wrapped:
+        raise ValueError("active_cap_stats needs no ssaa/post-fx (the "
+                         "stats dict is a third return value)")
     bad = [name for name, off in (
-        ("ssaa", params.ssaa != 1),
-        ("ssao", params.ssao), ("bloom", params.bloom),
-        ("tonemap", params.tonemap is not None), ("fxaa", params.fxaa),
-        ("post_fx callables", any(callable(f) for f in params.post_fx)),
         ("active_cap", bool(params.active_cap)),
         ("active_cap_stats", params.active_cap_stats),
         ("geom_cap", bool(params.geom_cap)),
         ("pair_cap", bool(params.pair_cap)),
         ("global_cap", bool(params.global_cap)),
-        ("use_mipmaps", bool(params.use_mipmaps)),
         ("shade_rate", params.shade_rate != 1)) if off]
     bad += [f"scene key {k}" for k in scene_keys
             if k.startswith(_UNSUPPORTED_SCENE_PREFIXES)]
-    bad += [k for k in _UNSUPPORTED_UNIFORMS if k in (uniforms or ())]
     bad += [f"tri_extras channel {k}"
             for k in getattr(fragment_shader, "tri_extras", None) or ()
             if k not in PACKED_TRI_EXTRAS]
@@ -267,6 +356,53 @@ def quantize256(x: torch.Tensor) -> torch.Tensor:
     """A material value as an 8-bit-step int32 channel: round(x · 256),
     half to even as JAX's, clipped to [0, 1020]."""
     return torch.round(x.to(F32) * 256.0).clamp(0, 1020).to(torch.int32)
+
+
+def _mip_index(x: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """int32(x) clipped to [0, hi], x >= 0 or NaN: XLA's cast maps NaN to
+    0 and saturates, torch's gives the CPU's and CUDA's own values, so x
+    is clipped as a float first (NaN as 0) and cast after."""
+    return torch.minimum(torch.nan_to_num(x, nan=0.0).clamp(min=0.0),
+                         hi.to(F32)).to(torch.int32)
+
+
+def mip_regions(scene: Dict[str, torch.Tensor], inv_area: torch.Tensor,
+                tid2: torch.Tensor, trilinear: bool) -> Dict:
+    """JAX render_frame's per-triangle LOD, per clip-fan slot: lod = 0.5 ·
+    log2(max(|uv cross| · texels · |inv_area|, 1)), the texel-per-pixel
+    ratio of the slot's own screen area; the region of mip int(lod + 0.5),
+    or with `trilinear` the regions of mips floor(lod) and the next one
+    (tex_*2) and the fraction round(frac · 256) between them.  A slot whose
+    lod + 0.5 lands within an ulp of an integer may pick the neighbouring
+    mip on another device (log2 differs by an ulp between libraries)."""
+    uvb = scene["uv"].to(F32)
+    idx = scene["indices"].reshape(-1, 3).long()
+    e1 = uvb[idx[:, 1]] - uvb[idx[:, 0]]
+    e2 = uvb[idx[:, 2]] - uvb[idx[:, 0]]
+    uv_cross = (e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]).abs()
+    asiz = scene["atlas_sizes"]
+    texels = (asiz[:, 0] * asiz[:, 1]).to(F32)[scene["tri_texture_id"].long()]
+    uv2 = (uv_cross * texels).repeat_interleave(2)
+    lod = 0.5 * torch.log2((uv2 * inv_area.abs()).clamp(min=1.0))
+    top = scene["atlas_n_mips"].long()[tid2] - 1
+    moff = scene["atlas_mip_offsets"].reshape(-1, 2)
+    msiz = scene["atlas_mip_sizes"].reshape(-1, 2)
+
+    def region(mip, suffix=""):
+        flat = tid2 * MAX_MIP_LEVELS + mip
+        return {"tex_oy" + suffix: moff[:, 0][flat],
+                "tex_ox" + suffix: moff[:, 1][flat],
+                "tex_h" + suffix: msiz[:, 0][flat],
+                "tex_w" + suffix: msiz[:, 1][flat]}
+    if not trilinear:
+        return region(_mip_index(lod + 0.5, top))
+    floor = torch.floor(lod)
+    mip0 = _mip_index(floor, top)
+    mip1 = torch.minimum(mip0 + 1, top.to(torch.int32))
+    frac = torch.where(mip1 > mip0, lod - floor, 0.0)
+    frac256 = _mip_index(torch.round(frac * 256.0),
+                         torch.full_like(top, 255))
+    return {**region(mip0), **region(mip1, "2"), "mip_frac256": frac256}
 
 
 def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
@@ -296,7 +432,9 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
 
     with record_function("frame.geometry"):
         u.update(model=culling.model_matrices_per_vertex(scene),
-                 atlas_data=scene["atlas_data"])
+                 atlas_data=scene["atlas_data"],
+                 atlas_offsets=scene["atlas_offsets"],
+                 atlas_sizes=scene["atlas_sizes"])
         vin = {k: scene[k] for k in ("position", "uv", "normal", "color")}
         tris = geometry.build_triangles(
             vertex_shader, vin, scene["indices"], u, width=W, height=H,
@@ -322,6 +460,9 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
                 if keep is None or k in keep:
                     t = scene[table] if col is None else scene[table][:, col]
                     per_tri[k] = quantize256(t[mid2])
+        if params.use_mipmaps and "atlas_mip_offsets" in scene:
+            per_tri.update(mip_regions(scene, tris["inv_area"], tid2,
+                                       params.use_mipmaps == "trilinear"))
         if keep is not None:
             per_tri = {k: v for k, v in per_tri.items() if k in keep}
         if params.kbuffer > 1 and params.kbuffer_short_circuit:
@@ -355,10 +496,52 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
     scene's device, and with params.kbuffer_stats a third value,
     {"kbuffer_saturated_px": n}.  The route is the module docstring's.
 
+    With params.ssaa = f > 1 the frame renders at f× in each axis (the
+    fb seeds replicated f × f) and is box-filtered down, depth taken at
+    every f-th sample; the post chain (enabled_post_fx) then runs on
+    the supersampled frame.
+
     fold: the tile fold the tile routes run, tile_raster.tile_fold by
     default; tile_raster.tile_fold_plain renders the same frame through
     the plain twins."""
     check_supported(params, scene.keys(), uniforms, fragment_shader)
+    shaders_kw = dict(vertex_shader=vertex_shader,
+                      fragment_shader=fragment_shader, fold=fold)
+    dev = scene["position"].device
+    if params.ssaa > 1:
+        f = params.ssaa
+        hi = params.replace(width=params.width * f,
+                            height=params.height * f, ssaa=1)
+        if fb is not None:
+            fb = tuple(torch.as_tensor(x, dtype=F32, device=dev)
+                       .repeat_interleave(f, 0).repeat_interleave(f, 1)
+                       for x in fb)
+        color, depth = render_frame(scene, uniforms, hi, fb=fb, **shaders_kw)
+        with record_function("frame.ssaa_resolve"):
+            H, W = params.height, params.width
+            n = torch.full((), float(f * f), device=dev)
+            color = color.reshape(H, f, W, f, 4).sum((1, 3)) / n
+            return color, depth[::f, ::f]
+    chain = enabled_post_fx(params, uniforms)
+    if chain:
+        # The base frame with every effect stripped (callable stages too,
+        # or it would recurse); in the sky branch the shaders still see
+        # the panorama as env_panorama (PBR's reflections).
+        base = params.replace(
+            tonemap=None, bloom=False, ssao=False, fxaa=False,
+            post_fx=tuple(f for f in params.post_fx if isinstance(f, str)))
+        u2 = uniforms
+        if "sky" in chain:
+            u2 = {k: v for k, v in uniforms.items() if k != "sky_panorama"}
+            u2["env_panorama"] = uniforms["sky_panorama"]
+        color, depth = render_frame(scene, u2, base, fb=fb, **shaders_kw)
+        pu = post_uniforms(uniforms, dev)
+        for fx in chain:
+            with record_function("post.callable" if callable(fx)
+                                 else f"post.{fx}"):
+                color, depth = apply_post_fx(fx, color, depth, uniforms, pu,
+                                             params)
+        return color, depth
     f = frame_setup(scene, uniforms, params, vertex_shader, fragment_shader,
                     fb)
     args = (f["tris"], fragment_shader, f["uniforms"], params,
@@ -389,6 +572,30 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
         return tile_raster.render_tile(*args, per_tri_extra=f["per_tri"],
                                        fold=fold)
     return raster.render_deferred(*args, per_tri_extra=f["per_tri"])
+
+
+def apply_post_fx(fx, color: torch.Tensor, depth: torch.Tensor,
+                  uniforms: Dict, post_u: Dict[str, torch.Tensor],
+                  params: RenderParams):
+    """One post stage over the frame (JAX's _apply_post_fx): a callable
+    gets (color, depth, post_u) and may return color alone; the named
+    stages read the device uniforms post_u, the sky its camera from the
+    host uniforms."""
+    if callable(fx):
+        out = fx(color, depth, post_u)
+        return out if isinstance(out, tuple) else (out, depth)
+    if fx == "sky":
+        return sky.composite_sky(color, depth, uniforms,
+                                 post_u["sky_panorama"])
+    if fx == "ssao":
+        return ssao.apply_ssao(color, depth, post_u)
+    if fx == "bloom":
+        return bloom.apply_bloom(
+            color, threshold=post_u.get("bloom_threshold", 0.8),
+            strength=post_u.get("bloom_strength", 0.7)), depth
+    if fx == "fxaa":
+        return fxaa.apply_fxaa(color), depth
+    return tonemap.apply_tonemap(color, params.tonemap, post_u), depth
 
 
 def render_frame_with_shadows(scene: Dict[str, torch.Tensor], uniforms: Dict,

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from softwarerenderer_tpu_torch.models.scene import Light, LightType
+from softwarerenderer_tpu_torch.ops import sky
 from softwarerenderer_tpu_torch.shaders import (atlas_sample, fog_factor,
                                                 smoothstep01)
 from softwarerenderer_tpu_torch.utils import mathlib as ml
@@ -157,8 +158,11 @@ def pbr_scene_fragment_shader(frag: Dict, uniforms: Dict) -> torch.Tensor:
     Blinn-Phong specular with a roughness-driven exponent, F0 between
     dielectric 0.04 and the albedo by metalness, emissive added to the
     light, then fog.  The per-triangle 8-bit channels ride the integer
-    extras.  Without env_panorama / env_irradiance (refused by
-    engine.check_supported)."""
+    extras.  With uniforms["env_panorama"] (the sky panorama, which
+    render_frame's sky stage passes under that name) metals mirror it
+    along the reflected view ray, faded by roughness; with
+    uniforms["env_irradiance"] (sky.irradiance_panorama) the normal's
+    irradiance lights the diffuse lobe."""
     tri = frag["tri"]
     m = _q256(tri, "mat_m256")[..., None]
     r = _q256(tri, "mat_r256")
@@ -188,6 +192,14 @@ def pbr_scene_fragment_shader(frag: Dict, uniforms: Dict) -> torch.Tensor:
     lit = (albedo * (1.0 - m) * (0.1 + 0.9 * diffuse[..., None])
            + f0 * (spec * ndl)[..., None]) \
         * uniforms["light_color"][..., :3] + emissive
+    if "env_panorama" in uniforms:
+        refl = 2.0 * ml.dot(n, v)[..., None] * n - v
+        env = sky.sample_panorama(uniforms["env_panorama"], refl)
+        gloss = (1.0 - r).clamp(0.0, 1.0)[..., None] * m
+        lit = lit + f0 * env[..., :3] * gloss
+    if "env_irradiance" in uniforms:
+        irr = sky.sample_panorama(uniforms["env_irradiance"], n)
+        lit = lit + albedo * (1.0 - m) * irr[..., :3]
 
     fog_rgb = uniforms["fog_color"][..., :3]
     rgb = fog_rgb + (lit - fog_rgb) * fog_factor(frag, uniforms)[..., None]

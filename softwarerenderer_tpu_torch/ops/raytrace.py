@@ -8,7 +8,8 @@ ABI as the raster path (uv, color and world normal interpolated at the
 hit's barycentrics, the triangle's atlas region); secondary rays toward
 the light give exact shadows.  Outputs follow the raster conventions:
 depth = -(ndcZ + 1) / 2 at the hit, DEPTH_CLEAR and the clear color on a
-miss.
+miss, or with uniforms["sky_panorama"] the panorama along the ray (the
+primary ray, or the mirror ray of a reflection that misses).
 
 Two routes, as in JAX:
 
@@ -193,10 +194,6 @@ def trace_pixel_rows(scene: Dict[str, torch.Tensor], uniforms: Dict,
     from softwarerenderer_tpu_torch.engine.renderer import (
         device_uniforms, scene_fragment_shader)
 
-    if "sky_panorama" in uniforms:
-        raise NotImplementedError("not implemented in "
-                                  "softwarerenderer_tpu_torch yet: "
-                                  "['sky_panorama']")
     fragment_shader = fragment_shader or scene_fragment_shader
     h, W = dirs.shape[0], dirs.shape[1]
     dev = dirs.device
@@ -223,14 +220,17 @@ def trace_pixel_rows(scene: Dict[str, torch.Tensor], uniforms: Dict,
         S = max(1, shadow_samples)
         n_samples = torch.full((), S, dtype=F32, device=dev)
 
-    def background(n):
-        return u["clear_color"].expand(n, 4)
+    def background(d):
+        """What a ray along the (..., 3) directions d sees on a miss."""
+        if "sky_panorama" in u:
+            return sky.sample_panorama(u["sky_panorama"], d)
+        return u["clear_color"].expand(d.shape[:-1] + (4,))
 
-    def mix_reflection(rgba, rh):
+    def mix_reflection(rgba, rh, rdir):
         rrgba, _ = _shade_hits(rh, world, u, fragment_shader,
                                rt_white_colors)
         refl = torch.where(rh["hit"][:, None], rrgba,
-                           background(rrgba.shape[0]))
+                           background(rdir.reshape(-1, 3)))
         return torch.cat([rgba[..., :3] + (refl[..., :3] - rgba[..., :3])
                           * refl_amt, rgba[..., 3:]], -1)
 
@@ -252,8 +252,7 @@ def trace_pixel_rows(scene: Dict[str, torch.Tensor], uniforms: Dict,
 
     with record_function("rt.composite"):
         covered = depth != DEPTH_CLEAR
-        color = torch.where(covered[..., None], color,
-                            u["clear_color"].expand(h, W, 4))
+        color = torch.where(covered[..., None], color, background(dirs))
     return color, depth
 
 
@@ -278,7 +277,7 @@ def _brute_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
             rdir = d - 2.0 * ml.dot(d, n)[:, None] * n
         rh = cast(off, rdir)
         with record_function("rt.shade"):
-            rgba = mix_reflection(rgba, rh)
+            rgba = mix_reflection(rgba, rh, rdir)
     if shadows:
         occl = torch.zeros(d.shape[0], dtype=F32, device=d.device)
         for s in range(S):
@@ -339,7 +338,7 @@ def _bundle_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
             rdir = d_t - 2.0 * ml.dot(d_t, n)[..., None] * n
         _, rh = cast_nearest(off, rdir)
         with record_function("rt.shade"):
-            rgba = mix_reflection(rgba, rh)
+            rgba = mix_reflection(rgba, rh, rdir)
     if shadows:
         with record_function("rt.shade"):
             sdirs = torch.stack([_shadow_dir(i_t, s, *light_basis)

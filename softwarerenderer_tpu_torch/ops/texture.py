@@ -1,10 +1,15 @@
-"""Nearest/repeat atlas sampling (Texture.cs:42-63).
+"""Atlas sampling: nearest/repeat (Texture.cs:42-63) and bilinear.
 
-Counterpart of ``_wrap_uv``, ``unpack_rgba8``, ``sample_nearest`` and
-``sample_atlas_region`` in ``softwarerenderer_tpu/ops/texture.py``: u = frac(u) (+1 if negative),
-x = int(u·w) mod w, inside a per-pixel atlas region (oy, ox, h, w)
-resolved per triangle.  Integer wrap is ``torch.remainder`` (floor mod,
-like ``jnp`` and Python ``%``), never ``fmod``.
+Counterpart of ``_wrap_uv``, ``unpack_rgba8``, ``sample_nearest``,
+``sample_atlas_region`` and the bilinear samplers
+(``sample_atlas_region_bilinear``, ``sample_atlas_bilinear``,
+``sample_bilinear``) in ``softwarerenderer_tpu/ops/texture.py``: u =
+frac(u) (+1 if negative), x = int(u·w) mod w, inside a per-pixel atlas
+region (oy, ox, h, w) resolved per triangle or looked up by texture id.
+Bilinear filtering puts texel centres at half-integers and wraps both
+neighbours.  Integer wrap is ``torch.remainder`` (floor mod, like
+``jnp`` and Python ``%``), never ``fmod``.  An atlas is RGBA8 rows (the
+packed scene's) or float32 rows (a panorama may be either).
 
 The host (numpy) helpers that build textures and the packed atlas,
 ``quantize_u8_grid``, ``pack_rgba8``, ``make_texture`` and
@@ -52,14 +57,89 @@ def sample_atlas_region(atlas: torch.Tensor, oy, ox, h, w,
 
     Pixels with no triangle carry h = w = 0; their fetch is clamped into
     the atlas and the caller discards it."""
-    ah, aw = atlas.shape[0], atlas.shape[1]
+    aw = atlas.shape[1]
     h = h.clamp(min=1)
     w = w.clamp(min=1)
     st = wrap_uv(uv)
     x = torch.remainder((st[..., 0] * w.to(torch.float32)).to(torch.int32), w)
     y = torch.remainder((st[..., 1] * h.to(torch.float32)).to(torch.int32), h)
-    idx = ((oy + y) * aw + (ox + x)).long().clamp(0, ah * aw - 1)
-    return unpack_rgba8(atlas.reshape(ah * aw, atlas.shape[-1])[idx])
+    return atlas_fetch(atlas, (oy + y) * aw + (ox + x))
+
+
+def atlas_fetch(atlas: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One row gather a texel: `idx` flat texel indices into the (AH, AW,
+    C) atlas, clamped into it; u8 rows as bytes/255, other rows as
+    float32."""
+    ah, aw = atlas.shape[0], atlas.shape[1]
+    rows = atlas.reshape(ah * aw, atlas.shape[-1])[
+        idx.long().clamp(0, ah * aw - 1)]
+    if rows.dtype == torch.uint8:
+        return unpack_rgba8(rows)
+    return rows.to(torch.float32)
+
+
+def _bilinear(fetch, h, w, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear filtering with repeat wrap over a (h, w) texture (ints or
+    int tensors broadcast with uv's leading shape), texel centres at
+    half-integers: fetch(y, x) gives the texels at integer coordinates.
+    The cast to int32 follows the floor, as in JAX; the wrap brings any
+    cast (NaN's included) back into the texture, where fetch clamps."""
+    st = wrap_uv(uv)
+    wf = w.to(torch.float32) if isinstance(w, torch.Tensor) else float(w)
+    hf = h.to(torch.float32) if isinstance(h, torch.Tensor) else float(h)
+    fx = st[..., 0] * wf - 0.5
+    fy = st[..., 1] * hf - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    tx = (fx - x0)[..., None]
+    ty = (fy - y0)[..., None]
+    x0i = torch.remainder(x0.to(torch.int32), w)
+    y0i = torch.remainder(y0.to(torch.int32), h)
+    x1i = torch.remainder(x0i + 1, w)
+    y1i = torch.remainder(y0i + 1, h)
+    c00 = fetch(y0i, x0i)
+    c10 = fetch(y0i, x1i)
+    c01 = fetch(y1i, x0i)
+    c11 = fetch(y1i, x1i)
+    top = c00 + (c10 - c00) * tx
+    bot = c01 + (c11 - c01) * tx
+    return top + (bot - top) * ty
+
+
+def sample_atlas_region_bilinear(atlas: torch.Tensor, oy, ox, h, w,
+                                 uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear/repeat sample inside each pixel's atlas region (oy, ox,
+    h, w), int32 per pixel: the trilinear shader's fetch, one region a mip,
+    and the panorama's (a region of the whole image).  Pixels with no
+    triangle (h = w = 0) fetch a clamped texel the caller discards."""
+    aw = atlas.shape[1]
+    h = h.clamp(min=1)
+    w = w.clamp(min=1)
+    return _bilinear(lambda y, x: atlas_fetch(atlas, (oy + y) * aw + (ox + x)),
+                     h, w, uv)
+
+
+def sample_atlas_bilinear(atlas: torch.Tensor, offsets: torch.Tensor,
+                          sizes: torch.Tensor, tex_id: torch.Tensor,
+                          uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear/repeat sample inside texture `tex_id`'s atlas region,
+    looked up in the (N, 2) offsets and sizes tables (the bilinear
+    shader's fetch).  The JAX package looks the region up by a one-hot
+    matmul on its device, in float32, exact for these integers; here it
+    is an index."""
+    tid = tex_id.long().clamp(0, offsets.shape[0] - 1)
+    off, size = offsets[tid].to(torch.int32), sizes[tid].to(torch.int32)
+    return sample_atlas_region_bilinear(atlas, off[..., 0], off[..., 1],
+                                        size[..., 0], size[..., 1], uv)
+
+
+def sample_bilinear(texture: Dict, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear/repeat sample of one texture's data (h, w, C) at uv
+    (..., 2); the texels as stored."""
+    data = texture["data"]
+    h, w = data.shape[0], data.shape[1]
+    flat = data.reshape(h * w, data.shape[-1])
+    return _bilinear(lambda y, x: flat[(y * w + x).long()], h, w, uv)
 
 
 # ---------------------------------------------------------------------------

@@ -9,12 +9,16 @@ host layer (numpy, no JAX).
     lights, the lit shaders) and 5 (1,100 cubes) of
     ``bench.config_workload`` at ``scripts/make_goldens.py``'s sizes, and
     ``BENCH_SIZES``, bench.py's own sizes of configs 3 and 5;
+  * ``sky_panorama(seed)``: an RGBA8 equirect sky made from a seed, for
+    the image-quality frames;
   * ``translucent_scene``: the bench soup with six alpha-0.5 glass panes
     (``scripts/profile_translucent.py:52-63``), the K-buffer workload;
   * ``kbuffer_golden_frame``, ``wireframe_golden_frame``,
-    ``config4_golden_frame`` and ``shadow_golden_frame(name)``:
-    ``scripts/make_goldens.py``'s feature_kbuffer, feature_wireframe,
-    config4 and feature_shadows / _point_shadows / _spot_shadows frames.
+    ``config4_golden_frame``, ``shadow_golden_frame(name)`` and
+    ``feature_golden_frame(name)``: ``scripts/make_goldens.py``'s
+    feature_kbuffer, feature_wireframe, config4, feature_shadows /
+    _point_shadows / _spot_shadows and feature_mips / _trilinear / _ssaa /
+    _ssao frames.
 
 Each equals its source array for array (tests/test_torch_package.py).
 """
@@ -189,6 +193,26 @@ def golden_shaders(n: int) -> Dict:
     return {}
 
 
+def sky_panorama(seed: int = 20, size=(256, 512)) -> np.ndarray:
+    """An (h, w, 4) RGBA8 equirect sky made from a seed: a blue gradient
+    to the zenith over a darker ground, with low-frequency seeded
+    clouds."""
+    h, w = size
+    rng = np.random.default_rng(seed)
+    v = (np.arange(h, dtype=np.float32) + 0.5) / h
+    sky = np.stack([0.35 + 0.4 * v, 0.55 + 0.3 * v, 0.95 - 0.1 * v], -1)
+    rows = np.where((v < 0.5)[:, None], sky, np.float32([0.3, 0.27, 0.22]))
+    coarse = rng.uniform(0, 1, (9, 17)).astype(np.float32)
+    clouds = np.stack([np.interp(np.linspace(0, 16, w), np.arange(17), r)
+                       for r in coarse])
+    clouds = np.stack([np.interp(np.linspace(0, 8, h), np.arange(9), c)
+                       for c in clouds.T], 1)
+    clouds = np.where((v < 0.5)[:, None], np.clip(clouds - 0.5, 0, 1), 0)
+    rgb = np.clip(rows[:, None, :] + clouds[..., None] * 0.8, 0, 1)
+    rgba = np.concatenate([rgb, np.ones((h, w, 1), np.float32)], -1)
+    return np.round(rgba * 255).astype(np.uint8)
+
+
 def translucent_scene() -> Dict[str, np.ndarray]:
     """The bench soup with the six alpha-0.5 glass panes of
     scripts/profile_translucent.py:52-63, as a packed scene."""
@@ -325,3 +349,70 @@ def shadow_golden_frame(name: str):
             functools.partial(fn, shadow_size=256),
             dict(vertex_shader=lighting.lit_scene_vertex_shader,
                  fragment_shader=fs))
+
+
+def _strips() -> List[scene_mod.MeshInstance]:
+    """24 16-unit floor strips receding from the camera, uv × 16 over a
+    64-texel 32-cell checkerboard: the mip goldens' scene."""
+    insts = []
+    for zi in range(24):
+        strip = primitives.plane(16.0)
+        strip["uv"] = strip["uv"] * np.float32(16.0)
+        insts.append(scene_mod.MeshInstance(
+            strip, ml.translation([0, -1, -8.0 - 16.0 * zi]),
+            texture=np.asarray(checkerboard(64, 32)["data"])))
+    return insts
+
+
+def feature_golden_frame(name: str):
+    """scripts/make_goldens.py's feature frame `name` at 320x240: "mips"
+    (receding checkered strips, use_mipmaps=True), "trilinear" (the same
+    strips, use_mipmaps="trilinear" and the trilinear shader), "ssaa" (a
+    floor and a turned cube, ssaa=4) or "ssao" (two grey cubes on a floor,
+    ssao=True).  Returns (packed scene, RenderParams, uniforms, shaders),
+    shaders the Engine keywords of the frame's shaders."""
+    from softwarerenderer_tpu_torch import engine
+    from softwarerenderer_tpu_torch.config import RenderParams
+    u = engine.default_frame_uniforms(320, 240)
+    shaders = {}
+    if name in ("mips", "trilinear"):
+        insts = _strips()
+        params = RenderParams(width=320, height=240, use_mipmaps={
+            "mips": True, "trilinear": "trilinear"}[name])
+        if name == "trilinear":
+            shaders = {"fragment_shader":
+                       engine.scene_fragment_shader_trilinear}
+        u["camera_position"] = np.float32([0, 0.5, 0])
+        u["far_clip"] = np.float32(2000.0)
+    elif name == "ssaa":
+        checker = np.asarray(checkerboard(32, 4)["data"])
+        insts = [scene_mod.MeshInstance(primitives.plane(20.0),
+                                        ml.translation([0, -1, 0]),
+                                        texture=checker),
+                 scene_mod.MeshInstance(
+                     primitives.cube(1.0),
+                     (ml.matrix_from_yaw_pitch_roll(
+                         np.float32(0.6), 0.3, 0.0)
+                      @ ml.translation([0, 0.2, -3.0])).astype(np.float32),
+                     texture=checker)]
+        params = RenderParams(width=320, height=240, ssaa=4)
+        u["camera_position"] = np.float32([0, 0.6, 1.5])
+    elif name == "ssao":
+        gray = np.asarray(checkerboard(
+            32, 4, (0.85, 0.85, 0.85, 1.0), (0.7, 0.7, 0.7, 1.0))["data"])
+        insts = [scene_mod.MeshInstance(primitives.plane(20.0),
+                                        ml.translation([0, -1, 0]),
+                                        texture=gray),
+                 scene_mod.MeshInstance(primitives.cube(1.4),
+                                        ml.translation([-0.9, -0.3, -4.0]),
+                                        texture=gray),
+                 scene_mod.MeshInstance(primitives.cube(0.9),
+                                        ml.translation([1.1, -0.55, -3.2]),
+                                        texture=gray)]
+        params = RenderParams(width=320, height=240, ssao=True)
+        u["camera_position"] = np.float32([0, 0.8, 0.0])
+        u["camera_rotation"] = np.asarray(
+            ml.quat_from_axis_angle([1.0, 0, 0], -0.25), np.float32)
+    else:
+        raise ValueError(f"no feature golden frame {name!r}")
+    return scene_mod.build_scene_buffers(insts), params, u, shaders

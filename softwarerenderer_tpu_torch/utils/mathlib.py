@@ -230,6 +230,14 @@ def matrix_from_quaternion(q) -> np.ndarray:
     ])
 
 
+def quat_from_axis_angle(axis, angle) -> np.ndarray:
+    """Quaternion.CreateFromAxisAngle: (axis · sin(angle / 2),
+    cos(angle / 2)), the axis taken as given."""
+    axis = np.asarray(axis, np.float32)
+    half = np.asarray(angle, np.float32) * np.float32(0.5)
+    return np.concatenate([axis * np.sin(half), np.cos(half)[None]], axis=-1)
+
+
 def quat_from_yaw_pitch_roll(yaw, pitch, roll) -> np.ndarray:
     """Quaternion.CreateFromYawPitchRoll (yaw about Y, pitch about X, roll
     about Z)."""

@@ -2,7 +2,8 @@
 
     python -m softwarerenderer_tpu_torch.utils.profiling [--frames N]
         [--width W] [--height H] [--kbuffer K | --raytrace CAP | --deferred
-        | --config 3|5 | --shadows directional|point|spot] [--out DIR]
+        | --config 3|5 | --shadows directional|point|spot
+        | --image-quality] [--out DIR]
 
 Renders the bench scene (``scenes.bench_scene()``) through ``Engine(scene,
 RenderParams(W, H), device="cuda")`` with ``scenes.camera_uniforms(u, i)``;
@@ -17,7 +18,12 @@ meshes under four lights, the lit shaders) or 5 (1,100 cubes) from
 ``scenes.golden_config``; with --shadows the directional, point or spot
 shadowed frame of ``scenes.shadow_golden_frame`` at the frame functions'
 map sizes (512, 6 x 256, 512), whose light passes show as
-``shadow.geometry`` and ``shadow.fold`` (K5).  Without --width and
+``shadow.geometry`` and ``shadow.fold`` (K5); with --image-quality the
+bench frame with ``ssaa=2`` (K1 folds twice the size in each axis),
+trilinear mips and the trilinear shader, SSAO, bloom, ACES and FXAA under
+``scenes.sky_panorama()``, whose post stages show as ``post.sky``,
+``post.ssao``, ``post.bloom``, ``post.tonemap`` and ``post.fxaa`` and the
+box filter as ``frame.ssaa_resolve``.  Without --width and
 --height a frame is 1920x1080, config 5 bench.py's 3840x2160.  It prints:
 
   * the scene's statistics at frame 0: for a raster frame its binning
@@ -58,7 +64,9 @@ SPANS = ("frame.camera_cull", "frame.geometry", "frame.extras",
          "rt.world", "rt.accel", "rt.prep", "rt.sweep_nearest",
          "rt.sweep_any", "rt.winner", "rt.shade", "rt.brute_cast",
          "rt.composite", "vis.fold", "deferred.interp", "deferred.shade",
-         "shadow.geometry", "shadow.fold")
+         "shadow.geometry", "shadow.fold", "frame.ssaa_resolve",
+         "post.sky", "post.ssao", "post.bloom", "post.tonemap",
+         "post.fxaa", "post.callable")
 SHADOW_FRAMES = {"directional": "shadows", "point": "point_shadows",
                  "spot": "spot_shadows"}
 
@@ -77,7 +85,8 @@ def scene_stats(eng, uniforms) -> Dict:
 
     render_frame(eng.scene, uniforms, eng.params, fold=capture)
     _, setup, _, n_global, _, _, counts, _, _ = seen[0][0]
-    H, W = eng.params.height, eng.params.width
+    f = eng.params.ssaa
+    H, W = eng.params.height * f, eng.params.width * f
     ng = int(n_global[0])
     return {
         "slots": int(setup.shape[0]),
@@ -212,6 +221,7 @@ def main(argv=None) -> int:
     ap.add_argument("--deferred", action="store_true")
     ap.add_argument("--config", type=int, choices=(3, 5), default=0)
     ap.add_argument("--shadows", choices=sorted(SHADOW_FRAMES))
+    ap.add_argument("--image-quality", action="store_true")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   "profile"))
     a = ap.parse_args(argv)
@@ -223,9 +233,10 @@ def main(argv=None) -> int:
     from softwarerenderer_tpu_torch.engine import Engine
 
     if sum((a.kbuffer > 1, bool(a.raytrace), a.deferred, bool(a.config),
-            bool(a.shadows))) > 1:
-        print("profiling: --kbuffer, --raytrace, --deferred, --config and "
-              "--shadows are different frames; pick one", file=sys.stderr)
+            bool(a.shadows), a.image_quality)) > 1:
+        print("profiling: --kbuffer, --raytrace, --deferred, --config, "
+              "--shadows and --image-quality are different frames; pick "
+              "one", file=sys.stderr)
         return 1
     default = scenes.BENCH_SIZES.get(a.config, (1920, 1080))
     a.width, a.height = a.width or default[0], a.height or default[1]
@@ -242,6 +253,14 @@ def main(argv=None) -> int:
             SHADOW_FRAMES[a.shadows])
         eng = Engine(scene, RenderParams(a.width, a.height), device="cuda",
                      frame_fn=fn.func, **shaders)
+    elif a.image_quality:
+        from softwarerenderer_tpu_torch.engine import (
+            scene_fragment_shader_trilinear)
+        eng = Engine(scenes.bench_scene(), RenderParams(
+            a.width, a.height, ssaa=2, use_mipmaps="trilinear", ssao=True,
+            bloom=True, tonemap="aces", fxaa=True), device="cuda",
+            fragment_shader=scene_fragment_shader_trilinear)
+        pano = scenes.sky_panorama()
     elif a.kbuffer > 1:
         eng = Engine(scenes.translucent_scene(),
                      RenderParams(a.width, a.height, kbuffer=a.kbuffer,
@@ -260,6 +279,9 @@ def main(argv=None) -> int:
                      device="cuda")
 
     def uniforms_at(i):
+        if a.image_quality:
+            return dict(scenes.camera_uniforms(eng.uniforms, i),
+                        sky_panorama=pano)
         return fixed or scenes.camera_uniforms(eng.uniforms, i)
 
     if a.raytrace:
@@ -288,6 +310,7 @@ def main(argv=None) -> int:
               "size": [a.width, a.height], "kbuffer": a.kbuffer,
               "raytrace": a.raytrace, "deferred": a.deferred,
               "config": a.config, "shadows": a.shadows,
+              "image_quality": a.image_quality,
               "scene": stats,
               "frame_ms_back_to_back": back_to_back,
               "frame_ms_synchronised": synced,

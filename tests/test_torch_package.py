@@ -67,6 +67,30 @@ for name in ("shadows", "point_shadows", "spot_shadows"):
     sc, p, u, fn, _ = scenes.shadow_golden_frame(name)
     c, d = fn(scene_to_torch(sc, "cpu"), u, RenderParams(64, 48))
     assert c.shape == (48, 64, 4), c.shape
+import numpy as np
+from softwarerenderer_tpu_torch.engine import scene_fragment_shader_bilinear
+from softwarerenderer_tpu_torch.ops import lighting, sky
+pano = np.random.default_rng(0).uniform(0, 1, (8, 16, 4)).astype(np.float32)
+for name in ("mips", "trilinear", "ssaa", "ssao"):
+    sc, p, u, shaders = scenes.feature_golden_frame(name)
+    p = p.replace(width=32, height=24, ssaa=min(p.ssaa, 2), bloom=True,
+                  tonemap="aces", fxaa=True)
+    eng = Engine(sc, p, device="cpu", **shaders)
+    assert eng.present(dict(u, sky_panorama=pano)).shape == (24, 32, 3)
+eng = Engine(scenes.bench_scene(), RenderParams(32, 24), device="cpu",
+             fragment_shader=scene_fragment_shader_bilinear)
+assert eng.present(eng.uniforms).shape == (24, 32, 3)
+eng = Engine(sc, RenderParams(32, 24), device="cpu",
+             vertex_shader=lighting.lit_scene_vertex_shader,
+             fragment_shader=lighting.pbr_scene_fragment_shader)
+u = dict(eng.uniforms, env_irradiance=sky.irradiance_panorama(pano),
+         sky_panorama=pano)
+assert eng.present(u).shape == (24, 32, 3)
+eng = Engine(scenes.bench_scene(), RenderParams(32, 24), device="cpu",
+             frame_fn=functools.partial(render_frame_raytraced,
+                                        cluster_cap=24, reflections=True))
+assert eng.present(dict(eng.uniforms, sky_panorama=pano)).shape == \
+    (24, 32, 3)
 bad = [m for m in sys.modules
        if m in ("jax", "jaxlib", "bench", "scripts", "softwarerenderer_tpu")
        or m.startswith(("jax.", "jaxlib.", "scripts.",
@@ -81,8 +105,10 @@ def test_port_never_imports_jax(what):
     """Import every module of the port (or chip_smoke.py), render a raster
     frame through the tile route, the deferred route (K5's twin), the
     forward route and a debug view, and a ray-traced CPU frame of the
-    port's own bench scene, golden config 3's lit frame and the three
-    shadowed frames, and find
+    port's own bench scene, golden config 3's lit frame, the three
+    shadowed frames, the four filtering and post-FX feature frames with
+    the whole post chain and a sky, a bilinear frame, a PBR frame with
+    its environment terms and a ray-traced frame with the sky, and find
     neither JAX, nor bench or scripts, nor any module of the JAX package
     (``softwarerenderer_tpu_torch`` itself only shares its prefix)."""
     code = _IMPORTS[what] + _RENDER_AND_CHECK
@@ -295,6 +321,95 @@ def test_shadow_golden_frames_match_their_sources(name):
     assert frame_fn.keywords == {"shadow_size": 256}
 
 
+def _feature_golden_source(name, p, s, t, m):
+    """scripts/make_goldens.py:render_feature(name)'s instances, params
+    and uniforms over default_frame_uniforms(320, 240), for feature_mips,
+    _trilinear, _ssaa and _ssao."""
+    checker = np.asarray(t.checkerboard(32, 4)["data"])
+    u = {}
+    if name in ("mips", "trilinear"):
+        insts = []
+        for zi in range(24):
+            strip = p.plane(16.0)
+            strip["uv"] = strip["uv"] * np.float32(16.0)
+            insts.append(s.MeshInstance(
+                strip, m.translation([0, -1, -8.0 - 16.0 * zi]),
+                texture=np.asarray(t.checkerboard(64, 32)["data"])))
+        params = dict(use_mipmaps=True if name == "mips" else "trilinear")
+        u["camera_position"] = np.float32([0, 0.5, 0])
+        u["far_clip"] = np.float32(2000.0)
+    elif name == "ssaa":
+        insts = [s.MeshInstance(p.plane(20.0), m.translation([0, -1, 0]),
+                                texture=checker),
+                 s.MeshInstance(
+                     p.cube(1.0),
+                     (m.matrix_from_yaw_pitch_roll(np.float32(0.6), 0.3, 0.0)
+                      @ m.translation([0, 0.2, -3.0])).astype(np.float32),
+                     texture=checker)]
+        params = dict(ssaa=4)
+        u["camera_position"] = np.float32([0, 0.6, 1.5])
+    else:
+        gray = np.asarray(t.checkerboard(
+            32, 4, (0.85, 0.85, 0.85, 1.0), (0.7, 0.7, 0.7, 1.0))["data"])
+        insts = [s.MeshInstance(p.plane(20.0), m.translation([0, -1, 0]),
+                                texture=gray),
+                 s.MeshInstance(p.cube(1.4), m.translation([-0.9, -0.3, -4.0]),
+                                texture=gray),
+                 s.MeshInstance(p.cube(0.9), m.translation([1.1, -0.55, -3.2]),
+                                texture=gray)]
+        params = dict(ssao=True)
+        u["camera_position"] = np.float32([0, 0.8, 0.0])
+        u["camera_rotation"] = np.asarray(
+            m.quat_from_axis_angle([1.0, 0, 0], -0.25), np.float32)
+    return insts, params, u
+
+
+@pytest.mark.parametrize("name", ["mips", "trilinear", "ssaa", "ssao"])
+def test_feature_golden_frames_match_their_sources(name):
+    """scenes.feature_golden_frame(name): the scene, params, uniforms and
+    shader of make_goldens.render_feature(name)."""
+    from softwarerenderer_tpu.engine.renderer import default_frame_uniforms
+    from softwarerenderer_tpu.models import scene as scene_mod
+    from softwarerenderer_tpu_torch import scenes
+    got, params, u, shaders = scenes.feature_golden_frame(name)
+    insts, want_params, want_u = _feature_golden_source(
+        name, *_host_modules(False))
+    _assert_same_scene(got, scene_mod.build_scene_buffers(insts))
+    assert params == RenderParams(width=320, height=240, **want_params)
+    _assert_same_scene(u, dict(default_frame_uniforms(320, 240), **want_u))
+    want_shader = {"trilinear": "scene_fragment_shader_trilinear"}.get(name)
+    assert [f.__name__ for f in shaders.values()] == \
+        ([want_shader] if want_shader else [])
+
+
+def test_irradiance_panorama_matches_jax():
+    """The port's copy of sky.irradiance_panorama (host numpy) gives the
+    JAX package's map, value for value, on a uniform, a half and a seeded
+    f32 panorama, a seeded u8 one and another output size."""
+    from softwarerenderer_tpu.ops import sky as jax_sky
+    from softwarerenderer_tpu_torch.ops import sky
+    rng = np.random.default_rng(3)
+    half = np.zeros((32, 64, 4), np.float32)
+    half[:16] = [1, 0, 0, 1]
+    for pano, out_h in ((np.full((16, 32, 4), 0.5, np.float32), 16),
+                        (half, 16),
+                        (rng.uniform(0, 1, (40, 90, 4)).astype(np.float32), 8),
+                        (rng.integers(0, 256, (20, 30, 4)).astype(np.uint8),
+                         16)):
+        got = sky.irradiance_panorama(pano, out_h)
+        want = jax_sky.irradiance_panorama(pano, out_h)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+
+def test_quat_from_axis_angle_matches_jax():
+    from softwarerenderer_tpu_torch.utils import mathlib as port_ml
+    for axis, angle in (([1.0, 0, 0], -0.25), ([0.3, 0.5, -0.2], 2.0)):
+        np.testing.assert_array_equal(port_ml.quat_from_axis_angle(axis,
+                                                                   angle),
+                                      ml.quat_from_axis_angle(axis, angle))
+
+
 def _translucent_source(p, s, t, m):
     """scripts/profile_translucent.py:52-63's six glass panes over the
     bench soup (bench.build_scene's fallback) in place of Dust2."""
@@ -438,6 +553,12 @@ def test_tile_fold_rejects_a_bad_plan(plan, kpi, match):
                               sl_ia=2, clip_w_off=3)
 
 
+# Fields refused until the image-quality features were ported; their
+# frames are held against JAX in tests/test_torch_post_fx.py and
+# tests/test_torch_texture_filtering.py.
+PORTED_PARAMS = ("ssaa", "ssao", "bloom", "tonemap", "fxaa", "use_mipmaps")
+
+
 @pytest.mark.parametrize("field,value", [
     ("ssaa", 2), ("ssao", True), ("bloom", True), ("tonemap", "aces"),
     ("fxaa", True), ("active_cap", 1000),
@@ -445,9 +566,24 @@ def test_tile_fold_rejects_a_bad_plan(plan, kpi, match):
     ("use_mipmaps", True), ("shade_rate", 2), ("active_cap_stats", True),
 ])
 def test_unsupported_params_raise(field, value):
+    """A field the port does not implement raises NotImplementedError by
+    name.  The name and cases are kept from before the image-quality
+    fields (PORTED_PARAMS) were ported: each of those now renders through
+    Engine and changes the package scene's frame (bloom with its
+    threshold lowered to 0.3, which the scene's lit colors pass)."""
+    from softwarerenderer_tpu_torch.engine import default_frame_uniforms
     params = RenderParams(64, 48).replace(**{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        Engine(small_scene(), params, device="cpu")
+    if field not in PORTED_PARAMS:
+        with pytest.raises(NotImplementedError, match=field):
+            Engine(small_scene(), params, device="cpu")
+        return
+    u = dict(default_frame_uniforms(64, 48), bloom_threshold=np.float32(0.3))
+    c, d = Engine(small_scene(), params, device="cpu").render(u)
+    base, _ = Engine(small_scene(), RenderParams(64, 48),
+                     device="cpu").render(u)
+    assert c.shape == base.shape and d.shape == (48, 64)
+    assert torch.isfinite(c).all()
+    assert float((c - base).abs().max()) > 0.05
 
 
 @pytest.mark.parametrize("field,value", [
@@ -521,10 +657,23 @@ def test_unsupported_scene_keys_raise(key):
 
 
 def test_sky_panorama_uniform_raises():
+    """The name is kept from when a sky panorama was refused.  It renders
+    now: every pixel the frame leaves at clear depth shows the panorama (a
+    uniform green here) instead of the clear color; covered pixels and
+    depth are as without it."""
+    from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
     eng = Engine(small_scene(), RenderParams(64, 48), device="cpu")
-    u = dict(eng.uniforms, sky_panorama=np.zeros((4, 8, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="sky_panorama"):
-        render_frame(eng.scene, u, eng.params)
+    pano = np.zeros((4, 8, 4), np.float32)
+    pano[..., 1] = pano[..., 3] = 1.0
+    c0, d0 = render_frame(eng.scene, eng.uniforms, eng.params)
+    c, d = render_frame(eng.scene, dict(eng.uniforms, sky_panorama=pano),
+                        eng.params)
+    clear = d0 == DEPTH_CLEAR
+    assert 0.05 < clear.float().mean() < 0.95
+    assert torch.equal(d, d0) and torch.equal(c[~clear], c0[~clear])
+    np.testing.assert_allclose(c[clear].numpy(),
+                               np.broadcast_to(pano[0, 0], (int(clear.sum()),
+                                                            4)), atol=1e-6)
 
 
 @pytest.mark.parametrize("through", ["Engine", "render_frame"])

@@ -426,7 +426,8 @@ def test_raytraced_mesh_visible_matches_jax():
 
 def test_engine_frame_fn_renders_raytraced_frame():
     """Engine(frame_fn=...) renders and presents through the ray tracer;
-    a sky panorama is refused on this route too."""
+    with a sky panorama (refused on this route until the sky was ported)
+    the misses show it and the hits are unchanged."""
     sc = _frame_scene()
     fn = functools.partial(raytrace.render_frame_raytraced, cluster_cap=24)
     eng = Engine(sc, RenderParams(64, 48), device="cpu", frame_fn=fn)
@@ -437,8 +438,13 @@ def test_engine_frame_fn_renders_raytraced_frame():
     assert torch.equal(color, want[0]) and torch.equal(depth, want[1])
     rgb = eng.present(u)
     assert rgb.shape == (48, 64, 3) and rgb.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="sky_panorama"):
-        eng.render(dict(u, sky_panorama=np.zeros((4, 8, 4), np.float32)))
+    pano = np.zeros((4, 8, 4), np.float32)
+    pano[..., 1] = pano[..., 3] = 1.0
+    sky_c, sky_d = eng.render(dict(u, sky_panorama=pano))
+    miss = depth == DEPTH_CLEAR
+    assert torch.equal(sky_d, depth) and 0 < miss.float().mean() < 1
+    assert torch.equal(sky_c[~miss], color[~miss])
+    assert torch.allclose(sky_c[miss], torch.from_numpy(pano[0, 0]))
 
 
 # ---- the sweep wrapper's own Python: bundle order, launch arguments -------
