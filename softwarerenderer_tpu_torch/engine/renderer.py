@@ -41,9 +41,14 @@ render_frame with the maps in the uniforms.  PyTorch runs it eagerly; the
 scene stays on the device and the host uniforms cross in one copy a
 dtype.
 
-A ``RenderParams`` field or scene key whose feature this package does not
-implement yet raises ``NotImplementedError`` instead of rendering another
-image.
+Before the geometry, ``frame_setup`` runs the per-frame vertex updates
+(``apply_vertex_updates``: tangents, flip-book frames, morph targets,
+skinning, particle billboards) and ANDs each mesh's LOD level
+(``ops.lod``) into the frustum-cull mask; the shadowed frames pose once
+(``posed_geometry``) and share the pose with their light passes.
+
+A ``RenderParams`` field whose feature this package does not implement
+yet raises ``NotImplementedError`` instead of rendering another image.
 """
 
 from __future__ import annotations
@@ -61,10 +66,12 @@ from softwarerenderer_tpu_torch.models.convert import scene_to_torch
 from softwarerenderer_tpu_torch.models.scene import MAX_MIP_LEVELS
 from softwarerenderer_tpu_torch.ops import (bloom, culling, debugviz,
                                             forward, fxaa, geometry,
-                                            kbuffer, lighting, raster,
-                                            shadows, sky, ssao, tonemap)
+                                            kbuffer, lighting, lod, morph,
+                                            raster, shadows, skinning, sky,
+                                            ssao, tonemap)
 from softwarerenderer_tpu_torch.ops import texture as tex_ops
 from softwarerenderer_tpu_torch.ops import tile_raster
+from softwarerenderer_tpu_torch.sim import particles
 from softwarerenderer_tpu_torch.utils import mathlib as ml
 
 F32 = torch.float32
@@ -179,6 +186,10 @@ def _f32(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _fov_radians(uniforms: Dict) -> torch.Tensor:
+    return _f32(uniforms["fov_degrees"]) * float(np.float32(np.pi / 180.0))
+
+
 def camera_matrices(uniforms: Dict, width: int, height: int):
     """View from position + quaternion (Camera.cs:12-26) and the .NET
     perspective from the live FOV (Renderer.cs:406-410), computed on the
@@ -188,16 +199,17 @@ def camera_matrices(uniforms: Dict, width: int, height: int):
     front = ml.quat_rotate(_f32([0.0, 0.0, -1.0]), rot)
     up = ml.quat_rotate(_f32([0.0, 1.0, 0.0]), rot)
     view = ml.look_at(pos, pos + front, up)
-    fov = _f32(uniforms["fov_degrees"]) * float(np.float32(np.pi / 180.0))
+    fov = _fov_radians(uniforms)
     aspect = _f32(np.float32(width) / np.float32(height))
     proj = ml.perspective_fov(fov, aspect, _f32(uniforms["near_clip"]),
                               _f32(uniforms["far_clip"]))
     return view, proj
 
 
-# The camera and shading uniforms every frame reads on the device.
+# The camera and shading uniforms every frame reads on the device
+# (tan_half_fov for the LOD levels, computed on the host like the camera).
 _DEVICE_UNIFORMS = (("view", (4, 4)), ("projection", (4, 4)),
-                    ("camera_position", (3,)),
+                    ("tan_half_fov", ()), ("camera_position", (3,)),
                     ("light_direction", (3,)), ("light_color", (4,)),
                     ("fog_color", (4,)), ("clear_color", (4,)),
                     ("fog_start", ()), ("fog_end", ()), ("near_clip", ()))
@@ -234,7 +246,9 @@ def device_uniforms(uniforms: Dict, width: int, height: int,
     dtype, as each copy waits for the device; tensors and dicts move as
     they are."""
     view, proj = camera_matrices(uniforms, width, height)
-    host = dict(uniforms, view=view.numpy(), projection=proj.numpy())
+    tan_half = torch.tan(_fov_radians(uniforms) * 0.5)
+    host = dict(uniforms, view=view.numpy(), projection=proj.numpy(),
+                tan_half_fov=tan_half.numpy())
     f32 = {k: np.asarray(host[k], np.float32).reshape(shape)
            for k, shape in _DEVICE_UNIFORMS}
     return _upload({**f32, **{k: v for k, v in uniforms.items()
@@ -270,10 +284,6 @@ def _upload(uniforms: Dict, device) -> Dict[str, torch.Tensor]:
     return u
 
 
-_UNSUPPORTED_SCENE_PREFIXES = ("tangent", "anim_", "morph_", "skin_",
-                               "particle_", "tri_lod_level")
-
-
 # The per-triangle channels frame_setup packs for a fragment shader's
 # `tri_extras` ("opq" rides along for the K-buffer's short-circuit): ids
 # and atlas regions, and the PBR material channels, each quantised to
@@ -287,8 +297,12 @@ MATERIAL_TRI_EXTRAS = {
 # (tex_* then name it), and for "trilinear" the next mip's and the 8-bit
 # fraction between the two.
 MIP_TRI_EXTRAS = ("tex_oy2", "tex_ox2", "tex_h2", "tex_w2", "mip_frac256")
+# The normal map's region (ops.normalmap), with tri_normal_tex_id in the
+# scene.
+NORMAL_MAP_TRI_EXTRAS = ("nm_oy", "nm_ox", "nm_h", "nm_w")
 PACKED_TRI_EXTRAS = ("tex_id", "mesh_id", "tex_oy", "tex_ox", "tex_h",
-                     "tex_w") + tuple(MATERIAL_TRI_EXTRAS) + MIP_TRI_EXTRAS
+                     "tex_w") + tuple(MATERIAL_TRI_EXTRAS) + MIP_TRI_EXTRAS \
+    + NORMAL_MAP_TRI_EXTRAS
 
 
 def enabled_post_fx(params: RenderParams, uniforms: Dict) -> tuple:
@@ -316,11 +330,12 @@ def enabled_post_fx(params: RenderParams, uniforms: Dict) -> tuple:
                  if not isinstance(f, str) or on[f])
 
 
-def check_supported(params: RenderParams, scene_keys=(), uniforms=None,
+def check_supported(params: RenderParams, uniforms=None,
                     fragment_shader: Optional[Callable] = None):
-    """Raise NotImplementedError for anything outside the routes this
-    package renders (a fragment shader whose `tri_extras` names a channel
-    frame_setup does not pack among them), and JAX's ValueErrors: an
+    """Raise NotImplementedError for the RenderParams fields this package
+    does not implement yet (the capacity caps and shade_rate) and for a
+    fragment shader whose `tri_extras` names a channel frame_setup does
+    not pack, and JAX's ValueErrors: an
     unknown or absent post_fx entry, kbuffer_stats without a binned
     deferred K-buffer, kbuffer_stats or active_cap_stats with ssaa or
     post-FX (their stats are a third return value the wrappers do not
@@ -342,8 +357,6 @@ def check_supported(params: RenderParams, scene_keys=(), uniforms=None,
         ("pair_cap", bool(params.pair_cap)),
         ("global_cap", bool(params.global_cap)),
         ("shade_rate", params.shade_rate != 1)) if off]
-    bad += [f"scene key {k}" for k in scene_keys
-            if k.startswith(_UNSUPPORTED_SCENE_PREFIXES)]
     bad += [f"tri_extras channel {k}"
             for k in getattr(fragment_shader, "tri_extras", None) or ()
             if k not in PACKED_TRI_EXTRAS]
@@ -405,17 +418,75 @@ def mip_regions(scene: Dict[str, torch.Tensor], inv_area: torch.Tensor,
     return {**region(mip0), **region(mip1, "2"), "mip_frac256": frac256}
 
 
+def apply_vertex_updates(vin: Dict, scene: Dict[str, torch.Tensor],
+                         uniforms: Dict, view: torch.Tensor) -> Dict:
+    """The per-frame vertex updates every raster path runs, in JAX's
+    order, each a copy (the scene's buffers are never written): the
+    tangents (ops.normalmap), each flip-book mesh's frame
+    uniforms["anim_frame"] (scalar or one a mesh, floor modulo its frame
+    count), the morph targets (ops.morph), skinning (ops.skinning) and,
+    with uniforms["particle_centers"], the particle billboards facing
+    `view` (sim.particles).  uniforms are the frame's device uniforms."""
+    vin = dict(vin)
+    if "tangent" in scene:
+        vin["tangent"] = scene["tangent"]
+    if "anim_positions" in scene:
+        nf = scene["anim_n_frames"]
+        af = torch.as_tensor(uniforms.get("anim_frame", 0), device=nf.device)
+        af = torch.atleast_1d(af.to(torch.int32)).expand(nf.shape[0])
+        fv = torch.remainder(af, nf)[scene["anim_slot"].long()].long()
+        va = torch.arange(fv.shape[0], device=nf.device)
+        vidx = scene["anim_vert_index"].long()
+        vin["position"] = vin["position"].index_put(
+            (vidx,), scene["anim_positions"][fv, va])
+        vin["normal"] = vin["normal"].index_put(
+            (vidx,), scene["anim_normals"][fv, va])
+    if "morph_vert_index" in scene:
+        vin = morph.apply_morphs(vin, scene, uniforms)
+    if "skin_joints" in scene:
+        vin = skinning.apply_skinning(vin, scene, uniforms)
+    if "particle_vert_index" in scene and "particle_centers" in uniforms:
+        vin = particles.apply_billboards(vin, scene, uniforms, view)
+    return vin
+
+
+def frame_vertices(scene: Dict[str, torch.Tensor], u: Dict) -> Dict:
+    """The frame's vertex inputs (position, uv, normal, color and, with a
+    normal map, tangent) after apply_vertex_updates, the billboards facing
+    the camera of the device uniforms u (device_uniforms)."""
+    vin = {k: scene[k] for k in ("position", "uv", "normal", "color")}
+    with record_function("frame.vertex_updates"):
+        return apply_vertex_updates(vin, scene, u, u["view"])
+
+
+def posed_geometry(scene: Dict[str, torch.Tensor], u: Dict,
+                   height: int) -> Dict:
+    """What a frame draws, computed once a frame and shared by its main
+    pass and its light passes: {"vin": frame_vertices(scene, u),
+    "tri_mask": each triangle's active LOD level for a frame `height`
+    pixels high, None when the scene has no levels}.  u: the main
+    camera's device uniforms (device_uniforms)."""
+    posed = {"vin": frame_vertices(scene, u), "tri_mask": None}
+    if "tri_lod_level" in scene:
+        with record_function("frame.camera_cull"):
+            posed["tri_mask"] = lod.lod_tri_mask(scene, u, height)
+    return posed
+
+
 def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
                 params: RenderParams,
                 vertex_shader: Callable = scene_vertex_shader,
                 fragment_shader: Callable = scene_fragment_shader,
-                fb: Optional[tuple] = None) -> Dict:
+                fb: Optional[tuple] = None,
+                posed: Optional[Dict] = None) -> Dict:
     """Everything a route takes for one frame: {"tris": the set-up
     triangles, "uniforms": the device uniforms the shaders read,
     "per_tri": the per-triangle extras, "fb_color" and "fb_depth": the
     framebuffer, fb = (color (H, W, 4), depth (H, W)) or cleared}.
     render_frame routes them; a caller may hand them to another route of
-    ops.tile_raster or ops.raster."""
+    ops.tile_raster or ops.raster.  posed: what the caller computed of
+    the frame's geometry (posed_geometry at params.height); a missing
+    entry is computed here."""
     H, W = params.height, params.width
     dev = scene["position"].device
     with record_function("frame.camera_cull"):
@@ -429,13 +500,21 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
                 np.asarray(uniforms["mesh_visible"], bool)).to(dev)
         tri_mesh = scene["tri_mesh_id"].long()
         tri_mask = visible[tri_mesh]
-
+    posed = posed or {}
+    vin = posed.get("vin")
+    if vin is None:
+        vin = frame_vertices(scene, u)
+    if "tri_lod_level" in scene:
+        lod_mask = posed.get("tri_mask")
+        with record_function("frame.camera_cull"):
+            if lod_mask is None:
+                lod_mask = lod.lod_tri_mask(scene, u, H)
+            tri_mask = tri_mask & lod_mask
     with record_function("frame.geometry"):
         u.update(model=culling.model_matrices_per_vertex(scene),
                  atlas_data=scene["atlas_data"],
                  atlas_offsets=scene["atlas_offsets"],
                  atlas_sizes=scene["atlas_sizes"])
-        vin = {k: scene[k] for k in ("position", "uv", "normal", "color")}
         tris = geometry.build_triangles(
             vertex_shader, vin, scene["indices"], u, width=W, height=H,
             cull_mode=params.cull_mode, tri_mask=tri_mask,
@@ -455,6 +534,10 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
         per_tri = {"tex_id": tid2, "mesh_id": mid2,
                    "tex_oy": aoff[:, 0][tid2], "tex_ox": aoff[:, 1][tid2],
                    "tex_h": asiz[:, 0][tid2], "tex_w": asiz[:, 1][tid2]}
+        if "tri_normal_tex_id" in scene:
+            nid2 = scene["tri_normal_tex_id"].long().repeat_interleave(2)
+            per_tri.update(nm_oy=aoff[:, 0][nid2], nm_ox=aoff[:, 1][nid2],
+                           nm_h=asiz[:, 0][nid2], nm_w=asiz[:, 1][nid2])
         if "mesh_metallic" in scene:
             for k, (table, col) in MATERIAL_TRI_EXTRAS.items():
                 if keep is None or k in keep:
@@ -488,7 +571,7 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
                  vertex_shader: Callable = scene_vertex_shader,
                  fragment_shader: Callable = scene_fragment_shader,
                  fold: Optional[Callable] = None,
-                 fb: Optional[tuple] = None):
+                 fb: Optional[tuple] = None, posed: Optional[Dict] = None):
     """One frame over a packed scene already on the device
     (models.convert.scene_to_torch), drawn with the given shaders over
     fb = (color (H, W, 4), depth (H, W)), the cleared framebuffer by
@@ -503,10 +586,12 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
 
     fold: the tile fold the tile routes run, tile_raster.tile_fold by
     default; tile_raster.tile_fold_plain renders the same frame through
-    the plain twins."""
-    check_supported(params, scene.keys(), uniforms, fragment_shader)
+    the plain twins.  posed: the frame's posed geometry (posed_geometry)
+    when the caller shares it with its light passes."""
+    check_supported(params, uniforms, fragment_shader)
     shaders_kw = dict(vertex_shader=vertex_shader,
                       fragment_shader=fragment_shader, fold=fold)
+    posed = posed or {}
     dev = scene["position"].device
     if params.ssaa > 1:
         f = params.ssaa
@@ -516,7 +601,10 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
             fb = tuple(torch.as_tensor(x, dtype=F32, device=dev)
                        .repeat_interleave(f, 0).repeat_interleave(f, 1)
                        for x in fb)
-        color, depth = render_frame(scene, uniforms, hi, fb=fb, **shaders_kw)
+        # The vertices carry over; the LOD levels are the f×-high frame's.
+        color, depth = render_frame(scene, uniforms, hi, fb=fb,
+                                    posed={"vin": posed.get("vin")},
+                                    **shaders_kw)
         with record_function("frame.ssaa_resolve"):
             H, W = params.height, params.width
             n = torch.full((), float(f * f), device=dev)
@@ -534,7 +622,8 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
         if "sky" in chain:
             u2 = {k: v for k, v in uniforms.items() if k != "sky_panorama"}
             u2["env_panorama"] = uniforms["sky_panorama"]
-        color, depth = render_frame(scene, u2, base, fb=fb, **shaders_kw)
+        color, depth = render_frame(scene, u2, base, fb=fb, posed=posed,
+                                    **shaders_kw)
         pu = post_uniforms(uniforms, dev)
         for fx in chain:
             with record_function("post.callable" if callable(fx)
@@ -543,7 +632,7 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
                                              params)
         return color, depth
     f = frame_setup(scene, uniforms, params, vertex_shader, fragment_shader,
-                    fb)
+                    fb, posed)
     args = (f["tris"], fragment_shader, f["uniforms"], params,
             f["fb_color"], f["fb_depth"])
     order_dependent = params.depth_test in (DepthTest.EQUAL,
@@ -615,16 +704,20 @@ def render_frame_with_shadows(scene: Dict[str, torch.Tensor], uniforms: Dict,
     render_frame's; visibility_fn folds the light pass
     (shadows.light_pass_visibility by default)."""
     fragment_shader = fragment_shader or shadows.shadowed_scene_fragment_shader
-    check_supported(params, scene.keys(), uniforms, fragment_shader)
+    check_supported(params, uniforms, fragment_shader)
     center, radius = shadows.scene_bounds(scene)
     view, proj, _ = shadows.directional_light_camera(
         uniforms["light_direction"], center, radius)
+    posed = posed_geometry(scene, device_uniforms(
+        uniforms, params.width, params.height, scene["position"].device),
+        params.height)
     smap = shadows.render_shadow_depth(scene, uniforms, view, proj,
-                                       shadow_size, params, visibility_fn)
+                                       shadow_size, params, visibility_fn,
+                                       posed=posed)
     u = dict(uniforms, shadow_map=smap, shadow_view=view, shadow_proj=proj)
     return render_frame(scene, u, params,
                         vertex_shader or lighting.lit_scene_vertex_shader,
-                        fragment_shader, fold=fold)
+                        fragment_shader, fold=fold, posed=posed)
 
 
 def render_frame_with_point_shadows(scene: Dict[str, torch.Tensor],
@@ -641,15 +734,18 @@ def render_frame_with_point_shadows(scene: Dict[str, torch.Tensor],
     render_frame_with_shadows (default fragment shader
     shadows.point_shadowed_fragment_shader)."""
     fragment_shader = fragment_shader or shadows.point_shadowed_fragment_shader
-    check_supported(params, scene.keys(), uniforms, fragment_shader)
+    check_supported(params, uniforms, fragment_shader)
+    posed = posed_geometry(scene, device_uniforms(
+        uniforms, params.width, params.height, scene["position"].device),
+        params.height)
     smap, views, projs = shadows.render_point_shadow_depth(
         scene, uniforms, uniforms["point_light_position"], shadow_size,
-        params=params, visibility_fn=visibility_fn)
+        params=params, visibility_fn=visibility_fn, posed=posed)
     u = dict(uniforms, point_shadow_map=smap, point_shadow_views=views,
              point_shadow_projs=projs)
     return render_frame(scene, u, params,
                         vertex_shader or lighting.lit_scene_vertex_shader,
-                        fragment_shader, fold=fold)
+                        fragment_shader, fold=fold, posed=posed)
 
 
 def render_frame_with_spot_shadow(scene: Dict[str, torch.Tensor],
@@ -666,16 +762,20 @@ def render_frame_with_spot_shadow(scene: Dict[str, torch.Tensor],
     fold and visibility_fn as render_frame_with_shadows (default
     fragment shader shadows.spot_shadowed_fragment_shader)."""
     fragment_shader = fragment_shader or shadows.spot_shadowed_fragment_shader
-    check_supported(params, scene.keys(), uniforms, fragment_shader)
+    check_supported(params, uniforms, fragment_shader)
     view, proj = shadows.spot_light_camera(
         uniforms["spot_position"], uniforms["spot_direction"],
         uniforms["spot_outer"], device=scene["position"].device)
+    posed = posed_geometry(scene, device_uniforms(
+        uniforms, params.width, params.height, scene["position"].device),
+        params.height)
     smap = shadows.render_shadow_depth(scene, uniforms, view, proj,
-                                       shadow_size, params, visibility_fn)
+                                       shadow_size, params, visibility_fn,
+                                       posed=posed)
     u = dict(uniforms, shadow_map=smap, shadow_view=view, shadow_proj=proj)
     return render_frame(scene, u, params,
                         vertex_shader or lighting.lit_scene_vertex_shader,
-                        fragment_shader, fold=fold)
+                        fragment_shader, fold=fold, posed=posed)
 
 
 def to_rgb8(color: torch.Tensor) -> torch.Tensor:
@@ -709,8 +809,7 @@ class Engine(torch.nn.Module):
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda') needs a CUDA device "
                                "and none is available")
-        check_supported(params, scene.keys(),
-                        fragment_shader=fragment_shader)
+        check_supported(params, fragment_shader=fragment_shader)
         self.params = params
         self.vertex_shader = vertex_shader
         self.fragment_shader = fragment_shader

@@ -9,11 +9,10 @@ texture atlas, so a frame is ONE fused program over static-shape arrays.
 
 Copied from softwarerenderer_tpu/models/scene.py (numpy only) so that the
 port imports nothing of the JAX package; tests/test_torch_package.py holds
-build_scene_buffers equal to the source key for key and dtype for dtype.
-Left out: the Camera class (the port's engine takes camera uniforms) and
-the pack-time helpers of features the port does not render yet (particle
-slots, normal-map tangents, skinned bounds), which raise
-NotImplementedError here as the engine does for their scene keys.
+build_scene_buffers equal to the source key for key, dtype for dtype and
+bit for bit, skins, normal maps, particle slots, morph targets and LOD
+levels included.  Left out: the Camera class (the port's engine takes
+camera uniforms).
 """
 
 from __future__ import annotations
@@ -362,16 +361,17 @@ def build_scene_buffers(instances: List[MeshInstance]) -> Dict[str, np.ndarray]:
     # normal-mapped scene (atlas layout unchanged otherwise).
     textures, tex_id_of, neutral_nm = assign_texture_ids(instances)
     anim = {"pos": [], "nrm": [], "vidx": [], "slot": [], "nf": []}
+    part = {"vidx": [], "pidx": [], "corner": []}
     mo = {"vidx": [], "slot": [], "dpos": [], "dnrm": [], "dw": [],
           "track": [], "rate": []}
+    p_off = 0
+    sk = {"joints": [], "weights": [], "vidx": [], "parent": [],
+          "inv_bind": [], "trans": [], "rot": [], "scale": [],
+          "slot": [], "nf": [], "rate": []}
 
     v_off = 0
+    j_off = 0
     for mi, inst in enumerate(instances):
-        if inst.particles or inst.skin is not None \
-                or inst.normal_texture is not None:
-            raise NotImplementedError(
-                "particles, skins and normal maps are not implemented in "
-                "softwarerenderer_tpu_torch yet")
         mesh = inst.mesh
         pos = np.asarray(mesh["position"], dtype=F32)
         v = pos.shape[0]
@@ -391,6 +391,18 @@ def build_scene_buffers(instances: List[MeshInstance]) -> Dict[str, np.ndarray]:
             anim["vidx"].append(v_off + np.arange(v, dtype=np.int32))
             anim["slot"].append(np.full(v, len(anim["nf"]), np.int32))
             anim["nf"].append(ap.shape[0])
+        if inst.particles:
+            from softwarerenderer_tpu_torch.sim.particles import _CORNERS
+            np_ = int(inst.particles)
+            if v != 4 * np_:
+                raise ValueError(
+                    f"particles={np_} needs a particles_mesh with "
+                    f"{4 * np_} vertices, got {v}")
+            part["vidx"].append(v_off + np.arange(4 * np_, dtype=np.int32))
+            part["pidx"].append(p_off + np.repeat(
+                np.arange(np_, dtype=np.int32), 4))
+            part["corner"].append(np.tile(_CORNERS, (np_, 1)))
+            p_off += np_
         if inst.morph is not None:
             m = inst.morph
             dp = np.asarray(m["pos"], F32)
@@ -410,6 +422,29 @@ def build_scene_buffers(instances: List[MeshInstance]) -> Dict[str, np.ndarray]:
             mo["track"].append(None if m.get("weight_track") is None
                                else np.asarray(m["weight_track"], F32))
             mo["rate"].append(float(m.get("rate", 30.0)))
+        if inst.skin is not None:
+            s = inst.skin
+            jts = np.asarray(s.joints, np.int32).reshape(v, -1)[:, :4]
+            wts = np.asarray(s.weights, F32).reshape(v, -1)[:, :4]
+            nj = s.parent.shape[0]
+            if jts.max(initial=0) >= nj:
+                raise ValueError("skin joint id out of range")
+            sk["joints"].append(jts + j_off)
+            sk["weights"].append(wts)
+            sk["vidx"].append(v_off + np.arange(v, dtype=np.int32))
+            par = np.asarray(s.parent, np.int32)
+            if not (par < np.arange(nj)).all():
+                raise ValueError("skin joints must be topologically "
+                                 "ordered (parent[j] < j)")
+            sk["parent"].append(np.where(par < 0, -1, par + j_off))
+            sk["inv_bind"].append(np.asarray(s.inverse_bind, F32))
+            sk["trans"].append(np.asarray(s.trans, F32))
+            sk["rot"].append(np.asarray(s.rot, F32))
+            sk["scale"].append(np.asarray(s.scale, F32))
+            sk["slot"].append(np.full(nj, len(sk["nf"]), np.int32))
+            sk["nf"].append(s.trans.shape[0])
+            sk["rate"].append(float(s.rate))
+            j_off += nj
         positions.append(pos)
         uvs.append(np.asarray(mesh["uv"], dtype=F32))
         normals.append(np.asarray(mesh["normal"], dtype=F32))
@@ -437,15 +472,37 @@ def build_scene_buffers(instances: List[MeshInstance]) -> Dict[str, np.ndarray]:
         if any_normal_map:
             nm_tex = inst.normal_texture if inst.normal_texture is not None \
                 else neutral_nm
-            tangents.append(np.tile(np.asarray([[1, 0, 0, 1]], F32),
-                                    (v, 1)))
+            if inst.normal_texture is not None:
+                from softwarerenderer_tpu_torch.ops.normalmap import (
+                    compute_tangents)
+                tangents.append(compute_tangents(pos, mesh["uv"],
+                                                 mesh["normal"], idx))
+            else:
+                tangents.append(np.tile(np.asarray([[1, 0, 0, 1]], F32),
+                                        (v, 1)))
             tri_nm_id.append(np.full(t, tex_id_of[id(nm_tex)],
                                      dtype=np.int32))
         matrices.append(np.asarray(inst.model_matrix, dtype=F32))
         # Animated meshes: bound every frame so culling stays conservative.
-        c, r = bounding_sphere(
-            pos if inst.animation_positions is None
-            else np.asarray(inst.animation_positions, F32).reshape(-1, 3))
+        if inst.particles:
+            # Particle slots span wherever the emitter sends them: the
+            # mesh carries its conservative extent (particles_mesh).
+            c = np.asarray(mesh["bounds_center"], F32)
+            r = float(mesh["bounds_radius"])
+        elif inst.skin is not None:
+            from softwarerenderer_tpu_torch.ops.skinning import (
+                skinned_positions_np)
+            nf = inst.skin.trans.shape[0]
+            frames = np.unique(np.linspace(0, nf - 1, min(nf, 32),
+                                           dtype=np.int64))
+            bp = np.concatenate([skinned_positions_np(inst.skin, pos, f)
+                                 for f in frames], axis=0)
+            c, r = bounding_sphere(bp)
+        else:
+            c, r = bounding_sphere(
+                pos if inst.animation_positions is None
+                else np.asarray(inst.animation_positions,
+                                F32).reshape(-1, 3))
         if inst.morph is not None:
             # Conservative morph slack: each target moves a vertex at most
             # max|delta|, scaled by the largest weight magnitude on file
@@ -524,6 +581,12 @@ def build_scene_buffers(instances: List[MeshInstance]) -> Dict[str, np.ndarray]:
         out["tri_lod_level"] = np.concatenate(tri_lod)
         out["mesh_lod_px"] = np.asarray(
             [p + [-np.inf] * (l_max - len(p)) for p in mesh_lod_px], F32)
+    if p_off:
+        # Reserved billboard slots (sim.particles.apply_billboards): P =
+        # the total capacity, concatenated in instance order.
+        out["particle_vert_index"] = np.concatenate(part["vidx"])
+        out["particle_vert_pidx"] = np.concatenate(part["pidx"])
+        out["particle_corner"] = np.concatenate(part["corner"], axis=0)
     if anim["nf"]:
         # Frame stacks concatenated on the vertex axis, frame axis padded to
         # the longest animation (selection is per-mesh modulo n_frames, so
@@ -572,4 +635,42 @@ def build_scene_buffers(instances: List[MeshInstance]) -> Dict[str, np.ndarray]:
             out["morph_weight_tracks"] = tracks
             out["morph_track_frames"] = nf
             out["morph_rate"] = np.asarray(mo["rate"], F32)
+    if sk["nf"]:
+        # Skinning buffers (ops.skinning): joints concatenated with global
+        # ids, track frame axes padded to the longest clip (playback is
+        # modulo each skin's frames, so the padding is never sampled).
+        f_max = max(sk["nf"])
+
+        def padf(arrs):
+            return np.concatenate(
+                [np.pad(a, ((0, f_max - a.shape[0]),) + ((0, 0),) *
+                        (a.ndim - 1)) for a in arrs], axis=1)
+
+        out["skin_joints"] = np.concatenate(sk["joints"], axis=0)
+        out["skin_weights"] = np.concatenate(sk["weights"], axis=0)
+        out["skin_vert_index"] = np.concatenate(sk["vidx"])
+        out["joint_parent"] = np.concatenate(sk["parent"])
+        out["joint_inv_bind"] = np.concatenate(sk["inv_bind"], axis=0)
+        out["joint_skin_slot"] = np.concatenate(sk["slot"])
+        out["skin_trans"] = padf(sk["trans"])
+        out["skin_rot"] = padf(sk["rot"])
+        out["skin_scale"] = padf(sk["scale"])
+        out["skin_n_frames"] = np.asarray(sk["nf"], np.int32)
+        out["skin_rate"] = np.asarray(sk["rate"], F32)
+        # The level schedule of forward kinematics: joints grouped by
+        # topological depth, rows padded with J.
+        par = out["joint_parent"]
+        n_j = par.shape[0]
+        depth = np.zeros(n_j, np.int32)
+        for j in range(n_j):                   # topo order: par[j] < j
+            if par[j] >= 0:
+                depth[j] = depth[par[j]] + 1
+        n_levels = int(depth.max()) + 1 if n_j else 0
+        width = max((int((depth == d).sum()) for d in range(n_levels)),
+                    default=0)
+        levels = np.full((n_levels, width), n_j, np.int32)
+        for d in range(n_levels):
+            ids = np.nonzero(depth == d)[0].astype(np.int32)
+            levels[d, :ids.shape[0]] = ids
+        out["joint_level_ids"] = levels
     return out

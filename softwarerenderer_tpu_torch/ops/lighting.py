@@ -16,9 +16,8 @@ shaders read; ``multi_light_fragment_shader`` lights the game's textured
 surface with every packed light (golden config 3);
 ``pbr_scene_fragment_shader`` shades the metallic / roughness / emissive /
 base-color material channels that ``engine.frame_setup`` packs per
-triangle (``mat_*``).  Its environment terms (``env_panorama``,
-``env_irradiance``) need the sky panorama sampler, which is not ported:
-``engine.check_supported`` refuses both uniforms.
+triangle (``mat_*``), with its environment terms (``env_panorama``,
+``env_irradiance``) sampled through ``ops.sky``.
 """
 
 from __future__ import annotations

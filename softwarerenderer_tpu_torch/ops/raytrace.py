@@ -26,6 +26,10 @@ Two routes, as in JAX:
 Both routes shade at the cast's own Möller–Trumbore barycentrics, so the
 two give the same image (JAX's brute route re-derives them from the hit
 point, which differs from them by ulps).
+
+The rays meet the packed rest pose: like JAX's, this frame runs none of
+the raster paths' per-frame vertex updates (flip-book frames, morph
+targets, skinning, billboards) and draws every LOD level.
 """
 
 from __future__ import annotations

@@ -15,6 +15,11 @@ visibility fold, from a light camera:
   3. ``shadow_factor`` and ``point_shadow_factor`` project world positions
      into the map and compare depths: {0, 1} per fragment.
 
+Animated geometry casts its current pose: engine.posed_geometry runs the
+frame's vertex updates (engine.apply_vertex_updates, the billboards facing
+the main camera) and its LOD mask (at the main frame's height) once a
+frame, and every light pass and the main pass share them.
+
 Depths keep the frame's convention: the stored value is the negated
 (ndcZ + 1) / 2, decreasing away from the light, and an empty texel holds
 raster.DEPTH_CLEAR, so a fragment that maps to one is lit.  The three
@@ -139,29 +144,37 @@ def light_pass_visibility(sp: RenderParams, device) -> Callable:
 def _light_setup(scene: Dict[str, torch.Tensor], S: int,
                  params: Optional[RenderParams]):
     """(sp, model): the light passes' parameters and per-vertex model
-    matrices, shared by a frame's passes.  The scene must be one the port
-    renders (engine.check_supported): a scene with animated geometry
-    raises rather than casting its rest pose."""
-    from softwarerenderer_tpu_torch.engine.renderer import check_supported
+    matrices, shared by a frame's passes."""
     sp = shadow_params(params, S)
-    check_supported(sp, scene.keys())
     with record_function("shadow.geometry"):
         return sp, culling.model_matrices_per_vertex(scene)
 
 
+def _posed(scene, uniforms, S, params, posed):
+    """posed, or engine.posed_geometry for the main frame of params (JAX's
+    light pass: S x S without them)."""
+    if posed is not None:
+        return posed
+    from softwarerenderer_tpu_torch.engine.renderer import (device_uniforms,
+                                                            posed_geometry)
+    w, h = (params.width, params.height) if params is not None else (S, S)
+    return posed_geometry(scene, device_uniforms(
+        uniforms, w, h, scene["position"].device), h)
+
+
 def _light_pass(scene: Dict[str, torch.Tensor], model: torch.Tensor,
                 light_view: torch.Tensor, light_proj: torch.Tensor,
-                sp: RenderParams, visibility_fn: Optional[Callable]
-                ) -> torch.Tensor:
+                sp: RenderParams, visibility_fn: Optional[Callable],
+                posed: Dict) -> torch.Tensor:
     """One depth-only pass from a light camera -> (S, S) f32 map."""
     dev = scene["position"].device
     with record_function("shadow.geometry"):
         u = {"model": model, "view": light_view, "projection": light_proj,
              "near_clip": _constant(LIGHT_NEAR_CLIP, dev)}
-        vin = {k: scene[k] for k in ("position", "uv", "normal", "color")}
         tris = geometry.build_triangles(
-            light_vertex_shader, vin, scene["indices"], u, width=sp.width,
-            height=sp.height, cull_mode=0, keep_varyings=())
+            light_vertex_shader, posed["vin"], scene["indices"], u,
+            width=sp.width, height=sp.height, cull_mode=0,
+            tri_mask=posed["tri_mask"], keep_varyings=())
     with record_function("shadow.fold"):
         depth, _ = (visibility_fn or light_pass_visibility(sp, dev))(tris,
                                                                      sp)
@@ -172,19 +185,20 @@ def render_shadow_depth(scene: Dict[str, torch.Tensor], uniforms: Dict,
                         light_view: torch.Tensor, light_proj: torch.Tensor,
                         shadow_size: int = 512,
                         params: Optional[RenderParams] = None,
-                        visibility_fn: Optional[Callable] = None
-                        ) -> torch.Tensor:
+                        visibility_fn: Optional[Callable] = None,
+                        posed: Optional[Dict] = None) -> torch.Tensor:
     """Depth-only render of the scene from the light camera -> (S, S) f32
     shadow map on the scene's device.
 
     The frame's geometry stage with cull_mode 0, a near clip of
     LIGHT_NEAR_CLIP and no varyings, then visibility_fn(tris, sp) ->
-    (depth, ids), light_pass_visibility(sp) by default.  A scene with
-    animated geometry raises (engine.check_supported).  uniforms is taken
-    for the JAX signature; the pass reads only the light camera."""
+    (depth, ids), light_pass_visibility(sp) by default.  The geometry is
+    `posed` (engine.posed_geometry), computed here for the main frame of
+    params when not given."""
     sp, model = _light_setup(scene, shadow_size, params)
     return _light_pass(scene, model, light_view, light_proj, sp,
-                       visibility_fn)
+                       visibility_fn, _posed(scene, uniforms, shadow_size,
+                                             params, posed))
 
 
 def _to_light_screen(wp: torch.Tensor, view_proj: torch.Tensor, S: int):
@@ -269,14 +283,17 @@ def render_point_shadow_depth(scene: Dict[str, torch.Tensor], uniforms: Dict,
                               light_position, shadow_size: int = 256,
                               near: float = 0.05, far: float = 100.0,
                               params: Optional[RenderParams] = None,
-                              visibility_fn: Optional[Callable] = None):
+                              visibility_fn: Optional[Callable] = None,
+                              posed: Optional[Dict] = None):
     """Six depth-only renders from the light -> (maps (6, S, S), views,
-    projs), one light pass a face (JAX's static loop)."""
+    projs), one light pass a face (JAX's static loop), all of the same
+    posed geometry (render_shadow_depth's)."""
     views, projs = point_light_cameras(light_position, near, far,
                                        scene["position"].device)
     sp, model = _light_setup(scene, shadow_size, params)
-    maps = [_light_pass(scene, model, views[f], projs[f], sp, visibility_fn)
-            for f in range(6)]
+    posed = _posed(scene, uniforms, shadow_size, params, posed)
+    maps = [_light_pass(scene, model, views[f], projs[f], sp, visibility_fn,
+                        posed) for f in range(6)]
     return torch.stack(maps), views, projs
 
 

@@ -18,7 +18,13 @@ host layer (numpy, no JAX).
     ``feature_golden_frame(name)``: ``scripts/make_goldens.py``'s
     feature_kbuffer, feature_wireframe, config4, feature_shadows /
     _point_shadows / _spot_shadows and feature_mips / _trilinear / _ssaa /
-    _ssao frames.
+    _ssao frames, and feature_skinning's (``tentacle_mesh`` and
+    ``tentacle_skin`` are ``examples/skeletal_animation.py``'s rig);
+  * ``animated_scene`` (``animated_instances`` packed) and
+    ``animated_uniforms(u, i)``: a game-like frame of every per-frame
+    vertex update and LOD level (normal-mapped floor, 64 skinned
+    tentacles, flip-book, morphing and LOD meshes, a 1,024-slot particle
+    emitter), for the card's phase 21.
 
 Each equals its source array for array (tests/test_torch_package.py).
 """
@@ -368,9 +374,10 @@ def feature_golden_frame(name: str):
     """scripts/make_goldens.py's feature frame `name` at 320x240: "mips"
     (receding checkered strips, use_mipmaps=True), "trilinear" (the same
     strips, use_mipmaps="trilinear" and the trilinear shader), "ssaa" (a
-    floor and a turned cube, ssaa=4) or "ssao" (two grey cubes on a floor,
-    ssao=True).  Returns (packed scene, RenderParams, uniforms, shaders),
-    shaders the Engine keywords of the frame's shaders."""
+    floor and a turned cube, ssaa=4), "ssao" (two grey cubes on a floor,
+    ssao=True) or "skinning" (a three-bone tentacle over a floor at
+    anim_time 0.6 s).  Returns (packed scene, RenderParams, uniforms,
+    shaders), shaders the Engine keywords of the frame's shaders."""
     from softwarerenderer_tpu_torch import engine
     from softwarerenderer_tpu_torch.config import RenderParams
     u = engine.default_frame_uniforms(320, 240)
@@ -397,6 +404,18 @@ def feature_golden_frame(name: str):
                      texture=checker)]
         params = RenderParams(width=320, height=240, ssaa=4)
         u["camera_position"] = np.float32([0, 0.6, 1.5])
+    elif name == "skinning":
+        checker = np.asarray(checkerboard(32, 4)["data"])
+        mesh = tentacle_mesh()
+        insts = [scene_mod.MeshInstance(mesh, ml.translation([0, -1.2, 0]),
+                                        texture=checker,
+                                        skin=tentacle_skin(mesh["position"])),
+                 scene_mod.MeshInstance(primitives.plane(12.0),
+                                        ml.translation([0, -1.2, 0]),
+                                        texture=checker)]
+        params = RenderParams(width=320, height=240)
+        u["camera_position"] = np.float32([0, 0.6, 4.5])
+        u["anim_time"] = np.float32(0.6)
     elif name == "ssao":
         gray = np.asarray(checkerboard(
             32, 4, (0.85, 0.85, 0.85, 1.0), (0.7, 0.7, 0.7, 1.0))["data"])
@@ -416,3 +435,197 @@ def feature_golden_frame(name: str):
     else:
         raise ValueError(f"no feature golden frame {name!r}")
     return scene_mod.build_scene_buffers(insts), params, u, shaders
+
+
+def tentacle_mesh(height=3.0, radius=0.25, rings=24, sides=10) -> Dict:
+    """A tube along +y, tapering to 40 % of its radius: rings × sides
+    vertices (examples/skeletal_animation.py)."""
+    ys = np.linspace(0.0, height, rings, dtype=F32)
+    ang = np.linspace(0, 2 * np.pi, sides, endpoint=False)
+    pos, nrm, uv = [], [], []
+    for y in ys:
+        taper = 1.0 - 0.6 * (y / height)
+        for a in ang:
+            pos.append([radius * taper * np.cos(a), y,
+                        radius * taper * np.sin(a)])
+            nrm.append([np.cos(a), 0.0, np.sin(a)])
+            uv.append([a / (2 * np.pi), y / height])
+    idx = []
+    for r in range(rings - 1):
+        for s in range(sides):
+            a = r * sides + s
+            b = r * sides + (s + 1) % sides
+            idx += [[a, a + sides, b], [b, a + sides, b + sides]]
+    return {
+        "position": np.asarray(pos, F32),
+        "normal": np.asarray(nrm, F32),
+        "uv": np.asarray(uv, F32),
+        "color": np.ones((rings * sides, 4), F32),
+        "indices": np.asarray(idx, np.int32),
+    }
+
+
+def tentacle_skin(positions, n_bones=3, height=3.0, fps=24.0,
+                  seconds=2.0) -> scene_mod.Skin:
+    """A chain of n_bones along +y, each swaying 25° about z with a phase
+    lag, smooth weights between adjacent bones
+    (examples/skeletal_animation.py)."""
+    seg = height / n_bones
+    y = positions[:, 1]
+    f = np.clip(y / seg, 0.0, n_bones - 1e-4)
+    b0 = np.minimum(f.astype(np.int32), n_bones - 1)
+    t = f - b0
+    smooth = t * t * (3 - 2 * t)
+    joints = np.stack([b0, np.minimum(b0 + 1, n_bones - 1),
+                       np.zeros_like(b0), np.zeros_like(b0)], -1)
+    weights = np.stack([1 - smooth, smooth,
+                        np.zeros_like(smooth), np.zeros_like(smooth)], -1)
+    weights = weights.astype(F32)
+
+    F = int(fps * seconds)
+    times = np.arange(F) / fps
+    trans = np.zeros((F, n_bones, 3), F32)
+    trans[:, 1:, 1] = seg                      # children sit +seg up
+    rot = np.zeros((F, n_bones, 4), F32)
+    for j in range(n_bones):
+        amp = np.radians(25.0)
+        phase = 2 * np.pi * times / seconds - j * 0.9
+        ang = amp * np.sin(phase)
+        rot[:, j, 2] = np.sin(ang / 2)
+        rot[:, j, 3] = np.cos(ang / 2)
+    scl = np.ones((F, n_bones, 3), F32)
+
+    inv_bind = np.stack([np.asarray(ml.translation([0, -seg * j, 0]), F32)
+                         for j in range(n_bones)])
+    return scene_mod.Skin(joints=joints.astype(np.int32), weights=weights,
+                          parent=np.asarray([-1] + list(range(n_bones - 1)),
+                                            np.int32),
+                          inverse_bind=inv_bind, trans=trans, rot=rot,
+                          scale=scl, rate=fps)
+
+
+def bumps_normal_map(res: int = 64, cells: int = 8) -> np.ndarray:
+    """A tangent-space normal map of a grid of round bumps: (res, res, 4),
+    rgb = normal · 0.5 + 0.5."""
+    c = (np.arange(res, dtype=F32) + 0.5) / res * cells
+    fx = c - np.floor(c) - 0.5
+    dx = np.broadcast_to(-np.sin(2 * np.pi * fx)[None, :] * 0.6, (res, res))
+    dy = np.broadcast_to(-np.sin(2 * np.pi * fx)[:, None] * 0.6, (res, res))
+    n = np.stack([dx, dy, np.ones((res, res), F32)], -1)
+    n = n / np.linalg.norm(n, axis=-1, keepdims=True)
+    return np.concatenate([n * 0.5 + 0.5, np.ones((res, res, 1))],
+                          -1).astype(F32)
+
+
+# Phase 21's animated frame: 64 skinned tentacles (one clock a skin), 8
+# flip-book meshes, 4 morphing meshes of 2 targets, a 1,024-slot emitter
+# and 16 meshes of 2 LOD levels, over a normal-mapped floor.
+ANIMATED_TENTACLES = 64
+ANIMATED_FLIPBOOKS = 8
+ANIMATED_MORPHS = 4
+ANIMATED_PARTICLES = 1024
+ANIMATED_LODS = 16
+# The LOD meshes (unit spheres) switch to level 1 below LOD_PX pixels of
+# projected radius; LOD_DISTANCES (along the ground from the camera) put
+# half of them at 2.2-3.8 times the threshold and half at 0.56-0.72 times
+# it at 1080 rows (every one below it at 180 rows), no level near a switch.
+LOD_PX = 24.0
+LOD_DISTANCES = (5.5, 7.0, 8.5, 10.0, 31.0, 34.0, 37.0, 40.0)
+ANIMATED_CAMERA = (0.0, 2.5, 8.0)
+
+
+def animated_scene(**counts) -> Dict[str, np.ndarray]:
+    """The phase-21 frame's packed scene, animated_instances(**counts)."""
+    return scene_mod.build_scene_buffers(animated_instances(**counts))
+
+
+def animated_instances(tentacles: int = ANIMATED_TENTACLES,
+                       flipbooks: int = ANIMATED_FLIPBOOKS,
+                       morphs: int = ANIMATED_MORPHS,
+                       particles: int = ANIMATED_PARTICLES,
+                       lods: int = ANIMATED_LODS
+                       ) -> List[scene_mod.MeshInstance]:
+    """The phase-21 frame's instances (seeded, rng 21); the counts cut it
+    down for the CPU tests (the LOD meshes alternate near and far)."""
+    from softwarerenderer_tpu_torch.ops.lod import add_lods
+    from softwarerenderer_tpu_torch.sim.particles import (particles_mesh,
+                                                          soft_disc_texture)
+    rng = np.random.default_rng(21)
+    checker = np.asarray(checkerboard(64, 8)["data"])
+    floor = dict(primitives.plane(80.0))
+    floor["uv"] = floor["uv"] * np.float32(20.0)
+    insts = [scene_mod.MeshInstance(
+        floor, ml.translation([0, -1.0, -20.0]), texture=checker,
+        normal_texture=bumps_normal_map())]
+    tentacle = tentacle_mesh()
+    for i in range(tentacles):
+        x, z = (i % 8) * 1.6 - 5.6, -6.0 - (i // 8) * 1.6
+        skin = tentacle_skin(tentacle["position"],
+                             seconds=float(rng.uniform(1.5, 2.5)))
+        insts.append(scene_mod.MeshInstance(
+            tentacle, ml.translation([x, -1.0, z]), texture=checker,
+            skin=skin))
+    cube = primitives.cube(0.8)
+    for i in range(flipbooks):
+        frames = np.stack([cube["position"] * np.float32(1.0 + 0.1 * f)
+                           + np.float32([0, 0.1 * f, 0])
+                           for f in range(4 + i % 3)])
+        insts.append(scene_mod.MeshInstance(
+            cube, ml.translation([-7.0 + 2.0 * i, 0.0, -3.5]),
+            texture=checker, animation_positions=frames))
+    sphere = primitives.uv_sphere(0.6, rings=12, sectors=18)
+    nv = sphere["position"].shape[0]
+    for i in range(morphs):
+        dp = np.zeros((2, nv, 3), F32)
+        dp[0, :, 1] = sphere["position"][:, 1] * 0.8
+        dp[1] = sphere["normal"] * 0.25
+        track = rng.uniform(0, 1, (30, 2)).astype(F32)
+        insts.append(scene_mod.MeshInstance(
+            sphere, ml.translation([-4.5 + 3.0 * i, 1.5, -4.5]),
+            texture=checker,
+            morph={"pos": dp, "nrm": dp * 0.5, "weights": [0.3, 0.2],
+                   "weight_track": track, "rate": 12.0}))
+    insts.append(scene_mod.MeshInstance(
+        particles_mesh(particles, extent=20.0),
+        texture=soft_disc_texture(), particles=particles))
+    lod_mesh = add_lods(primitives.uv_sphere(1.0, rings=16, sectors=24),
+                        cells=(4,), px=(LOD_PX,))
+    cam = ANIMATED_CAMERA
+    for i in range(lods):
+        d = LOD_DISTANCES[(5 * i) % len(LOD_DISTANCES)]   # near, far, ...
+        ang = (-1.0 if i < lods // 2 else 1.0) * 0.55
+        insts.append(scene_mod.MeshInstance(
+            lod_mesh, ml.translation([cam[0] + d * np.sin(ang), 0.5,
+                                      cam[2] - d * np.cos(ang)]),
+            texture=checker))
+    return insts
+
+
+def animated_uniforms(uniforms: Dict, i: int, fps: float = 60.0,
+                      tentacles: int = ANIMATED_TENTACLES,
+                      particles: int = ANIMATED_PARTICLES) -> Dict:
+    """Frame i of animated_scene (of the same counts): anim_time i / fps
+    (one clock a skin, each skin's offset by 0.05 s), anim_frame i, and
+    the emitter's particles on ballistic arcs from a seeded start (rng
+    22)."""
+    t = np.float32(i / fps)
+    rng = np.random.default_rng(22)
+    n = particles
+    p0 = rng.uniform([-1.0, -0.5, -5.0], [1.0, 0.5, -3.0], (n, 3))
+    v0 = rng.uniform([-1.0, 2.0, -1.0], [1.0, 5.0, 1.0], (n, 3))
+    age = np.float32(rng.uniform(0.0, 1.0, n)) + t
+    g = np.float32([0.0, -4.9, 0.0])
+    u = dict(uniforms)
+    u["camera_position"] = np.float32(ANIMATED_CAMERA)
+    u["camera_rotation"] = ml.quat_from_yaw_pitch_roll(
+        np.float32(0.0), np.float32(-0.2), np.float32(0))
+    u["anim_time"] = (t + np.float32(0.05)
+                      * np.arange(tentacles)).astype(F32)
+    u["anim_frame"] = np.int32(i)
+    u["particle_centers"] = (p0 + v0 * age[:, None]
+                             + g * (age * age)[:, None]).astype(F32)
+    u["particle_size"] = np.where(age < 1.5, 0.15, 0.0).astype(F32)
+    u["particle_color"] = np.concatenate(
+        [np.broadcast_to(np.float32([1.0, 0.7, 0.3]), (n, 3)),
+         np.where(age < 1.5, 1.0, 0.0)[:, None]], -1).astype(F32)
+    return u

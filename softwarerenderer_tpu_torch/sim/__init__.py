@@ -1,1 +1,2 @@
-"""Simulation: the raycast physics query (``sim.raycast``)."""
+"""Simulation: the raycast physics query (``sim.raycast``) and the
+particle billboards (``sim.particles``)."""

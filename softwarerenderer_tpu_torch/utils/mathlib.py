@@ -132,6 +132,30 @@ def orthographic(width: torch.Tensor, height: torch.Tensor,
     ])
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 sqrt rounded to nearest on every device.  torch's
+    vectorised CPU sqrt misses the correctly rounded result by an ulp on
+    about 0.6 % of values, CUDA's does not; the float64 root rounded to
+    float32 is the correctly rounded one (a double rounding of sqrt is
+    exact), so the CPU and the card agree bit for bit."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def xla_int32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 as XLA's convert: toward zero, NaN to 0, values
+    beyond the range saturated.  torch's own cast of those is the CPU's or
+    the card's, so x is clipped as a float first."""
+    i = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, 2147483520.0).to(
+        torch.int32)
+    return torch.where(x >= 2.0 ** 31, torch.full_like(i, 2 ** 31 - 1), i)
+
+
+def mat4_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for batched (..., 4, 4) matrices, each row of the product
+    transform(a_row, b): explicit multiply-adds, summed left to right."""
+    return transform(a, b.unsqueeze(-3))
+
+
 def safe_normalize(v: torch.Tensor) -> torch.Tensor:
     """Normalize; zero vectors stay zero (no NaN)."""
     sq = dot(v, v)

@@ -3,7 +3,7 @@
     python -m softwarerenderer_tpu_torch.utils.profiling [--frames N]
         [--width W] [--height H] [--kbuffer K | --raytrace CAP | --deferred
         | --config 3|5 | --shadows directional|point|spot
-        | --image-quality] [--out DIR]
+        | --image-quality | --animated] [--out DIR]
 
 Renders the bench scene (``scenes.bench_scene()``) through ``Engine(scene,
 RenderParams(W, H), device="cuda")`` with ``scenes.camera_uniforms(u, i)``;
@@ -23,7 +23,11 @@ bench frame with ``ssaa=2`` (K1 folds twice the size in each axis),
 trilinear mips and the trilinear shader, SSAO, bloom, ACES and FXAA under
 ``scenes.sky_panorama()``, whose post stages show as ``post.sky``,
 ``post.ssao``, ``post.bloom``, ``post.tonemap`` and ``post.fxaa`` and the
-box filter as ``frame.ssaa_resolve``.  Without --width and
+box filter as ``frame.ssaa_resolve``; with --animated the animated frame
+of ``scenes.animated_scene()`` (skinned, flip-book, morphing, particle and
+LOD meshes over a normal-mapped floor) with the normal-mapped shaders at
+``scenes.animated_uniforms(u, i)``, whose updates show as
+``frame.vertex_updates``.  Without --width and
 --height a frame is 1920x1080, config 5 bench.py's 3840x2160.  It prints:
 
   * the scene's statistics at frame 0: for a raster frame its binning
@@ -58,9 +62,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SPANS = ("frame.camera_cull", "frame.geometry", "frame.extras",
-         "tile.bin_pack", "tile.fold", "tile.shade", "tile.peel_prev",
-         "tile.peel_fold", "tile.peel_shade", "tile.replay",
+SPANS = ("frame.camera_cull", "frame.vertex_updates", "frame.geometry",
+         "frame.extras", "tile.bin_pack", "tile.fold", "tile.shade",
+         "tile.peel_prev", "tile.peel_fold", "tile.peel_shade", "tile.replay",
          "rt.world", "rt.accel", "rt.prep", "rt.sweep_nearest",
          "rt.sweep_any", "rt.winner", "rt.shade", "rt.brute_cast",
          "rt.composite", "vis.fold", "deferred.interp", "deferred.shade",
@@ -222,6 +226,7 @@ def main(argv=None) -> int:
     ap.add_argument("--config", type=int, choices=(3, 5), default=0)
     ap.add_argument("--shadows", choices=sorted(SHADOW_FRAMES))
     ap.add_argument("--image-quality", action="store_true")
+    ap.add_argument("--animated", action="store_true")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   "profile"))
     a = ap.parse_args(argv)
@@ -233,10 +238,10 @@ def main(argv=None) -> int:
     from softwarerenderer_tpu_torch.engine import Engine
 
     if sum((a.kbuffer > 1, bool(a.raytrace), a.deferred, bool(a.config),
-            bool(a.shadows), a.image_quality)) > 1:
+            bool(a.shadows), a.image_quality, a.animated)) > 1:
         print("profiling: --kbuffer, --raytrace, --deferred, --config, "
-              "--shadows and --image-quality are different frames; pick "
-              "one", file=sys.stderr)
+              "--shadows, --image-quality and --animated are different "
+              "frames; pick one", file=sys.stderr)
         return 1
     default = scenes.BENCH_SIZES.get(a.config, (1920, 1080))
     a.width, a.height = a.width or default[0], a.height or default[1]
@@ -261,6 +266,12 @@ def main(argv=None) -> int:
             bloom=True, tonemap="aces", fxaa=True), device="cuda",
             fragment_shader=scene_fragment_shader_trilinear)
         pano = scenes.sky_panorama()
+    elif a.animated:
+        from softwarerenderer_tpu_torch.ops import normalmap
+        eng = Engine(scenes.animated_scene(),
+                     RenderParams(a.width, a.height), device="cuda",
+                     vertex_shader=normalmap.normal_mapped_vertex_shader,
+                     fragment_shader=normalmap.normal_mapped_fragment_shader)
     elif a.kbuffer > 1:
         eng = Engine(scenes.translucent_scene(),
                      RenderParams(a.width, a.height, kbuffer=a.kbuffer,
@@ -279,6 +290,8 @@ def main(argv=None) -> int:
                      device="cuda")
 
     def uniforms_at(i):
+        if a.animated:
+            return scenes.animated_uniforms(eng.uniforms, i)
         if a.image_quality:
             return dict(scenes.camera_uniforms(eng.uniforms, i),
                         sky_panorama=pano)
@@ -310,7 +323,7 @@ def main(argv=None) -> int:
               "size": [a.width, a.height], "kbuffer": a.kbuffer,
               "raytrace": a.raytrace, "deferred": a.deferred,
               "config": a.config, "shadows": a.shadows,
-              "image_quality": a.image_quality,
+              "image_quality": a.image_quality, "animated": a.animated,
               "scene": stats,
               "frame_ms_back_to_back": back_to_back,
               "frame_ms_synchronised": synced,

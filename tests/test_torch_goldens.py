@@ -1,6 +1,6 @@
-"""The port renders golden configs 1 to 5 and the wireframe, shadows,
-point_shadows and spot_shadows feature goldens (tests/goldens/) within the
-rule of tests/test_goldens.py, through its CPU path."""
+"""The port renders golden configs 1 to 5 and the feature goldens
+(tests/goldens/) within the rule of tests/test_goldens.py, through its CPU
+path (feature_mips against the JAX package's op-by-op frame)."""
 
 import os
 import sys
@@ -151,6 +151,25 @@ def test_golden_feature_filtering_torch(name):
         GOLDEN_DIR, f"feature_{name}.png")))
     frac_off = _off_share(got, golden)
     assert frac_off < 2e-3, f"{name}: {frac_off:.4%} pixels off by >2"
+
+
+def test_golden_feature_skinning_torch():
+    """feature_skinning: a three-bone tentacle skinned at anim_time 0.6 s
+    over a floor, from the port's own copy (scenes.feature_golden_frame),
+    through its Engine, against the PNG the JAX package rendered, by the
+    goldens' rule: 0.180 % of pixels off by > 2 (measured), the floor's
+    texel-edge rows of the mips golden (XLA's jitted frame contracts the
+    interpolation's FMAs).  The JAX package run op by op gives the port's
+    frame on every pixel."""
+    from PIL import Image
+    from softwarerenderer_tpu_torch import scenes
+    from softwarerenderer_tpu_torch.engine import Engine
+    scene, params, u, shaders = scenes.feature_golden_frame("skinning")
+    got = Engine(scene, params, device="cpu", **shaders).present(u)
+    golden = np.asarray(Image.open(os.path.join(GOLDEN_DIR,
+                                                "feature_skinning.png")))
+    frac_off = _off_share(got, golden)
+    assert frac_off < 2e-3, f"skinning: {frac_off:.4%} pixels off by >2"
 
 
 def test_golden_feature_mips_torch():

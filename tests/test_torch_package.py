@@ -2,6 +2,7 @@
 conversion, no CPU fallback for CUDA, and refusal of what it does not
 implement."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -91,6 +92,20 @@ eng = Engine(scenes.bench_scene(), RenderParams(32, 24), device="cpu",
                                         cluster_cap=24, reflections=True))
 assert eng.present(dict(eng.uniforms, sky_panorama=pano)).shape == \
     (24, 32, 3)
+from softwarerenderer_tpu_torch.engine import (default_frame_uniforms,
+                                               render_frame_with_shadows)
+from softwarerenderer_tpu_torch.ops import normalmap
+counts = dict(tentacles=1, flipbooks=1, morphs=1, particles=4, lods=2)
+sc = scenes.animated_scene(**counts)
+u = scenes.animated_uniforms(default_frame_uniforms(32, 24), 3,
+                             tentacles=1, particles=4)
+eng = Engine(sc, RenderParams(32, 24), device="cpu",
+             vertex_shader=normalmap.normal_mapped_vertex_shader,
+             fragment_shader=normalmap.normal_mapped_fragment_shader)
+assert eng.present(u).shape == (24, 32, 3)
+c, d = render_frame_with_shadows(scene_to_torch(sc, "cpu"), u,
+                                 RenderParams(32, 24), shadow_size=32)
+assert c.shape == (24, 32, 4)
 bad = [m for m in sys.modules
        if m in ("jax", "jaxlib", "bench", "scripts", "softwarerenderer_tpu")
        or m.startswith(("jax.", "jaxlib.", "scripts.",
@@ -108,7 +123,8 @@ def test_port_never_imports_jax(what):
     port's own bench scene, golden config 3's lit frame, the three
     shadowed frames, the four filtering and post-FX feature frames with
     the whole post chain and a sky, a bilinear frame, a PBR frame with
-    its environment terms and a ray-traced frame with the sky, and find
+    its environment terms, a ray-traced frame with the sky, and an
+    animated, normal-mapped LOD frame and its shadowed frame, and find
     neither JAX, nor bench or scripts, nor any module of the JAX package
     (``softwarerenderer_tpu_torch`` itself only shares its prefix)."""
     code = _IMPORTS[what] + _RENDER_AND_CHECK
@@ -203,13 +219,37 @@ def _assert_same_scene(got, want):
         np.testing.assert_array_equal(g, w, err_msg=k)
 
 
+def _animated_scene(p, s, t, m):
+    """scenes.animated_instances (cut down) as the instances of `s`: a
+    normal-mapped floor, two skinned tentacles, a flip-book, a morphing
+    mesh with a weight track, a 16-slot emitter and two LOD meshes, the
+    same arrays in either package's dataclasses."""
+    import dataclasses
+    from softwarerenderer_tpu_torch import scenes
+    port = scenes.animated_instances(**ANIMATED_SMALL)
+    if s.__name__.startswith("softwarerenderer_tpu_torch"):
+        return port
+
+    def as_s(inst):
+        # The same arrays (textures by identity, as the packer keys them).
+        kw = {f.name: getattr(inst, f.name)
+              for f in dataclasses.fields(inst)}
+        kw["material"] = s.Material(**dataclasses.asdict(inst.material))
+        if inst.skin is not None:
+            kw["skin"] = s.Skin(**dataclasses.asdict(inst.skin))
+        return s.MeshInstance(**kw)
+    return [as_s(inst) for inst in port]
+
+
 @pytest.mark.parametrize("build", [_package_scene, _raytrace_scene,
-                                   _kbuffer_scene],
-                         ids=["package", "raytrace", "kbuffer"])
+                                   _kbuffer_scene, _animated_scene],
+                         ids=["package", "raytrace", "kbuffer", "animated"])
 def test_build_scene_buffers_match_jax(build):
     """The port's models.scene, models.primitives, texture.checkerboard and
     numpy mathlib give the packed scene the JAX package's give, key for
-    key, dtype for dtype and value for value."""
+    key, dtype for dtype and value for value; with skins (their sampled
+    bounds), normal maps (tangents), particle slots, flip-books, morph
+    targets and LOD levels too."""
     got = _host_modules(True)[1].build_scene_buffers(
         build(*_host_modules(True)))
     want = _host_modules(False)[1].build_scene_buffers(
@@ -324,7 +364,8 @@ def test_shadow_golden_frames_match_their_sources(name):
 def _feature_golden_source(name, p, s, t, m):
     """scripts/make_goldens.py:render_feature(name)'s instances, params
     and uniforms over default_frame_uniforms(320, 240), for feature_mips,
-    _trilinear, _ssaa and _ssao."""
+    _trilinear, _ssaa, _ssao and _skinning (its rig from
+    examples/skeletal_animation.py on the JAX side)."""
     checker = np.asarray(t.checkerboard(32, 4)["data"])
     u = {}
     if name in ("mips", "trilinear"):
@@ -348,6 +389,22 @@ def _feature_golden_source(name, p, s, t, m):
                      texture=checker)]
         params = dict(ssaa=4)
         u["camera_position"] = np.float32([0, 0.6, 1.5])
+    elif name == "skinning":
+        if s.__name__.startswith("softwarerenderer_tpu_torch"):
+            from softwarerenderer_tpu_torch.scenes import (tentacle_mesh,
+                                                           tentacle_skin)
+        else:
+            sys.path.insert(0, os.path.join(REPO, "examples"))
+            from skeletal_animation import tentacle_mesh, tentacle_skin
+        mesh = tentacle_mesh()
+        insts = [s.MeshInstance(mesh, m.translation([0, -1.2, 0]),
+                                texture=checker,
+                                skin=tentacle_skin(mesh["position"])),
+                 s.MeshInstance(p.plane(12.0), m.translation([0, -1.2, 0]),
+                                texture=checker)]
+        params = {}
+        u["camera_position"] = np.float32([0, 0.6, 4.5])
+        u["anim_time"] = np.float32(0.6)
     else:
         gray = np.asarray(t.checkerboard(
             32, 4, (0.85, 0.85, 0.85, 1.0), (0.7, 0.7, 0.7, 1.0))["data"])
@@ -364,7 +421,8 @@ def _feature_golden_source(name, p, s, t, m):
     return insts, params, u
 
 
-@pytest.mark.parametrize("name", ["mips", "trilinear", "ssaa", "ssao"])
+@pytest.mark.parametrize("name", ["mips", "trilinear", "ssaa", "ssao",
+                                  "skinning"])
 def test_feature_golden_frames_match_their_sources(name):
     """scenes.feature_golden_frame(name): the scene, params, uniforms and
     shader of make_goldens.render_feature(name)."""
@@ -646,14 +704,111 @@ def test_kbuffer_stats_without_kbuffer_raises(kbuffer):
         Engine(small_scene(), params, device="cpu")
 
 
-@pytest.mark.parametrize("key", ["tangent", "skin_joints", "anim_positions",
-                                 "morph_vert_index", "particle_vert_index",
-                                 "tri_lod_level"])
+# The cut-down animated scene of scenes.animated_instances: every scene key
+# the port once refused.  Its frames against JAX's jitted frame at 96x72
+# with the normal-mapped shaders: pixels off by > 1e-5 in color (measured
+# 0.29-0.32 % over the six frames) and in depth (0.19-0.27 %), edge pixels
+# that XLA's contracted edge functions and skinning sums flip (PERF.md D5).
+ANIMATED_SMALL = dict(tentacles=2, flipbooks=1, morphs=1, particles=16,
+                      lods=2)
+ANIMATED_SIZE = (96, 72)
+ANIMATED_COLOR_OFF_MAX = 7e-3
+ANIMATED_DEPTH_OFF_MAX = 6e-3
+
+
+@functools.lru_cache(maxsize=None)
+def _animated():
+    """(scene, normal-mapped shaders, jitted JAX frame function)."""
+    import jax
+    from softwarerenderer_tpu import RenderParams as JaxRenderParams
+    from softwarerenderer_tpu.engine import renderer as jr
+    from softwarerenderer_tpu.ops import normalmap as jnm
+    from softwarerenderer_tpu_torch import scenes
+    from softwarerenderer_tpu_torch.ops import normalmap
+    w, h = ANIMATED_SIZE
+    fn = jax.jit(functools.partial(
+        jr.render_frame, params=JaxRenderParams(width=w, height=h),
+        vertex_shader=jnm.normal_mapped_vertex_shader,
+        fragment_shader=jnm.normal_mapped_fragment_shader))
+    shaders = dict(vertex_shader=normalmap.normal_mapped_vertex_shader,
+                   fragment_shader=normalmap.normal_mapped_fragment_shader)
+    return scenes.animated_scene(**ANIMATED_SMALL), shaders, fn
+
+
+def _animated_uniforms(i, **extra):
+    from softwarerenderer_tpu_torch import scenes
+    from softwarerenderer_tpu_torch.engine import default_frame_uniforms
+    return dict(scenes.animated_uniforms(
+        default_frame_uniforms(*ANIMATED_SIZE), i,
+        tentacles=ANIMATED_SMALL["tentacles"],
+        particles=ANIMATED_SMALL["particles"]), **extra)
+
+
+# Each key's frame, and the uniforms that change what that key draws.
+_KEY_FRAMES = {
+    "tangent": (0, {}),
+    "anim_positions": (7, {"anim_frame": np.int32(2)}),
+    "morph_vert_index": (13, {"morph_weights": np.float32([[1.5, -1.0]])}),
+    "skin_joints": (24, {"anim_time": np.float32([0.9, 0.4])}),
+    "particle_vert_index": (35, {"particle_size": np.zeros(16, np.float32)}),
+    "tri_lod_level": (48, {}),
+}
+
+
+@pytest.mark.parametrize("key", list(_KEY_FRAMES))
 def test_unsupported_scene_keys_raise(key):
-    scene = dict(small_scene())
-    scene[key] = np.zeros(3, np.float32)
-    with pytest.raises(NotImplementedError, match=key):
-        Engine(scene, RenderParams(64, 48), device="cpu")
+    """The name and cases are kept from when these scene keys were
+    refused.  Each renders now: the cut-down animated scene (which holds
+    every key) through Engine with the normal-mapped shaders, at the
+    key's frame of animated_uniforms, within the stated share of JAX's
+    jitted frame; and the key's uniforms (the LOD mask's frame height)
+    change what it draws."""
+    from softwarerenderer_tpu_torch.engine import renderer
+    from softwarerenderer_tpu_torch.ops import lod
+    sc, shaders, jax_fn = _animated()
+    assert key in sc
+    i, other = _KEY_FRAMES[key]
+    u = _animated_uniforms(i)
+    eng = Engine(sc, RenderParams(*ANIMATED_SIZE), device="cpu", **shaders)
+    c, d = (x.numpy() for x in eng.render(u))
+    jc, jd = map(np.asarray, jax_fn(sc, u))
+    assert np.isfinite(c).all() and (d > -3e38).mean() > 0.3
+    assert (np.abs(c - jc).max(-1) > 1e-5).mean() <= ANIMATED_COLOR_OFF_MAX
+    assert (np.abs(d - jd) > 1e-5).mean() <= ANIMATED_DEPTH_OFF_MAX
+    if key == "tangent":
+        c2, _ = Engine(sc, RenderParams(*ANIMATED_SIZE),
+                       device="cpu").render(u)
+    elif key == "tri_lod_level":
+        du = renderer.device_uniforms(u, *ANIMATED_SIZE, "cpu")
+        assert not torch.equal(lod.lod_tri_mask(eng.scene, du, 72),
+                               lod.lod_tri_mask(eng.scene, du, 1080))
+        return
+    else:
+        c2, _ = eng.render(dict(u, **other))
+    assert np.abs(c2.numpy() - c).max() > 0.05
+
+
+@pytest.mark.parametrize("field,value", [
+    ("active_cap", 1000), ("active_cap_stats", True), ("geom_cap", 1000),
+    ("pair_cap", 1000), ("global_cap", 512), ("shade_rate", 2)])
+def test_remaining_params_raise_by_name(field, value):
+    """The only refusals left: the capacity caps and shade_rate, by name,
+    through Engine, render_frame and each shadowed frame, on a scene that
+    holds every once-refused scene key."""
+    from softwarerenderer_tpu_torch.engine import renderer
+    sc, _, _ = _animated()
+    params = RenderParams(*ANIMATED_SIZE).replace(**{field: value})
+    st = scene_to_torch(sc, "cpu")
+    u = _animated_uniforms(0)
+    calls = [lambda: Engine(sc, params, device="cpu"),
+             lambda: render_frame(st, u, params),
+             lambda: renderer.render_frame_with_shadows(st, u, params),
+             lambda: renderer.render_frame_with_point_shadows(st, u, params),
+             lambda: renderer.render_frame_with_spot_shadow(st, u, params)]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match=field):
+            call()
+    renderer.check_supported(RenderParams(*ANIMATED_SIZE), u)
 
 
 def test_sky_panorama_uniform_raises():

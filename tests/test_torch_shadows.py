@@ -8,7 +8,8 @@ bound per pass about twice the measured difference (XLA contracts the
 edge and depth functions of its jitted fold, the port rounds each
 operation once); the lit factors on seeded points exactly, except where a
 point lies within 1e-6 of the bias; the frames by the share of pixels
-off."""
+off.  A skinned scene (tests/test_shadows.py's arm) casts its pose in
+every light pass, held against JAX's frames the same way."""
 
 import functools
 
@@ -295,16 +296,102 @@ def test_shadowed_frame_through_engine(name):
     assert torch.equal(gc, plain)
 
 
+@functools.lru_cache(maxsize=None)
+def arm_scene():
+    """tests/test_shadows.py's posed-shadow scene: a floor and the
+    two-bone arm of tests/test_skinning.py (its child bone turns 90°
+    about z over 1 s), packed by the port."""
+    from softwarerenderer_tpu_torch.models import primitives
+    from softwarerenderer_tpu_torch.models import scene as scene_mod
+    from tests.test_skinning import arm_mesh, two_bone_skin
+    arm = arm_mesh()
+    sc = scene_mod.build_scene_buffers([
+        scene_mod.MeshInstance(primitives.plane(20.0),
+                               ml.translation([0, -1, 0])),
+        scene_mod.MeshInstance(arm, ml.translation([0.0, 0.5, -4.0]),
+                               skin=two_bone_skin(arm["position"]))])
+    return sc, scene_to_torch(sc, "cpu")
+
+
+ARM_PARAMS = RenderParams(W, H, cull_mode=0)
+# The arm is a strip in the xy plane: the golden point light, straight
+# above it at its own z, sees it edge-on on every cube face, so the arm's
+# point light stands in front of it.
+ARM_LIGHTS = {"point_shadows": {
+    "point_light_position": np.float32([0.5, 2.0, -1.0])}}
+# The arm's frames against JAX's jitted frames: pixels off by > 1e-5 in
+# color (measured 0, 0, 0.072 % under the golden lights at 0.5 s, 0.029 %
+# under the overhead light) and in depth (0, 0, 0; 0.029 %).
+ARM_COLOR_OFF_MAX = 2e-3
+ARM_DEPTH_OFF_MAX = 1e-3
+
+
+@functools.lru_cache(maxsize=None)
+def jax_arm_fn(name):
+    return jax.jit(functools.partial(
+        JAX_FRAME[name], params=JaxRenderParams(width=W, height=H,
+                                                cull_mode=0),
+        shadow_size=S))
+
+
+def _assert_arm_close(name, u, c, d):
+    jc, jd = map(np.asarray, jax_arm_fn(name)(arm_scene()[0], u))
+    c, d = c.numpy(), d.numpy()
+    assert np.isfinite(c).all() and (d > -3e38).mean() > 0.3
+    assert (np.abs(c - jc).max(-1) > 1e-5).mean() <= ARM_COLOR_OFF_MAX
+    assert (np.abs(d - jd) > 1e-5).mean() <= ARM_DEPTH_OFF_MAX
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_skinned_scene_raises(name):
-    """Animated geometry is not ported: the light pass would cast the
-    rest pose, so every shadowed frame refuses the scene by its key."""
-    _, u, st = golden(name)
-    scene = dict(st, skin_joints=torch.zeros(3, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="skin_joints"):
-        PORT_FRAME[name](scene, u, RenderParams(W, H), shadow_size=S)
-    with pytest.raises(NotImplementedError, match="skin_joints"):
-        shadows.render_shadow_depth(scene, u, torch.eye(4), torch.eye(4), S)
+    """The name is kept from when a skinned scene was refused.  Each
+    shadowed frame renders it now, posed at anim_time 0.5 s under the
+    golden frame's lights (ARM_LIGHTS), within the stated share of JAX's
+    frame; its light passes draw the pose (the maps of 0 and 1 s
+    differ)."""
+    _, u, _ = golden(name)
+    _, st = arm_scene()
+    u = dict(u, anim_time=np.float32(0.5), **ARM_LIGHTS.get(name, {}))
+    c, d = PORT_FRAME[name](st, u, ARM_PARAMS, shadow_size=S)
+    _assert_arm_close(name, u, c, d)
+    fold = shadows.light_pass_visibility(
+        shadows.shadow_params(ARM_PARAMS, S), torch.device("cpu"))
+
+    def light_maps(t):
+        maps = []
+
+        def vis(tris, sp):
+            out = fold(tris, sp)
+            maps.append(out[0])
+            return out
+        PORT_FRAME[name](st, dict(u, anim_time=np.float32(t)), ARM_PARAMS,
+                         shadow_size=S, visibility_fn=vis)
+        return torch.stack(maps)
+
+    assert not torch.equal(light_maps(0.0), light_maps(1.0))
+
+
+def test_animated_geometry_casts_posed_shadows():
+    """The port's tests/test_shadows.py case: under an overhead light the
+    arm's shadow on the floor moves with the anim_time clock (its light
+    pass runs the frame's skinning); both poses' frames within the share
+    of JAX's."""
+    _, st = arm_scene()
+    u = renderer.default_frame_uniforms(W, H)
+    u["camera_position"] = np.float32([0.0, 2.0, 1.0])
+    u["light_direction"] = np.float32([0.0, -1.0, 0.0])
+
+    def shadow_px(t):
+        uu = dict(u, anim_time=np.float32(t))
+        c, d = renderer.render_frame_with_shadows(st, uu, ARM_PARAMS,
+                                                  shadow_size=S)
+        _assert_arm_close("shadows", uu, c, d)
+        lum = c[..., :3].mean(-1).numpy()
+        return lum < 0.55 * float(np.median(lum))
+
+    s0, s1 = shadow_px(0.0), shadow_px(1.0)
+    assert s0.sum() > 10, "no shadow at rest pose"
+    assert np.any(s0 != s1), "shadow did not move with the skin pose"
 
 
 def test_light_pass_fold_choice():
