@@ -82,7 +82,25 @@ drives the port's paths at 1080p (config 5 at 4K):
     a frame, the light pass's K5 map equal to the plain fold, two poses'
     maps different); K1 on the frame's inputs and K5 on the light pass's
     against their twins, timed beside their bounds; golden
-    feature_skinning.
+    feature_skinning;
+  * the simulation (phase 22): bench.py config 4's coupled step
+    (``scenes.coupled_step``: the collision world built in the step, the
+    character controller, the frame at 1280x720) for 240 steps from
+    bench.py's start (0, 3, 6), which lies outside the soup and falls
+    past it, and for 60 steps from (0, 3, -3), which lands and walks on
+    it; one K1 launch and 0 host syncs a step (torch.profiler), the first
+    60 states of each start equal on every value to the same steps on
+    the CPU with the render left out, frame 0 against the plain path;
+    the crowd on the bench scene (``scenes.crowd_setup`` /
+    ``crowd_step``: routing and combat) at N = 1, 8 and 32, each step's
+    time, kernels, launches, syncs and rays, 240 steps at N = 32 with the
+    first 30 states equal to the CPU's (rotation within 5e-7, aim 1e-6);
+    the dust2 app's 256-slot spark emitter and a 1,024-slot fountain
+    feeding ``particle_uniforms`` into the animated 1080p frame, 60 steps
+    each, one K1 launch a frame, frame 0 against the plain path, the
+    states equal to the CPU's; and 10^6 draws each of ``sim.prng``'s
+    ``random_bits``, ``uniform``, ``randint`` and ``normal`` equal to the
+    CPU's.
 
 Any failed check raises and exits non-zero.  The last three lines of
 standard output are the card's name and power limit, a JSON line with the
@@ -911,18 +929,26 @@ def check_kdeep_kernel(card, dense_pass0, translucent_pass0,
     return dict(b, max_abs_err=max(g_err, d_err), ms=ms, plain_ms=plain_ms)
 
 
-def host_syncs(fn, frames: int) -> float:
-    """Host synchronisations per call of fn(i), counted by torch.profiler
-    over `frames` calls (the closing synchronize not counted)."""
+def _sync_events(fn) -> int:
+    """Synchronize calls in a torch.profiler trace of fn() and a closing
+    torch.cuda.synchronize()."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "Synchronize" in e.key)
+
+
+def host_syncs(fn, frames: int) -> float:
+    """Host synchronisations per call of fn(i), counted by torch.profiler
+    over `frames` calls, less an empty trace's count (the closing
+    synchronize and the profiler's own)."""
+    def calls():
         for i in range(frames):
             fn(i)
-        torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if "Synchronize" in e.key)
-    return (n - 1) / frames
+    return (_sync_events(calls) - _sync_events(lambda: None)) / frames
 
 
 def check_kbuffer_frames(card, device, size, frames) -> dict:
@@ -2611,6 +2637,356 @@ def check_animated_frames(card, device="cuda", size=(W, H)) -> dict:
     return out
 
 
+# Phase 22: the simulation (bench.py config 4's coupled step, the crowd,
+# the particle emitters, the PRNG), each held against the CPU.
+SIM_STEPS = 240
+SIM_CPU_STEPS = 60
+# A second start for config 4, over the soup's middle: bench.py's (0, 3,
+# 6) lies outside the soup and falls past it, this one lands, slides and
+# walks on it (grounded in 42 of the first 60 steps).
+SOUP_START = (0.0, 3.0, -3.0)
+CROWD_SIZES = (1, 8, 32)
+CROWD_CPU_STEPS = 30
+CROWD_TIMED_STEPS = 20     # at N = 1 and 8; N = 32 runs SIM_STEPS
+PARTICLE_STEPS = 60
+SPARK_EVERY = 10           # a spark burst every 10 steps
+PRNG_DRAWS = 10 ** 6
+# Card against CPU: atan2, sin and cos (the facing quaternion only) may
+# round differently on the two devices; aim and the normal draws use
+# float64 log1p and correctly rounded roots, so 0 is expected there.
+SIM_ROTATION_ATOL = 5e-7
+SIM_AIM_ATOL = 1e-6
+NORMAL_CARD_ULPS = 1
+
+
+def _state_diff(got, want, loose=()) -> dict:
+    """A state tree on the card against the same tree on the CPU: values,
+    values that differ (bit for bit, NaN equal to NaN) outside `loose`,
+    and the largest absolute difference of each leaf named in `loose`."""
+    out = {"values": 0, "differ": 0, "loose": {}}
+    for k, w in want.items():
+        if isinstance(w, dict):
+            sub = _state_diff(got[k], w, loose)
+            out["values"] += sub["values"]
+            out["differ"] += sub["differ"]
+            for n, e in sub["loose"].items():
+                out["loose"][n] = max(out["loose"].get(n, 0.0), e)
+            continue
+        out["values"] += w.numel()
+        if k in loose:
+            e = float((got[k].cpu() - w).abs().max()) if w.numel() else 0.0
+            out["loose"][k] = max(out["loose"].get(k, 0.0), e)
+        else:
+            out["differ"] += _differing(got[k], w)
+    return out
+
+
+def _sum_diffs(diffs) -> dict:
+    total = {"values": 0, "differ": 0, "loose": {}}
+    for d in diffs:
+        total["values"] += d["values"]
+        total["differ"] += d["differ"]
+        for n, e in d["loose"].items():
+            total["loose"][n] = max(total["loose"].get(n, 0.0), e)
+    return total
+
+
+def crowd_rays(n: int, tris: int) -> dict:
+    """The rays and chunks of one crowd step of n agents, from the
+    shapes: the two probes' 2 x 9 rays an agent in one wave, six slide
+    waves (snap and move, 3 iterations each) of 2 x 18 shell rays an
+    agent, and the line-of-sight wave of n x n rays (every agent a
+    target).  raycast_batch cuts a wave into chunks of MAX_BLOCK // T
+    rays."""
+    from softwarerenderer_tpu_torch.sim.raycast import MAX_BLOCK
+    per = max(1, MAX_BLOCK // tris)
+    waves = [18 * n] + [36 * n] * 6 + [n * n]
+    rays = sum(waves)
+    return {"rays": rays, "pairs": rays * tris,
+            "chunks": sum(-(-r // per) for r in waves), "waves": len(waves)}
+
+
+def check_simulation(card, device="cuda", size=(W, H)) -> dict:
+    """Phase 22: the simulation on the card.  (a) bench.py config 4's
+    coupled step (scenes.coupled_step: the collision world built in the
+    step, character_step, the frame at 1280x720) for SIM_STEPS steps from
+    bench.py's (0, 3, 6) and SIM_CPU_STEPS steps from SOUP_START: one K1
+    launch and 0 host syncs a step, the first SIM_CPU_STEPS states of
+    each start equal on every value to the same steps on the CPU with the
+    render left out, frame 0 against the plain path, the step's time,
+    kernels and launches.  (b) the crowd on the bench scene
+    (scenes.crowd_setup / crowd_step: routing and combat) at N = 1, 8
+    and 32: steps timed with their kernels, launches and rays; at N = 32,
+    SIM_STEPS steps and the first CROWD_CPU_STEPS states equal to the
+    CPU's (rotation and aim within their bounds); the share of
+    agent-steps still on the soup.  (c) the dust2 app's
+    256-slot spark emitter and a 1,024-slot fountain, each feeding
+    particle_uniforms into animated_scene's 1080p frame: PARTICLE_STEPS
+    steps, one K1 launch a frame, frame 0 against the plain path, the
+    states equal to the CPU's.  (d) PRNG_DRAWS draws of random_bits,
+    uniform, randint and normal, card against CPU."""
+    from softwarerenderer_tpu_torch import RenderParams, scenes, sim
+    from softwarerenderer_tpu_torch.engine import (Engine,
+                                                   default_frame_uniforms,
+                                                   render_frame)
+    from softwarerenderer_tpu_torch.models.convert import (scene_to_torch,
+                                                           tree_to_torch)
+    from softwarerenderer_tpu_torch.ops import normalmap, tile_raster
+    from softwarerenderer_tpu_torch.sim import prng
+    out = {}
+    t0 = time.perf_counter()
+    bench = scenes.bench_scene()
+    scene = scene_to_torch(bench, device)
+    cpu_scene = scene_to_torch(bench, "cpu")
+    tris = int(bench["indices"].shape[0])
+    params_np = sim.default_character_params()
+    cp, cpu_cp = (tree_to_torch(params_np, d) for d in (device, "cpu"))
+
+    # ---- (a) config 4's coupled step ---------------------------------
+    w, h = scenes.CONFIG4_SIZE
+    params = RenderParams(w, h)
+    u = tree_to_torch(scenes.camera_uniforms(default_frame_uniforms(w, h)),
+                      device)
+    out["coupled"] = {}
+    for where, pos0, steps in (("bench.py's start", scenes.CONFIG4_START,
+                                SIM_STEPS),
+                               ("over the soup", SOUP_START, SIM_CPU_STEPS)):
+        box = {"state": sim.initial_character_state(pos0, device=device)}
+        states = []
+
+        def coupled(i):
+            box["state"], color, depth = scenes.coupled_step(
+                box["state"], scene, u, params, cp)
+            if i < SIM_CPU_STEPS:
+                states.append(box["state"])
+            return color, depth
+        run = counted_frames(coupled, steps, (w, h))
+        check(run["k1"] == [1] * steps,
+              f"config 4 {where}: K1 launches a step "
+              f"{sorted(set(run['k1']))}")
+        cpu_state = sim.initial_character_state(pos0, device="cpu")
+        diffs, grounded = [], 0
+        for got in states:
+            cpu_state = scenes.config4_physics(cpu_state, cpu_scene, cpu_cp)
+            grounded += int(cpu_state["grounded"][0])
+            diffs.append(_state_diff(got, cpu_state))
+        diff = _sum_diffs(diffs)
+        check(diff["differ"] == 0, f"config 4 {where} states card vs CPU: "
+              f"{diff['differ']} of {diff['values']} values differ")
+        start = sim.initial_character_state(pos0, device=device)
+        plain = scenes.coupled_step(start, scene, u, params, cp,
+                                    fold=tile_raster.tile_fold_plain)[1:]
+        text = against_plain(f"config 4 {where}", run["first"], plain)
+        del plain
+        # Profiled from the state after the SIM_CPU_STEPS compared steps.
+        box["state"] = states[-1]
+
+        def step():
+            box["state"] = scenes.coupled_step(box["state"], scene, u,
+                                               params, cp)[0]
+        prof = frame_kernel_ms(step, 5)
+        prof["syncs"] = host_syncs(lambda i: step(), 3)
+        check(prof["syncs"] == 0,
+              f"config 4 {where}: {prof['syncs']} host syncs a step")
+        final = states[-1]["position"].cpu().numpy()[0]
+        log(f"phase 22a config 4 coupled step @{w}x{h} from {pos0} "
+            f"({where}; bench scene, {tris} triangles, the world built in "
+            f"the step): {steps} steps, K1 launches {sum(run['k1'])}; "
+            f"first step {run['frame_ms'][0]:.1f} ms, median step "
+            f"{run['median_ms']:.3f} ms; profiled after step "
+            f"{SIM_CPU_STEPS}: {prof['launches']:.0f} launches, kernels "
+            f"{prof['kernels']:.3f} ms (K1 {prof['K1']:.3f}), "
+            f"{prof['syncs']:.1f} host syncs a step; states card vs CPU "
+            f"over the first {SIM_CPU_STEPS} steps: {diff['differ']} of "
+            f"{diff['values']} values differ, grounded in {grounded} of "
+            f"them, position after them {np.round(final, 3).tolist()}; "
+            f"{text}; took {time.perf_counter() - t0:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        out["coupled"][where] = dict(median_ms=run["median_ms"], prof=prof,
+                                     cpu_values=diff["values"],
+                                     grounded=grounded)
+        del run, states
+
+    # ---- (b) the crowd -------------------------------------------------
+    world = sim.build_collision_world(scene)
+    cpu_world = sim.build_collision_world(cpu_scene)
+    brain_np = sim.default_brain_params()
+    br, cpu_br = (tree_to_torch(brain_np, d) for d in (device, "cpu"))
+    out["crowd"] = {}
+    for n in CROWD_SIZES:
+        crowd = scenes.crowd_setup(world, n)
+        steps = SIM_STEPS if n == CROWD_SIZES[-1] else CROWD_TIMED_STEPS
+        box = {"state": crowd["state"]}
+        kept, times = [], []
+        shots = torch.zeros((), dtype=torch.int64, device=device)
+        on_soup = torch.zeros((), dtype=torch.int64, device=device)
+        for i in range(steps):
+            t = time.perf_counter()
+            box["state"] = scenes.crowd_step(box["state"], crowd, world, cp,
+                                             br)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            shots += box["state"]["fire"].sum()
+            on_soup += (box["state"]["char"]["position"][:, 1] > -3.0).sum()
+            if i < CROWD_CPU_STEPS and n == CROWD_SIZES[-1]:
+                kept.append(box["state"])
+        pos = box["state"]["char"]["position"]
+        check(bool(torch.isfinite(pos).all()), f"crowd {n}: non-finite")
+        # Agent-steps still on the soup (y > -3): the rest are falling.
+        soup_share = int(on_soup) / (n * steps)
+
+        def crowd_step():
+            box["state"] = scenes.crowd_step(box["state"], crowd, world, cp,
+                                             br)
+        cprof = frame_kernel_ms(crowd_step, 3)
+        cprof["syncs"] = host_syncs(lambda i: crowd_step(), 3)
+        check(cprof["syncs"] == 0, f"crowd {n}: {cprof['syncs']} host "
+              f"syncs a step")
+        rays = crowd_rays(n, tris)
+        cprof.update(rays, median_ms=statistics.median(times[1:]),
+                     shots=int(shots), soup_share=soup_share)
+        out["crowd"][n] = cprof
+        log(f"phase 22b crowd N={n} on the bench scene ("
+            f"{crowd['waypoints'].shape[0]} waypoints, routing, combat): "
+            f"{steps} steps, median step {cprof['median_ms']:.3f} ms; "
+            f"profiled: {cprof['launches']:.0f} launches, kernels "
+            f"{cprof['kernels']:.3f} ms, {cprof['syncs']:.1f} host syncs a "
+            f"step; {rays['rays']} rays ({rays['pairs']} ray-triangle "
+            f"pairs) in {rays['waves']} waves of {rays['chunks']} chunks; "
+            f"{cprof['shots']} shots fired in the run, "
+            f"{int((pos[:, 1] > -3.0).sum())} of {n} agents still on the "
+            f"soup (y > -3) at its end and {soup_share:.3f} of its "
+            f"agent-steps [{card}]")
+    cpu_crowd = scenes.crowd_setup(cpu_world, CROWD_SIZES[-1])
+    check(torch.equal(cpu_crowd["waypoints"], crowd["waypoints"].cpu())
+          and torch.equal(cpu_crowd["next_hop"], crowd["next_hop"].cpu()),
+          "crowd set-up: the CPU's waypoints or routes differ")
+    cstate = cpu_crowd["state"]
+    diffs = []
+    for got in kept:
+        cstate = scenes.crowd_step(cstate, cpu_crowd, cpu_world, cpu_cp,
+                                   cpu_br)
+        diffs.append(_state_diff(got, cstate, ("rotation", "aim")))
+    diff = _sum_diffs(diffs)
+    rot, aim = diff["loose"]["rotation"], diff["loose"]["aim"]
+    log(f"phase 22b crowd N={CROWD_SIZES[-1]} card vs CPU over the first "
+        f"{CROWD_CPU_STEPS} steps: {diff['differ']} of {diff['values']} "
+        f"values differ outside rotation and aim; rotation at most "
+        f"{rot:.3g} off (bound {SIM_ROTATION_ATOL}), aim {aim:.3g} (bound "
+        f"{SIM_AIM_ATOL}); part (b) took {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    check(diff["differ"] == 0 and rot <= SIM_ROTATION_ATOL
+          and aim <= SIM_AIM_ATOL, "crowd states card vs CPU")
+    out["crowd_cpu"] = dict(diff["loose"], values=diff["values"])
+    del kept, world, cpu_world
+
+    # ---- (c) particles into the animated frame ---------------------------
+    t0 = time.perf_counter()
+    W1, H1 = size
+    shaders = dict(vertex_shader=normalmap.normal_mapped_vertex_shader,
+                   fragment_shader=normalmap.normal_mapped_fragment_shader)
+    quiet = scenes.spark_emitter()
+    bursts = [scenes.spark_emitter((-1.5 + 0.5 * k, -1.0, -4.0 - 0.3 * k))
+              for k in range(PARTICLE_STEPS // SPARK_EVERY)]
+    fountain = scenes.fountain_emitter()
+    emitters = {
+        "sparks": (scenes.SPARK_SLOTS, lambda i: bursts[i // SPARK_EVERY]
+                   if i % SPARK_EVERY == 0 else quiet),
+        "fountain": (scenes.ANIMATED_PARTICLES, lambda i: fountain)}
+    # Each emitter on the card once, so a step copies nothing.
+    on = {id(e): tree_to_torch(e, device)
+          for e in [quiet, fountain] + bursts}
+    out["particles"] = {}
+    for name, (slots, emitter_at) in emitters.items():
+        sc = scenes.animated_scene(particles=slots)
+        eng = Engine(sc, RenderParams(W1, H1), device=device, **shaders)
+        base_u = dict(eng.uniforms)
+        pstate = {"s": sim.initial_particle_state(slots, device=device)}
+        kept = []
+
+        def frame_u(i, state, em):
+            u = scenes.animated_uniforms(base_u, i, particles=slots)
+            u.update(sim.particle_uniforms(state, em))
+            return u
+
+        def render(i):
+            em = on[id(emitter_at(i))]
+            pstate["s"] = sim.particle_step(pstate["s"], em,
+                                            scenes.CONFIG4_DT)
+            kept.append(pstate["s"])
+            return eng.render(frame_u(i, pstate["s"], em))
+        prun = counted_frames(render, PARTICLE_STEPS, (W1, H1))
+        check(prun["k1"] == [1] * PARTICLE_STEPS,
+              f"{name}: K1 launches a frame {sorted(set(prun['k1']))}")
+        plain = render_frame(eng.scene, frame_u(
+            0, kept[0], on[id(emitter_at(0))]), eng.params,
+            fold=tile_raster.tile_fold_plain, **shaders)
+        ptext = against_plain(f"{name} frame", prun["first"], plain)
+        del plain
+        cs = sim.initial_particle_state(slots, device="cpu")
+        diffs = []
+        for i, got in enumerate(kept):
+            cs = sim.particle_step(cs, tree_to_torch(emitter_at(i), "cpu"),
+                                   scenes.CONFIG4_DT)
+            diffs.append(_state_diff(got, cs))
+        diff = _sum_diffs(diffs)
+        alive = int((kept[-1]["lifetime"] > 0).sum())
+        pprof = frame_kernel_ms(lambda: render(0), 3)
+        em0 = on[id(emitter_at(0))]
+
+        def particles_alone():
+            pstate["s"] = sim.particle_step(pstate["s"], em0,
+                                            scenes.CONFIG4_DT)
+            sim.particle_uniforms(pstate["s"], em0)
+        pprof["step_syncs"] = host_syncs(lambda i: particles_alone(), 3)
+        pprof["step"] = frame_kernel_ms(particles_alone, 3)
+        check(pprof["step_syncs"] == 0, f"{name}: the particle step "
+              f"syncs {pprof['step_syncs']} times")
+        log(f"phase 22c {name} ({slots} slots) into the animated frame "
+            f"@{W1}x{H1}: {PARTICLE_STEPS} steps, K1 launches "
+            f"{sum(prun['k1'])}, {alive} alive at the end; "
+            f"{timing_text(prun, pprof, W1, H1)}; the step and its "
+            f"uniforms alone: {pprof['step']['launches']:.0f} launches, "
+            f"kernels {pprof['step']['kernels']:.3f} ms, "
+            f"{pprof['step_syncs']:.1f} host syncs; states card vs CPU: "
+            f"{diff['differ']} of {diff['values']} values differ; {ptext} "
+            f"[{card}]")
+        check(diff["differ"] == 0, f"{name} states card vs CPU")
+        check(alive > 0, f"{name}: no particle alive")
+        out["particles"][name] = dict(median_ms=prun["median_ms"],
+                                      prof=pprof, alive=alive)
+        del eng, kept, prun
+
+    log(f"phase 22c took {time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) the PRNG ------------------------------------------------------
+    key, cpu_key = prng.prng_key(22, device), prng.prng_key(22, "cpu")
+    shape = (PRNG_DRAWS,)
+    draws = {
+        "random_bits": lambda k: prng.random_bits(k, shape),
+        "uniform": lambda k: prng.uniform(k, shape),
+        "randint": lambda k: prng.randint(k, shape, -1000, 1000),
+        "normal": lambda k: prng.normal(k, shape)}
+    counts = {}
+    for name, fn in draws.items():
+        got, want = fn(key).cpu(), fn(cpu_key)
+        if name == "normal":
+            ulps = (got.view(torch.int32).long()
+                    - want.view(torch.int32).long()).abs()
+            counts[name] = (int((ulps > 0).sum()), int(ulps.max()))
+        else:
+            counts[name] = (_differing(got, want), 0)
+    log(f"phase 22d PRNG, {PRNG_DRAWS} draws each, card vs CPU: "
+        + ", ".join(f"{n} {c[0]} differ" + (f" (at most {c[1]} ulps)"
+                                            if n == "normal" else "")
+                    for n, c in counts.items()) + f" [{card}]")
+    check(all(c[0] == 0 for n, c in counts.items() if n != "normal")
+          and counts["normal"][1] <= NORMAL_CARD_ULPS,
+          f"PRNG card vs CPU: {counts}")
+    out["prng"] = counts
+    return out
+
+
 def build_kernels() -> None:
     """Phase 2: build every kernel from the checkout's sources and print
     what ptxas says of each."""
@@ -2861,6 +3237,9 @@ def main() -> int:
 
     # ---- phase 21: the animated frame ------------------------------------
     check_animated_frames(card)
+
+    # ---- phase 22: the simulation ----------------------------------------
+    check_simulation(card)
     log(f"profiler: {TRACES['retaken']} of device_ms's {TRACES['taken']} "
         f"traces were taken again for a lost launch record")
 

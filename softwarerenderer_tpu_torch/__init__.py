@@ -20,7 +20,11 @@ NOT_EQUAL), the wireframe, overdraw and depth views, with
 with ``ops.lighting``'s shaders multi-light and PBR frames, and through
 ``engine.render_frame_with_shadows`` / ``_with_point_shadows`` /
 ``_with_spot_shadow`` frames with shadow maps; every option outside them
-raises ``NotImplementedError``.
+raises ``NotImplementedError``.  The simulation steps on the same device
+(``sim``: the character controller, the AI crowd and the particle system,
+drawing JAX's own threefry streams through ``sim.prng``); ``scenes``
+holds bench.py config 4's coupled step and a crowd on the bench scene,
+and ``utils.checkpoint`` saves and restores their states.
 """
 
 from softwarerenderer_tpu_torch.config import (  # noqa: F401

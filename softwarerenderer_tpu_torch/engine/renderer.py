@@ -53,6 +53,7 @@ yet raises ``NotImplementedError`` instead of rendering another image.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -182,27 +183,50 @@ def default_frame_uniforms(width: int, height: int) -> Dict:
     }
 
 
-def _f32(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+def _f32(x, device=None) -> torch.Tensor:
+    """A uniform as a float32 tensor: on the host, or on `device` (a
+    tensor is moved, a host value copied)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    t = torch.from_numpy(np.array(x, dtype=np.float32))
+    return t if device is None else t.to(device)
 
 
-def _fov_radians(uniforms: Dict) -> torch.Tensor:
-    return _f32(uniforms["fov_degrees"]) * float(np.float32(np.pi / 180.0))
+@functools.lru_cache(maxsize=None)
+def _camera_axes(device) -> tuple:
+    """The camera's local front and up axes, once per device."""
+    return _f32([0.0, 0.0, -1.0], device), _f32([0.0, 1.0, 0.0], device)
+
+
+def _camera_device(uniforms: Dict):
+    """Where the camera is computed: the device of a camera_position
+    tensor (a simulation's pose, never read back), else the host (None)."""
+    pos = uniforms["camera_position"]
+    return pos.device if isinstance(pos, torch.Tensor) else None
+
+
+def _fov_radians(uniforms: Dict, device=None) -> torch.Tensor:
+    return _f32(uniforms["fov_degrees"], device) \
+        * float(np.float32(np.pi / 180.0))
 
 
 def camera_matrices(uniforms: Dict, width: int, height: int):
     """View from position + quaternion (Camera.cs:12-26) and the .NET
-    perspective from the live FOV (Renderer.cs:406-410), computed on the
-    host as float32 tensors."""
-    pos = _f32(uniforms["camera_position"])
-    rot = _f32(uniforms["camera_rotation"])
-    front = ml.quat_rotate(_f32([0.0, 0.0, -1.0]), rot)
-    up = ml.quat_rotate(_f32([0.0, 1.0, 0.0]), rot)
+    perspective from the live FOV (Renderer.cs:406-410), computed as
+    float32 tensors on the host, or on the device of a camera_position
+    tensor (the other camera uniforms then best live there too)."""
+    dev = _camera_device(uniforms)
+    pos = _f32(uniforms["camera_position"], dev)
+    rot = _f32(uniforms["camera_rotation"], dev)
+    front_axis, up_axis = _camera_axes(dev)
+    front = ml.quat_rotate(front_axis, rot)
+    up = ml.quat_rotate(up_axis, rot)
     view = ml.look_at(pos, pos + front, up)
-    fov = _fov_radians(uniforms)
-    aspect = _f32(np.float32(width) / np.float32(height))
-    proj = ml.perspective_fov(fov, aspect, _f32(uniforms["near_clip"]),
-                              _f32(uniforms["far_clip"]))
+    fov = _fov_radians(uniforms, dev)
+    aspect = torch.full((), float(np.float32(width) / np.float32(height)),
+                        dtype=torch.float32, device=dev)
+    proj = ml.perspective_fov(fov, aspect, _f32(uniforms["near_clip"], dev),
+                              _f32(uniforms["far_clip"], dev))
     return view, proj
 
 
@@ -246,10 +270,13 @@ def device_uniforms(uniforms: Dict, width: int, height: int,
     dtype, as each copy waits for the device; tensors and dicts move as
     they are."""
     view, proj = camera_matrices(uniforms, width, height)
-    tan_half = torch.tan(_fov_radians(uniforms) * 0.5)
-    host = dict(uniforms, view=view.numpy(), projection=proj.numpy(),
-                tan_half_fov=tan_half.numpy())
-    f32 = {k: np.asarray(host[k], np.float32).reshape(shape)
+    cam_dev = _camera_device(uniforms)
+    tan_half = torch.tan(_fov_radians(uniforms, cam_dev) * 0.5)
+    if cam_dev is None:
+        view, proj, tan_half = view.numpy(), proj.numpy(), tan_half.numpy()
+    host = dict(uniforms, view=view, projection=proj, tan_half_fov=tan_half)
+    f32 = {k: (host[k].to(torch.float32) if isinstance(host[k], torch.Tensor)
+               else np.asarray(host[k], np.float32)).reshape(shape)
            for k, shape in _DEVICE_UNIFORMS}
     return _upload({**f32, **{k: v for k, v in uniforms.items()
                              if k not in f32 and k not in _HOST_UNIFORMS}},

@@ -45,7 +45,10 @@ from softwarerenderer_tpu_torch.config import RenderParams
 from softwarerenderer_tpu_torch.ops import rt_sweep, sky
 from softwarerenderer_tpu_torch.ops.binning import cdiv
 from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
-from softwarerenderer_tpu_torch.sim import raycast as rc
+from softwarerenderer_tpu_torch.sim.raycast import (
+    FACE_MASK_NONE,
+    build_collision_world,
+    raycast_batch_bary)
 from softwarerenderer_tpu_torch.utils import mathlib as ml
 
 F32 = torch.float32
@@ -62,7 +65,7 @@ def build_rt_world(scene: Dict[str, torch.Tensor], uniforms: Dict) -> Dict:
     (T, 18) ``geom_table`` (v0 | e1 | e2 | n0 | n1 | n2), each one row
     gather per ray.  uniforms["mesh_visible"] (host bools per mesh) folds
     into ``tri_mask``."""
-    world = rc.build_collision_world(scene)
+    world = build_collision_world(scene)
     dev = world["v0"].device
     idx = scene["indices"].long()
     uv = scene["uv"].to(F32)[idx]                                # (T, 3, 2)
@@ -269,8 +272,8 @@ def _brute_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
 
     def cast(o, dd):
         with record_function("rt.brute_cast"):
-            return rc.raycast_batch_bary(o, dd, world, rc.FACE_MASK_NONE,
-                                         tri_mask)
+            return raycast_batch_bary(o, dd, world, FACE_MASK_NONE,
+                                      tri_mask)
     hits = cast(eye.expand_as(d), d)
     with record_function("rt.shade"):
         rgba, depth = _shade_hits(hits, world, u, fragment_shader, white)
@@ -318,7 +321,7 @@ def _bundle_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
 
     def cast_nearest(o_b, d_b):
         res = rt_sweep.raycast_bundles_nearest(
-            o_b, d_b, world, accel, face_mask=rc.FACE_MASK_NONE,
+            o_b, d_b, world, accel, face_mask=FACE_MASK_NONE,
             tri_mask=tri_mask, sweep=sweep)
         return res, {k: res[k].reshape((B * R,) + res[k].shape[2:])
                      for k in HIT_KEYS}
@@ -350,7 +353,7 @@ def _bundle_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
         sh = rt_sweep.raycast_bundles_any(
             off[:, None].expand(B, S, R, 3).reshape(B, S * R, 3),
             sdirs.reshape(B, S * R, 3), world, accel,
-            face_mask=rc.FACE_MASK_NONE, tri_mask=tri_mask, sweep=sweep)
+            face_mask=FACE_MASK_NONE, tri_mask=tri_mask, sweep=sweep)
         with record_function("rt.shade"):
             occl = sh["hit"].reshape(B, S, R).to(F32).sum(1).reshape(-1)
             rgba = shade_lit(rgba, occl)

@@ -27,11 +27,10 @@ from typing import Dict
 
 import torch
 
-from softwarerenderer_tpu_torch.sim import raycast as rc
+from softwarerenderer_tpu_torch.sim.raycast import BIG
 
 F32 = torch.float32
 I32 = torch.int32
-BIG = rc.BIG
 
 
 def _morton3(q: torch.Tensor) -> torch.Tensor:

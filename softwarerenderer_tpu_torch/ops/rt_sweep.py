@@ -42,12 +42,16 @@ import torch
 from torch.profiler import record_function
 
 from softwarerenderer_tpu_torch.ops import rt_accel
-from softwarerenderer_tpu_torch.sim import raycast as rc
+from softwarerenderer_tpu_torch.sim.raycast import (
+    BIG,
+    FACE_MASK_NONE,
+    mt_block,
+    raycast_batch,
+    raycast_batch_bary)
 from softwarerenderer_tpu_torch.utils import mathlib as ml
 
 F32 = torch.float32
 I32 = torch.int32
-BIG = rc.BIG
 NOTRI = 2 ** 30          # "no triangle" id of a miss
 GROUP = 128              # triangles per cluster
 STREAM_ROWS = 11
@@ -271,7 +275,7 @@ def rt_sweep_plain(rays, stream, lists, counts, t0q, *, any_hit: bool,
         e2 = tri[6:9].permute(1, 2, 0)[:, None]
         o = rays[b0:b1, 0:3].transpose(1, 2)[:, :, None]        # (nb,R,1,3)
         d = rays[b0:b1, 3:6].transpose(1, 2)[:, :, None]
-        ok, t, _u, _v = rc.mt_block(o, d, v0, e1, e2, face_mask)
+        ok, t, _u, _v = mt_block(o, d, v0, e1, e2, face_mask)
         ok &= ok_slot[:, None, :]
         if any_hit:
             out_g[b0:b1] = ok.any(-1).to(I32)
@@ -296,7 +300,7 @@ def _masks(accel: Dict, tri_mask):
 
 
 def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
-                            *, capb=None, face_mask: int = rc.FACE_MASK_NONE,
+                            *, capb=None, face_mask: int = FACE_MASK_NONE,
                             tri_mask=None, sweep: Optional[Callable] = None):
     """Nearest hit of B bundles × R rays ((B, R, 3) origins and
     directions): raycast_batch's result dict with (B, R) leaves, plus the
@@ -310,8 +314,8 @@ def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
          overflow) = _prep(origins, directions, accel, slot_mask, capb)
     if capb is not None and bool(overflow):
         B, R = o.shape[:2]
-        res = rc.raycast_batch_bary(o.reshape(-1, 3), d.reshape(-1, 3),
-                                    world, face_mask, tri_mask)
+        res = raycast_batch_bary(o.reshape(-1, 3), d.reshape(-1, 3),
+                                 world, face_mask, tri_mask)
         out = {k: x.reshape((B, R) + x.shape[1:]) for k, x in res.items()}
     else:
         with record_function("rt.sweep_nearest"):
@@ -330,7 +334,7 @@ def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
                 we1 = world["v1"][wtri] - wv0
                 we2 = world["v2"][wtri] - wv0
                 n0, n1, n2 = (world[k][wtri] for k in ("n0", "n1", "n2"))
-            _ok, _t, u, v = rc.mt_block(o, d, wv0, we1, we2, face_mask)
+            _ok, _t, u, v = mt_block(o, d, wv0, we1, we2, face_mask)
             w = 1.0 - u - v
             normal = ml.safe_normalize(n0 * w[..., None] + n1 * u[..., None]
                                        + n2 * v[..., None])
@@ -346,7 +350,7 @@ def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
 
 
 def raycast_bundles_any(origins, directions, world: Dict, accel: Dict,
-                        *, capb=None, face_mask: int = rc.FACE_MASK_NONE,
+                        *, capb=None, face_mask: int = FACE_MASK_NONE,
                         tri_mask=None, sweep: Optional[Callable] = None):
     """Occlusion of B bundles × R rays: {"hit": (B, R) bool, "n_pairs",
     "overflow"}, "hit" equal to raycast_batch's; sweep as in
@@ -358,9 +362,9 @@ def raycast_bundles_any(origins, directions, world: Dict, accel: Dict,
          overflow) = _prep(origins, directions, accel, slot_mask, capb)
     if capb is not None and bool(overflow):
         B, R = o.shape[:2]
-        hit = rc.raycast_batch(o.reshape(-1, 3), d.reshape(-1, 3), world,
-                               face_mask=face_mask,
-                               tri_mask=tri_mask)["hit"].reshape(B, R)
+        hit = raycast_batch(o.reshape(-1, 3), d.reshape(-1, 3), world,
+                            face_mask=face_mask,
+                            tri_mask=tri_mask)["hit"].reshape(B, R)
     else:
         with record_function("rt.sweep_any"):
             _t, g = sweep(rays, stream, lists, counts, t0q, any_hit=True,

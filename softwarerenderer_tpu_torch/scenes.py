@@ -24,22 +24,38 @@ host layer (numpy, no JAX).
     ``animated_uniforms(u, i)``: a game-like frame of every per-frame
     vertex update and LOD level (normal-mapped floor, 64 skinned
     tentacles, flip-book, morphing and LOD meshes, a 1,024-slot particle
-    emitter), for the card's phase 21.
+    emitter), for the card's phase 21;
+  * ``coupled_step`` (``config4_physics`` and the frame): bench.py config
+    4's physics-coupled step at ``CONFIG4_SIZE``; ``crowd_setup`` and
+    ``crowd_step``: a crowd on the bench scene in the dust2 app's shape
+    (two spawn centres, floor waypoints, routing, combat);
+    ``spark_emitter`` and ``fountain_emitter``: the dust2 app's impact
+    sparks and a fountain for the animated scene's slots (phase 22).
 
 Each equals its source array for array (tests/test_torch_package.py).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from softwarerenderer_tpu_torch.models import primitives
 from softwarerenderer_tpu_torch.models import scene as scene_mod
 from softwarerenderer_tpu_torch.models.scene import Light, LightType
 from softwarerenderer_tpu_torch.ops import lighting
 from softwarerenderer_tpu_torch.ops.texture import checkerboard
+from softwarerenderer_tpu_torch.sim import (agents_step,
+                                            build_collision_world,
+                                            build_waypoint_graph,
+                                            character_step,
+                                            default_emitter_params,
+                                            initial_agents_state,
+                                            scatter_waypoints_on_floor)
+from softwarerenderer_tpu_torch.sim.prng import prng_key
 from softwarerenderer_tpu_torch.utils import mathlib as ml
 
 F32 = np.float32
@@ -629,3 +645,124 @@ def animated_uniforms(uniforms: Dict, i: int, fps: float = 60.0,
         [np.broadcast_to(np.float32([1.0, 0.7, 0.3]), (n, 3)),
          np.where(age < 1.5, 1.0, 0.0)[:, None]], -1).astype(F32)
     return u
+
+
+# bench.py config 4 (bench.py:369-406): the physics-coupled step at
+# 1280x720, the character from (0, 3, 6) walking (0, 0, -1) at 1/60 s.
+CONFIG4_SIZE = (1280, 720)
+CONFIG4_START = (0.0, 3.0, 6.0)
+CONFIG4_DT = 1.0 / 60.0
+
+
+@functools.lru_cache(maxsize=None)
+def _config4_move(device):
+    """Config 4's move input, on `device` once."""
+    return torch.tensor([0.0, 0.0, -1.0], dtype=torch.float32,
+                        device=device)
+
+
+def config4_physics(state: Dict, scene: Dict, char_params: Dict) -> Dict:
+    """The simulation half of config 4's step: the collision world built
+    from the scene inside the step, then character_step with move (0, 0,
+    -1), no jump, dt 1/60.  `scene` is on the state's device
+    (models.convert.scene_to_torch); char_params as tensors there
+    (models.convert.tree_to_torch) keep the step free of host copies."""
+    dev = state["position"].device
+    world = build_collision_world(scene)
+    return character_step(state, _config4_move(dev), False, CONFIG4_DT,
+                          world, char_params)
+
+
+def coupled_step(state: Dict, scene: Dict, uniforms: Dict, params,
+                 char_params: Dict, fold=None):
+    """bench.py config 4's step (bench.py:384-392): config4_physics, the
+    camera at the character's position + cam_offset, and the frame
+    through render_frame (`fold` as render_frame's).  Returns (state,
+    color, depth).  With the uniforms' values as tensors on the state's
+    device (tree_to_torch) the step reads nothing back to the host."""
+    from softwarerenderer_tpu_torch.engine import render_frame
+    state = config4_physics(state, scene, char_params)
+    u = dict(uniforms)
+    u["camera_position"] = state["position"][0] + char_params["cam_offset"]
+    color, depth = render_frame(scene, u, params, fold=fold)
+    return state, color, depth
+
+
+# The crowd on the bench scene, in the dust2 app's shape
+# (apps/dust2.py:372-395): two spawn centres with 16 floor points each,
+# routed by build_waypoint_graph, agents spawned around alternate centres
+# who target each other by id.  The seeded soup fills x, y in [-2.8, 2.8],
+# z in [-6.8, -1.2]; the centres stand over it at y = 3.5 and the floor
+# points are dropped within 1.5 m of them (the app's 12 m would miss the
+# soup's 5.6 m).
+CROWD_CENTRES = ((-1.2, 3.5, -4.0), (1.2, 3.5, -4.0))
+CROWD_RADIUS = 1.5
+CROWD_POINTS = 16
+
+
+def crowd_setup(world: Dict, n: int, seed: int = 22) -> Dict:
+    """A crowd of n agents on `world` (the bench scene's collision world):
+    {"state": initial_agents_state on the world's device, "waypoints" (W,
+    3) and "next_hop" (W, W) there, "ids" (n,) int32}.  Spawns jitter
+    ±1.5 m around alternate centres and start at random waypoints
+    (numpy's default_rng(seed)); the agents' key is prng_key(seed)."""
+    dev = world["v0"].device
+    wps = scatter_waypoints_on_floor(world, CROWD_CENTRES, CROWD_POINTS,
+                                     seed=seed, radius=CROWD_RADIUS)
+    hop = build_waypoint_graph(world, wps)
+    rng = np.random.default_rng(seed)
+    centres = np.asarray(CROWD_CENTRES, F32)[np.arange(n) % 2]
+    jitter = rng.uniform(-1.5, 1.5, (n, 2)).astype(F32)
+    starts = centres + np.stack([jitter[:, 0], np.zeros(n, F32),
+                                 jitter[:, 1]], 1)
+    wp0 = rng.integers(0, len(wps), n).astype(np.int32)
+    return {"state": initial_agents_state(starts, key=prng_key(seed, dev),
+                                          waypoint_idx=wp0, device=dev),
+            "waypoints": torch.from_numpy(wps).to(dev),
+            "next_hop": torch.from_numpy(hop).to(dev),
+            "ids": torch.arange(n, dtype=torch.int32, device=dev)}
+
+
+def crowd_step(state: Dict, crowd: Dict, world: Dict, char_params: Dict,
+               brain: Dict, dt=1.0 / 60.0) -> Dict:
+    """One agents_step of the crowd with routing and combat: every agent
+    a target, alive, never its own."""
+    pos = state["char"]["position"]
+    return agents_step(state, dt, crowd["waypoints"], world, char_params,
+                       brain, next_hop=crowd["next_hop"], targets=pos,
+                       target_ids=crowd["ids"], self_ids=crowd["ids"])
+
+
+# Phase 22's emitters over animated_scene's floor (y = -1): the dust2
+# app's impact sparks (256 slots, apps/dust2.py:633) and a fountain for
+# the scene's 1,024 slots that bounces on the floor.
+SPARK_SLOTS = 256
+
+
+def spark_emitter(origin=None, dt: float = 1.0 / 60.0) -> Dict:
+    """apps/dust2.py's impact-spark emitter (:766-772): quiet (rate 0);
+    given an impact `origin` on an upward floor, that step's burst of 24
+    particles at 2 m/s along the normal (:1400, :1612-1616)."""
+    em = default_emitter_params()
+    em.update(rate=F32(0.0), base_velocity=np.zeros(3, F32),
+              spread=F32(2.2), lifetime=np.asarray([0.25, 0.6], F32),
+              size=np.asarray([0.05, 0.01], F32),
+              color0=np.asarray([1.0, 0.85, 0.4, 1.0], F32),
+              color1=np.asarray([1.0, 0.3, 0.05, 0.0], F32))
+    if origin is not None:
+        n = np.asarray([0.0, 1.0, 0.0], F32)
+        em.update(origin=np.asarray(origin, F32) + n * F32(0.02),
+                  base_velocity=n * F32(2.0),
+                  rate=F32(24.0) / F32(max(dt, 1e-3)))
+    return em
+
+
+def fountain_emitter() -> Dict:
+    """A fountain for animated_scene's 1,024 slots: 600 particles/s from
+    (0, -1, -4) at 4 m/s up, bouncing on the floor at y = -1 (about 960
+    alive at once with the default 1.2-2.0 s lifetimes)."""
+    em = default_emitter_params()
+    em.update(origin=np.asarray([0.0, -1.0, -4.0], F32),
+              base_velocity=np.asarray([0.0, 4.0, 0.0], F32),
+              rate=F32(600.0), floor_y=F32(-1.0))
+    return em

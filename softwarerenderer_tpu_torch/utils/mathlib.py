@@ -135,9 +135,12 @@ def orthographic(width: torch.Tensor, height: torch.Tensor,
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """float32 sqrt rounded to nearest on every device.  torch's
     vectorised CPU sqrt misses the correctly rounded result by an ulp on
-    about 0.6 % of values, CUDA's does not; the float64 root rounded to
-    float32 is the correctly rounded one (a double rounding of sqrt is
-    exact), so the CPU and the card agree bit for bit."""
+    about 0.6 % of values, CUDA's does not: on the CPU the root is taken
+    in float64 and rounded to float32, which is the correctly rounded one
+    (a double rounding of sqrt is exact), so the CPU and the card agree
+    bit for bit.  On the card it is torch.sqrt itself."""
+    if x.is_cuda:
+        return torch.sqrt(x)
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
@@ -157,10 +160,11 @@ def mat4_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def safe_normalize(v: torch.Tensor) -> torch.Tensor:
-    """Normalize; zero vectors stay zero (no NaN)."""
+    """Normalize; zero vectors stay zero (no NaN).  The root is sqrt_rn's,
+    so a direction or normal is the same on the CPU and the card."""
     sq = dot(v, v)
     pos = sq > 0
-    inv = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, sq, 1.0)), 0.0)
+    inv = torch.where(pos, 1.0 / sqrt_rn(torch.where(pos, sq, 1.0)), 0.0)
     return v * inv[..., None]
 
 

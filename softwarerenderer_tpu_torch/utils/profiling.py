@@ -3,7 +3,7 @@
     python -m softwarerenderer_tpu_torch.utils.profiling [--frames N]
         [--width W] [--height H] [--kbuffer K | --raytrace CAP | --deferred
         | --config 3|5 | --shadows directional|point|spot
-        | --image-quality | --animated] [--out DIR]
+        | --image-quality | --animated | --sim] [--out DIR]
 
 Renders the bench scene (``scenes.bench_scene()``) through ``Engine(scene,
 RenderParams(W, H), device="cuda")`` with ``scenes.camera_uniforms(u, i)``;
@@ -28,7 +28,13 @@ of ``scenes.animated_scene()`` (skinned, flip-book, morphing, particle and
 LOD meshes over a normal-mapped floor) with the normal-mapped shaders at
 ``scenes.animated_uniforms(u, i)``, whose updates show as
 ``frame.vertex_updates``.  Without --width and
---height a frame is 1920x1080, config 5 bench.py's 3840x2160.  It prints:
+--height a frame is 1920x1080, config 5 bench.py's 3840x2160.  With --sim
+it profiles the simulation instead, three programs (``sim_programs``):
+bench.py config 4's coupled step at 1280x720, a crowd step of
+``CROWD_AGENTS`` (32) agents on the bench scene with routing and combat,
+and a step of the 1,024-slot fountain emitter, whose spans are
+``sim.character``, ``sim.agents``, ``sim.raycast`` (each raycast wave)
+and ``sim.particles``.  It prints:
 
   * the scene's statistics at frame 0: for a raster frame its binning
     (valid clip-fan slots, global triangles, binned (tile, triangle) pairs,
@@ -45,7 +51,8 @@ LOD meshes over a normal-mapped floor) with the normal-mapped shaders at
     frame time without the profiler).
 
 The chrome trace and a JSON summary go to --out (default
-``chiprun_out/profile``).  Needs a CUDA device.
+``chiprun_out/profile``; with --sim the summary alone, its spans those
+that saw work).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -70,7 +77,10 @@ SPANS = ("frame.camera_cull", "frame.vertex_updates", "frame.geometry",
          "rt.composite", "vis.fold", "deferred.interp", "deferred.shade",
          "shadow.geometry", "shadow.fold", "frame.ssaa_resolve",
          "post.sky", "post.ssao", "post.bloom", "post.tonemap",
-         "post.fxaa", "post.callable")
+         "post.fxaa", "post.callable", "sim.agents", "sim.character",
+         "sim.raycast", "sim.particles")
+# The crowd that --sim profiles: chip_smoke.py phase 22b's largest.
+CROWD_AGENTS = 32
 SHADOW_FRAMES = {"directional": "shadows", "point": "point_shadows",
                  "spot": "spot_shadows"}
 
@@ -152,14 +162,15 @@ def raytrace_stats(eng, uniforms, cap: int) -> Dict:
     return {"casts": casts}
 
 
-def _wall_ms(eng, frames, uniforms_at, sync_each: bool) -> float:
-    """Median (sync_each) or mean (back to back) host ms per frame."""
+def _wall_ms(step, frames, sync_each: bool) -> float:
+    """Median (sync_each) or mean (back to back) host ms per call of
+    step(i)."""
     times = []
     torch.cuda.synchronize()
     t_all = time.perf_counter()
     for i in range(frames):
         t = time.perf_counter()
-        eng.render(uniforms_at(i))
+        step(i)
         if sync_each:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
@@ -186,11 +197,13 @@ def trace_summary(trace: Dict, frames: int) -> Dict:
             window[e["name"]] += e["dur"]
             gpu_spans.append((e["ts"], e["ts"] + e["dur"], e["name"]))
     for k in kernels:
+        # The innermost span holding the kernel (the simulation's spans
+        # nest: sim.raycast in sim.character in sim.agents).
         mid = k["ts"] + k["dur"] / 2
-        for lo, hi, name in gpu_spans:
-            if lo <= mid <= hi:
-                by_span[name] += k["dur"]
-                break
+        inside = [(hi - lo, name) for lo, hi, name in gpu_spans
+                  if lo <= mid <= hi]
+        if inside:
+            by_span[min(inside)[1]] += k["dur"]
     rt = [e for e in ev if e.get("cat") in ("cuda_runtime", "cuda_driver")]
     launches = sum(1 for e in rt if "LaunchKernel" in e["name"]
                    or e["name"] == "cuLaunchKernel")
@@ -215,6 +228,71 @@ def trace_summary(trace: Dict, frames: int) -> Dict:
     }
 
 
+def profile(step, frames: int, path: str) -> Dict:
+    """step(i) timed back to back and synchronised (30 calls each after 3
+    of warm-up), then traced over `frames` calls (the chrome trace to
+    `path`): the timings, trace_summary's numbers and the device's idle
+    share."""
+    _wall_ms(step, 3, True)                              # warm-up
+    back_to_back = _wall_ms(step, 30, False)
+    synced = _wall_ms(step, 30, True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(frames):
+            step(i)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        summary = trace_summary(json.load(f), frames)
+    return {"frame_ms_back_to_back": back_to_back,
+            "frame_ms_synchronised": synced, "profiled_frames": frames,
+            **summary,
+            "device_idle_share": 1.0 - summary["kernel_ms"] / synced}
+
+
+def sim_programs() -> Dict:
+    """The simulation's programs on the card, each a step(i) that carries
+    its state: "coupled", bench.py config 4's step (scenes.coupled_step at
+    1280x720); "crowd", a step of CROWD_AGENTS agents on the bench scene with
+    routing and combat (scenes.crowd_step); "particles", a step of the
+    1,024-slot fountain and its render channels."""
+    from softwarerenderer_tpu_torch import scenes, sim
+    from softwarerenderer_tpu_torch.config import RenderParams
+    from softwarerenderer_tpu_torch.engine import default_frame_uniforms
+    from softwarerenderer_tpu_torch.models.convert import (scene_to_torch,
+                                                           tree_to_torch)
+    dev = "cuda"
+    scene = scene_to_torch(scenes.bench_scene(), dev)
+    cp = tree_to_torch(sim.default_character_params(), dev)
+    br = tree_to_torch(sim.default_brain_params(), dev)
+    w, h = scenes.CONFIG4_SIZE
+    params = RenderParams(w, h)
+    u = tree_to_torch(scenes.camera_uniforms(default_frame_uniforms(w, h)),
+                      dev)
+    world = sim.build_collision_world(scene)
+    crowd = scenes.crowd_setup(world, CROWD_AGENTS)
+    em = tree_to_torch(scenes.fountain_emitter(), dev)
+    box = {"char": sim.initial_character_state(scenes.CONFIG4_START,
+                                               device=dev),
+           "crowd": crowd["state"],
+           "parts": sim.initial_particle_state(scenes.ANIMATED_PARTICLES,
+                                               device=dev)}
+
+    def coupled(i):
+        box["char"] = scenes.coupled_step(box["char"], scene, u, params,
+                                          cp)[0]
+
+    def crowd_step(i):
+        box["crowd"] = scenes.crowd_step(box["crowd"], crowd, world, cp, br)
+
+    def particles(i):
+        box["parts"] = sim.particle_step(box["parts"], em, scenes.CONFIG4_DT)
+        sim.particle_uniforms(box["parts"], em)
+    return {"coupled": coupled, "crowd": crowd_step, "particles": particles}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=5)
@@ -227,6 +305,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shadows", choices=sorted(SHADOW_FRAMES))
     ap.add_argument("--image-quality", action="store_true")
     ap.add_argument("--animated", action="store_true")
+    ap.add_argument("--sim", action="store_true")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   "profile"))
     a = ap.parse_args(argv)
@@ -238,11 +317,30 @@ def main(argv=None) -> int:
     from softwarerenderer_tpu_torch.engine import Engine
 
     if sum((a.kbuffer > 1, bool(a.raytrace), a.deferred, bool(a.config),
-            bool(a.shadows), a.image_quality, a.animated)) > 1:
+            bool(a.shadows), a.image_quality, a.animated, a.sim)) > 1:
         print("profiling: --kbuffer, --raytrace, --deferred, --config, "
-              "--shadows, --image-quality and --animated are different "
-              "frames; pick one", file=sys.stderr)
+              "--shadows, --image-quality, --animated and --sim are "
+              "different frames; pick one", file=sys.stderr)
         return 1
+    if a.sim:
+        # Three traces of eager steps outgrow what a run may bring back:
+        # they go to a temporary directory, and the summary keeps the
+        # spans that saw any work.
+        import tempfile
+        result = {"device": torch.cuda.get_device_name(0),
+                  "agents": CROWD_AGENTS}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, step in sim_programs().items():
+                r = profile(step, a.frames, os.path.join(tmp, "trace.json"))
+                for k in ("span_host_ms", "span_device_window_ms",
+                          "span_kernel_ms"):
+                    r[k] = {n: v for n, v in r[k].items() if v}
+                result[name] = r
+        os.makedirs(a.out, exist_ok=True)
+        with open(os.path.join(a.out, "summary.json"), "w") as f:
+            json.dump(result, f, indent=1)
+        print(json.dumps(result, indent=1))
+        return 0
     default = scenes.BENCH_SIZES.get(a.config, (1920, 1080))
     a.width, a.height = a.width or default[0], a.height or default[1]
     fixed = None
@@ -303,32 +401,15 @@ def main(argv=None) -> int:
         stats = deferred_stats(eng, uniforms_at(0))
     else:
         stats = scene_stats(eng, uniforms_at(0))
-    _wall_ms(eng, 3, uniforms_at, True)                  # warm-up
-    back_to_back = _wall_ms(eng, 30, uniforms_at, False)
-    synced = _wall_ms(eng, 30, uniforms_at, True)
-
-    os.makedirs(a.out, exist_ok=True)
-    path = os.path.join(a.out, "trace.json")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for i in range(a.frames):
-            eng.render(uniforms_at(i))
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        summary = trace_summary(json.load(f), a.frames)
-    idle = 1.0 - summary["kernel_ms"] / synced
     result = {"device": torch.cuda.get_device_name(0),
               "size": [a.width, a.height], "kbuffer": a.kbuffer,
               "raytrace": a.raytrace, "deferred": a.deferred,
               "config": a.config, "shadows": a.shadows,
               "image_quality": a.image_quality, "animated": a.animated,
               "scene": stats,
-              "frame_ms_back_to_back": back_to_back,
-              "frame_ms_synchronised": synced,
-              "profiled_frames": a.frames, **summary,
-              "device_idle_share": idle}
+              **profile(lambda i: eng.render(uniforms_at(i)), a.frames,
+                        os.path.join(a.out, "trace.json"))}
+    os.makedirs(a.out, exist_ok=True)
     with open(os.path.join(a.out, "summary.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result, indent=1))

@@ -106,6 +106,21 @@ assert eng.present(u).shape == (24, 32, 3)
 c, d = render_frame_with_shadows(scene_to_torch(sc, "cpu"), u,
                                  RenderParams(32, 24), shadow_size=32)
 assert c.shape == (24, 32, 4)
+from softwarerenderer_tpu_torch import sim
+from softwarerenderer_tpu_torch.models.convert import tree_to_torch
+from softwarerenderer_tpu_torch.utils import mathlib as ml
+bench = scene_to_torch(scenes.bench_scene(), "cpu")
+cp = tree_to_torch(sim.default_character_params(), "cpu")
+st = sim.initial_character_state(scenes.CONFIG4_START, device="cpu")
+u = tree_to_torch(scenes.camera_uniforms(default_frame_uniforms(32, 18)),
+                  "cpu")
+st, c, d = scenes.coupled_step(st, bench, u, RenderParams(32, 18), cp)
+assert c.shape == (18, 32, 4) and st["position"].shape == (1, 3)
+world = sim.build_collision_world(bench)
+crowd = scenes.crowd_setup(world, 2)
+bots = scenes.crowd_step(crowd["state"], crowd, world, cp,
+                         sim.default_brain_params())
+assert bots["char"]["position"].shape == (2, 3)
 bad = [m for m in sys.modules
        if m in ("jax", "jaxlib", "bench", "scripts", "softwarerenderer_tpu")
        or m.startswith(("jax.", "jaxlib.", "scripts.",
@@ -124,7 +139,9 @@ def test_port_never_imports_jax(what):
     shadowed frames, the four filtering and post-FX feature frames with
     the whole post chain and a sky, a bilinear frame, a PBR frame with
     its environment terms, a ray-traced frame with the sky, and an
-    animated, normal-mapped LOD frame and its shadowed frame, and find
+    animated, normal-mapped LOD frame and its shadowed frame, bench.py
+    config 4's coupled step (character and render) and a step of the
+    crowd on the bench scene (routing and combat), and find
     neither JAX, nor bench or scripts, nor any module of the JAX package
     (``softwarerenderer_tpu_torch`` itself only shares its prefix)."""
     code = _IMPORTS[what] + _RENDER_AND_CHECK

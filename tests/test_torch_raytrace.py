@@ -42,9 +42,9 @@ from softwarerenderer_tpu_torch import RenderParams
 from softwarerenderer_tpu_torch.engine import Engine
 from softwarerenderer_tpu_torch.models.convert import scene_to_torch
 from softwarerenderer_tpu_torch.ops import raytrace, rt_accel, rt_sweep, sky
-from softwarerenderer_tpu_torch.sim import raycast as rc
 
 jrc = importlib.import_module("softwarerenderer_tpu.sim.raycast")
+rc = importlib.import_module("softwarerenderer_tpu_torch.sim.raycast")
 
 RTOL, ATOL = 3e-6, 1e-5
 BIG = np.finfo(np.float32).max
@@ -173,7 +173,7 @@ def test_raycast_batch_chunks_and_duplicate_tie(monkeypatch):
     whole = rc.raycast_batch(o, d, world, face_mask=0)
     assert whole["hit"].tolist() == [True, True, False]
     assert whole["tri"].tolist()[:2] == [0, 0]
-    monkeypatch.setattr(rc, "MAX_BLOCK", 2)          # one ray per chunk
+    monkeypatch.setattr(rc, "CPU_BLOCK", 2)          # one ray per chunk
     chunked = rc.raycast_batch(o, d, world, face_mask=0)
     for k in whole:
         assert torch.equal(whole[k], chunked[k]), k
