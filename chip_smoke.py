@@ -100,7 +100,21 @@ drives the port's paths at 1080p (config 5 at 4K):
     each, one K1 launch a frame, frame 0 against the plain path, the
     states equal to the CPU's; and 10^6 draws each of ``sim.prng``'s
     ``random_bits``, ``uniform``, ``randint`` and ``normal`` equal to the
-    CPU's.
+    CPU's;
+  * the Dust2 game (phase 23): ``apps.dust2.Dust2Game`` headless and
+    offline from seed 0 with 7 bots and present depth 3 on bench.py's
+    scripted input, at 640x400: 250 steps with 1 K1 launch each, 120 of
+    them timed on the host clock; a profiled window around a shot (host
+    syncs at most the present join and the shots' reads, launches,
+    host->device copies); 0 host syncs in ``fused_step`` itself on its
+    device inputs; the first 30 fused steps replayed on the CPU from the
+    same state and inputs (states equal on every value but the bots'
+    rotation and aim, within phase 22b's bounds; the aux rows equal;
+    frame 0 equal to the plain path's on every pixel and against the
+    CPU's by pixel share); the same game at 1920x1080; ``--kbuffer 4``
+    (K2 launches equal to the plain path's live peel passes) and
+    ``--raytrace 24`` (1 + 1 K4 a step) against their plain paths; and a
+    checkpoint replayed on the card equal on every value.
 
 Any failed check raises and exits non-zero.  The last three lines of
 standard output are the card's name and power limit, a JSON line with the
@@ -2408,7 +2422,8 @@ def _mesh_levels(scene, mask: torch.Tensor) -> torch.Tensor:
     return levels
 
 
-def check_path_fold(card, name, calls, fold, plain, *kernels) -> dict:
+def check_path_fold(card, name, calls, fold, plain, *kernels,
+                    phase="21") -> dict:
     """A fold kernel (K1 or K5) on the one call a path made of it
     (capture_folds' (args, kwargs, outputs)): held against its plain twin
     (winners and depths equal on every pixel, a G-buffer within
@@ -2429,7 +2444,7 @@ def check_path_fold(card, name, calls, fold, plain, *kernels) -> dict:
                                   *kernels),
                ms=cuda_ms(lambda: fold(*args, **kwargs), KERNEL_RUNS),
                plain_ms=cuda_ms(lambda: plain(*args, **kwargs), 3))
-    log(f"phase 21 {name}: kernel vs plain equal (winners, depths; "
+    log(f"phase {phase} {name}: kernel vs plain equal (winners, depths; "
         f"G-buffer max abs diff {g_err:.3g}); with its wrapper "
         f"{res['ms']:.3f} ms (median of {KERNEL_RUNS}, CUDA events), alone "
         f"{res['alone_ms']:.4f} ms (profiler), plain {res['plain_ms']:.3f} "
@@ -2987,6 +3002,469 @@ def check_simulation(card, device="cuda", size=(W, H)) -> dict:
     return out
 
 
+# Phase 23: the Dust2 game (apps/dust2) on the card.
+GAME_SIZE = (640, 400)     # bench.py's game loop (bench.py:94-154)
+GAME_BOTS = 7              # the app's cap for max_players = 8 (:369)
+GAME_DEPTH = 3             # bench.py's present_depth
+GAME_WARMUP = 130          # one script period (120 frames) and a shot
+GAME_STEPS = 120
+GAME_CPU_STEPS = 30        # the first steps, replayed on the CPU
+GAME_PROFILE_FROM = 272    # a profiled window holding the shot at 275
+GAME_PROFILE_STEPS = 5
+GAME_BIG_WARMUP = 20
+GAME_BIG_STEPS = 40
+GAME_MODE_STEPS = 10
+GAME_CKPT = (40, 20)       # save after 40 steps, replay the next 20
+# The replayed steps take inputs 90-109: a shot on the sixth.  (For its
+# first present_depth steps a restored game's host pose is the
+# checkpoint's while the pipeline refills, as the JAX app's load_state
+# drops the in-flight frames; a shot there fires from another pose than
+# in the unbroken run.)
+GAME_CKPT_OFFSET = 50
+# Frame 0 on the card against the same step on the CPU: the share of
+# pixels off by more than 2 in a channel.  The states are equal; the
+# frame's shading and the atlas's bilinear taps may round differently on
+# the two devices (phase 16 holds the routes at 0 on simpler scenes).
+GAME_CPU_OFF_MAX = 1e-3
+
+
+class _Recorder:
+    """dust2.fused_step wrapped while recording: each call's (inputs,
+    kwargs, outputs), host values of the uniforms copied (the ray-traced
+    mode passes the app's live host dict)."""
+
+    def __init__(self, dust2):
+        self.dust2, self.calls = dust2, []
+
+    def __enter__(self):
+        fused = self.plain = self.dust2.fused_step
+
+        def recorded(scene, sim, ctl, uniforms, **kw):
+            out = fused(scene, sim, ctl, uniforms, **kw)
+            u = {k: v.copy() if isinstance(v, np.ndarray) else v
+                 for k, v in uniforms.items()}
+            # The app may write a new position into its state dict (a
+            # respawn): keep the step's own output.
+            new = {k: dict(v) for k, v in out[0].items()}
+            self.calls.append(((scene, sim, ctl, u), kw, (new,) + out[1:]))
+            return out
+        self.dust2.fused_step = recorded
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.dust2.fused_step = self.plain
+
+
+def _game(device, size, **kw):
+    """The game as bench.py's game loop builds it, headless and offline
+    from seed 0, at render scale 1 with present_depth 3."""
+    from softwarerenderer_tpu_torch.apps import dust2
+    g = dust2.Dust2Game(width=size[0], height=size[1], render_scale=1.0,
+                        headless=True, offline=True, seed=0, device=device,
+                        **kw)
+    g.present_depth = GAME_DEPTH
+    return g
+
+
+def _game_steps(game, first, n, offset=0, times=None) -> list:
+    """Steps first..first+n-1 of bench.py's script (input first+offset...),
+    each one's K1, K2 and K4 (nearest, any-hit) launches, and with `times`
+    its host-clock ms (no synchronize: the loop as a player runs it)."""
+    from softwarerenderer_tpu_torch.apps import dust2
+    from softwarerenderer_tpu_torch.ops import rt_sweep, tile_raster
+    counts = []
+    for i in range(first, first + n):
+        c0 = (tile_raster.LAUNCHES, tile_raster.PEEL_LAUNCHES,
+              rt_sweep.LAUNCHES, rt_sweep.ANY_HIT_LAUNCHES)
+        t = time.perf_counter()
+        game.step(1.0 / 60.0, dust2.bench_input(i + offset))
+        if times is not None:
+            times.append((time.perf_counter() - t) * 1e3)
+        c1 = (tile_raster.LAUNCHES, tile_raster.PEEL_LAUNCHES,
+              rt_sweep.LAUNCHES, rt_sweep.ANY_HIT_LAUNCHES)
+        d = [b - a for a, b in zip(c0, c1)]
+        counts.append((d[0], d[1], d[2] - d[3], d[3]))
+    return counts
+
+
+def _runtime_calls(fn) -> dict:
+    """The CUDA runtime calls and copies of fn() and a closing
+    synchronize, by name (cudaLaunchKernel, cudaEventSynchronize, "Memcpy
+    HtoD ...", ...), from a torch.profiler trace of CUDA activity alone
+    (a third of the cost of one with the CPU's operators)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()}
+
+
+def _reset_counts() -> None:
+    from softwarerenderer_tpu_torch.ops import rt_sweep, tile_raster
+    tile_raster.LAUNCHES = tile_raster.PEEL_LAUNCHES = 0
+    rt_sweep.LAUNCHES = rt_sweep.ANY_HIT_LAUNCHES = 0
+
+
+def _spread(ms) -> str:
+    q = np.percentile(ms, [10, 50, 90])
+    return (f"median {q[1]:.3f} ms (p10 {q[0]:.3f}, p90 {q[2]:.3f}, "
+            f"min {min(ms):.3f}, max {max(ms):.3f})")
+
+
+def _replay(call, engine, device=None):
+    """A recorded fused_step call again, through `engine` (on `device`,
+    its inputs moved there)."""
+    from softwarerenderer_tpu_torch.apps import dust2
+    from softwarerenderer_tpu_torch.models.convert import tree_to_torch
+    (scene, sim, ctl, u), kw, _ = call
+    if device is not None:
+        sim, ctl, u = (tree_to_torch(t, device) for t in (sim, ctl, u))
+    return dust2.fused_step(engine.scene, sim, ctl, u,
+                            **dict(kw, engine=engine))
+
+
+def _anchor(state):
+    """The tensor a step replaces in a sim part (character, crowd or
+    sparks): the next step's input holds the same one unless the host
+    edited the state in between."""
+    return state["char"]["position"] if "char" in state \
+        else state["position"]
+
+
+def _aux(packed, h, n_aux):
+    return packed[h:].reshape(-1)[:4 * n_aux].view(torch.float32)
+
+
+def check_game(card, device="cuda", size=GAME_SIZE, big=(W, H)) -> dict:
+    """Phase 23: the Dust2 game (apps/dust2.Dust2Game) headless and
+    offline from seed 0 with 7 bots and present_depth 3, driven by
+    bench.py's game-loop script.  (a) At 640x400: GAME_WARMUP steps, then
+    GAME_STEPS timed on the host clock; 1 K1 launch a step; a profiled
+    window of steps around a shot (launches, kernels, host->device
+    copies, host syncs: at most the joins plus the shots' reads); 0 host
+    syncs in fused_step itself on its recorded device inputs.  (b) The
+    same game at 1920x1080, timed and profiled, 1 K1 launch a step.
+    (c) The first GAME_CPU_STEPS fused steps replayed on the CPU from the
+    same state with the same inputs: character and particle states equal
+    on every value, the bots' but rotation and aim within phase 22b's
+    bounds, the aux rows decoding to the same pose and roster; frame 0
+    equal to the plain path's (K1's twin) on every pixel, and against the
+    CPU's frame within GAME_CPU_OFF_MAX.  (d) --kbuffer 4 and --raytrace
+    24, GAME_MODE_STEPS steps each: 1 K1 and one K2 launch per live peel
+    pass (the game looking down at its shot's decal and sparks), or 1 + 1
+    K4 launches, a step; the first frame with live peel passes, and the
+    ray-traced frame 0, against the plain path.
+    (e) Checkpoint replay on the card: states equal on every value."""
+    from softwarerenderer_tpu_torch.apps import dust2
+    from softwarerenderer_tpu_torch.engine import Engine, render_frame
+    from softwarerenderer_tpu_torch.models.convert import tree_to_torch
+    from softwarerenderer_tpu_torch.ops import rt_sweep, tile_raster
+    from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
+    from softwarerenderer_tpu_torch.sim import build_collision_world
+    out = {}
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp()
+    os.chdir(tmp)              # the game's close() writes hud_layout.json
+    try:
+        # ---- (a) the game loop at 640x400 -----------------------------
+        t0 = time.perf_counter()
+        game = _game(device, size, bots=GAME_BOTS)
+        built_s = time.perf_counter() - t0
+        w, h = size
+        n_aux = 3 + 11 * GAME_BOTS
+        _reset_counts()
+        times = []
+        with _Recorder(dust2) as calls:
+            counts = _game_steps(game, 0, GAME_CPU_STEPS)
+        counts += _game_steps(game, GAME_CPU_STEPS,
+                              GAME_WARMUP - GAME_CPU_STEPS)
+        torch.cuda.synchronize()
+        counts += _game_steps(game, GAME_WARMUP, GAME_STEPS, times=times)
+        torch.cuda.synchronize()
+        k1 = [c[0] for c in counts]
+        k1_total = tile_raster.LAUNCHES
+        check(k1 == [1] * len(k1) and k1_total == len(k1),
+              f"game: K1 launches a step {sorted(set(k1))}")
+        check(all(c[1:] == (0, 0, 0) for c in counts),
+              "game: a K2 or K4 launch on the opaque route")
+        reads = game.shot_reads
+        t_steps = time.perf_counter() - t0
+        # A profiled window around the shot at step 275.
+        _game_steps(game, GAME_WARMUP + GAME_STEPS,
+                    GAME_PROFILE_FROM - GAME_WARMUP - GAME_STEPS)
+        torch.cuda.synchronize()
+        r0 = game.shot_reads
+        calls_in = _runtime_calls(lambda: _game_steps(
+            game, GAME_PROFILE_FROM, GAME_PROFILE_STEPS))
+        shots = game.shot_reads - r0
+        empty = _runtime_calls(lambda: None)
+
+        def count(names, counted=calls_in):
+            return sum(n for k, n in counted.items()
+                       if any(m in k for m in names))
+        syncs = count(("Synchronize",)) - count(("Synchronize",), empty)
+        launches = count(("LaunchKernel",)) / GAME_PROFILE_STEPS
+        copies = count(("HtoD",)) / GAME_PROFILE_STEPS
+        check(syncs <= GAME_PROFILE_STEPS + shots,
+              f"game: {syncs} host syncs in {GAME_PROFILE_STEPS} steps "
+              f"with {shots} shot reads")
+        check(shots >= 1, "game: the profiled window holds no shot")
+        t_prof = time.perf_counter() - t0 - t_steps
+        # Kernel time a step over the next steps, traced as the other
+        # phases trace kernels (kernel_events; in a CPU and CUDA trace of
+        # this window the kernels' durations came back as 0 on the card).
+        box = {"i": GAME_PROFILE_FROM + GAME_PROFILE_STEPS}
+
+        def next_step():
+            game.step(1.0 / 60.0, dust2.bench_input(box["i"]))
+            box["i"] += 1
+        kprof = frame_kernel_ms(next_step, 5)
+        t_kern = time.perf_counter() - t0 - t_steps - t_prof
+        # fused_step alone on its recorded device inputs.
+        last = calls[-1]
+
+        def replays():
+            for _ in range(3):
+                _replay(last, game.engine)
+        fused_syncs = (count(("Synchronize",), _runtime_calls(replays))
+                       - count(("Synchronize",), empty)) / 3
+        check(fused_syncs == 0, f"fused_step: {fused_syncs} host syncs")
+        fused = frame_kernel_ms(lambda: _replay(last, game.engine), 3)
+        steady = statistics.median(times)
+        idle = 1.0 - kprof["kernels"] / steady
+        log(f"phase 23a game loop @{w}x{h}, {GAME_BOTS} bots, present "
+            f"depth {GAME_DEPTH} (built in {built_s:.1f} s): "
+            f"{len(counts)} steps, K1 launches {k1_total} (1 "
+            f"a step), {reads} shot reads; {GAME_STEPS} timed steps after "
+            f"{GAME_WARMUP}: {_spread(times)} = {1e3 / steady:.1f} fps; "
+            f"profiled steps {GAME_PROFILE_FROM}-"
+            f"{GAME_PROFILE_FROM + GAME_PROFILE_STEPS - 1} ({shots} shot "
+            f"reads): {launches:.0f} launches, {copies:.1f} "
+            f"host->device copies, {syncs / GAME_PROFILE_STEPS:.1f} host "
+            f"syncs a step (at most the join and the shots' reads: "
+            f"{syncs} in {GAME_PROFILE_STEPS}); the next 5 steps: "
+            f"{kprof['launches']:.0f} kernels, {kprof['kernels']:.3f} ms "
+            f"(K1 {kprof['K1']:.3f}), idle {idle:.1%} of the median step; "
+            f"fused_step alone: {fused['launches']:.0f} "
+            f"launches, kernels {fused['kernels']:.3f} ms (K1 "
+            f"{fused['K1']:.3f}), {fused_syncs:.1f} host syncs; took "
+            f"{time.perf_counter() - t_phase:.1f} s (steps {t_steps:.1f}, "
+            f"the profiled window {t_prof:.1f}, kernel time {t_kern:.1f}, "
+            f"fused_step alone "
+            f"{time.perf_counter() - t0 - t_steps - t_prof - t_kern:.1f}) "
+            f"[{card}]")
+        out["loop"] = dict(median_ms=steady, times=times,
+                           launches=launches, copies=copies,
+                           kernels=kprof, syncs=syncs / GAME_PROFILE_STEPS,
+                           shots=shots, fused=fused, idle=idle)
+
+        # ---- (c) card against CPU over the first steps -----------------
+        t0 = time.perf_counter()
+        cpu_eng = Engine(game.scene, game.engine.params, device="cpu")
+        cpu_kw = dict(world=build_collision_world(cpu_eng.scene),
+                      tri_mask=torch.from_numpy(game._map_tri_mask),
+                      bots=tree_to_torch(game._bots_static(), "cpu"),
+                      gun_slice=game.gun_slice, engine=cpu_eng)
+        state, diffs, resyncs = None, [], 0
+        for k, call in enumerate(calls):
+            (_, sim, ctl, u), _, (new, packed, _) = call
+            if state is None:
+                state = tree_to_torch(sim, "cpu")
+            else:
+                prev = calls[k - 1][2][0]
+                for part in ("char", "bots", "particles"):
+                    if _anchor(sim[part]) is not _anchor(prev[part]):
+                        state[part] = tree_to_torch(sim[part], "cpu")
+                        resyncs += 1
+                state["char"] = dict(state["char"],
+                                     noclip=sim["char"]["noclip"].cpu())
+            cnew, cpacked, _ = dust2.fused_step(
+                cpu_eng.scene, state, tree_to_torch(ctl, "cpu"),
+                tree_to_torch(u, "cpu"), **cpu_kw)
+            diffs.append(_state_diff(new["char"], cnew["char"]))
+            diffs.append(_state_diff(new["particles"], cnew["particles"]))
+            diffs.append(_state_diff(new["bots"], cnew["bots"],
+                                     ("rotation", "aim")))
+            a, ca = _aux(packed, h, n_aux).cpu(), _aux(cpacked, h, n_aux)
+            rot = slice(3 + 3 * GAME_BOTS, 3 + 7 * GAME_BOTS)
+            aim = slice(3 + 8 * GAME_BOTS, n_aux)
+            exact = torch.cat([a[:rot.start], a[rot.stop:aim.start]])
+            cexact = torch.cat([ca[:rot.start], ca[rot.stop:aim.start]])
+            check(_differing(exact, cexact) == 0
+                  and float((a[rot] - ca[rot]).abs().max())
+                  <= SIM_ROTATION_ATOL
+                  and float((a[aim] - ca[aim]).abs().max()) <= SIM_AIM_ATOL,
+                  f"game step {k}: aux rows card vs CPU")
+            if k == 0:
+                cpu_first = cpacked[:h]
+            state = cnew
+        diff = _sum_diffs(diffs)
+        first = calls[0][2][1][:h]
+        plain_eng = Engine(game.engine.scene, game.engine.params,
+                           device=device, frame_fn=functools.partial(
+                               render_frame,
+                               fold=tile_raster.tile_fold_plain))
+        plain_first = _replay(calls[0], plain_eng)[1][:h]
+        n_plain = int((first != plain_first).any(-1).sum())
+        off = float(((first.cpu().int() - cpu_first.int()).abs()
+                     .amax(-1) > 2).float().mean())
+        rot, aim = diff["loose"]["rotation"], diff["loose"]["aim"]
+        fired = sum(int(c[2][0]["bots"]["fire"].sum()) for c in calls)
+        log(f"phase 23c game card vs CPU, the first {GAME_CPU_STEPS} fused "
+            f"steps from the same state and inputs ({resyncs} host edits "
+            f"of the state taken over, {fired} bot shots): "
+            f"{diff['differ']} of {diff['values']} values differ outside "
+            f"the bots' rotation and aim; rotation at most {rot:.3g} off "
+            f"(bound {SIM_ROTATION_ATOL}), aim {aim:.3g} (bound "
+            f"{SIM_AIM_ATOL}); aux rows equal (rotation and aim within "
+            f"those bounds); frame 0 vs the plain path (K1's twin) on the "
+            f"card: {n_plain} of {w * h} pixels differ; frame 0 card vs "
+            f"CPU: {off:.6f} of pixels off by > 2 (bound "
+            f"{GAME_CPU_OFF_MAX}); took {time.perf_counter() - t0:.1f} s "
+            f"[{card}]")
+        check(diff["differ"] == 0 and rot <= SIM_ROTATION_ATOL
+              and aim <= SIM_AIM_ATOL, "game states card vs CPU")
+        check(n_plain == 0, f"game frame 0: {n_plain} pixels off the "
+              f"plain path")
+        check(off <= GAME_CPU_OFF_MAX, f"game frame 0 vs CPU: {off}")
+        out["cpu"] = dict(values=diff["values"], rotation=rot, aim=aim,
+                          cpu_off=off)
+        # K1 on frame 0's inputs: against its twin, timed, its bound.
+        _, k1_calls = capture_folds(lambda f: _replay(calls[0], Engine(
+            game.engine.scene, game.engine.params, device=device,
+            frame_fn=functools.partial(render_frame, fold=f))),
+            tile_raster.tile_fold)
+        out["k1"] = check_path_fold(card, "K1 on the game's frame 0 @"
+                                    f"{w}x{h}", k1_calls,
+                                    tile_raster.tile_fold,
+                                    tile_raster.tile_fold_plain,
+                                    "tile_raster_kernel", phase="23c")
+        game.close()
+        del game, calls, cpu_eng, plain_eng
+
+        # ---- (b) the same game at 1920x1080 ----------------------------
+        t0 = time.perf_counter()
+        bg = _game(device, big, bots=GAME_BOTS)
+        _reset_counts()
+        bcounts = _game_steps(bg, 0, GAME_BIG_WARMUP)
+        torch.cuda.synchronize()
+        btimes = []
+        bcounts += _game_steps(bg, GAME_BIG_WARMUP, GAME_BIG_STEPS,
+                               times=btimes)
+        torch.cuda.synchronize()
+        bk1 = [c[0] for c in bcounts]
+        check(bk1 == [1] * len(bk1), f"game @{big}: K1 launches a step "
+              f"{sorted(set(bk1))}")
+        box = {"i": GAME_BIG_WARMUP + GAME_BIG_STEPS}
+
+        def big_step():
+            bg.step(1.0 / 60.0, dust2.bench_input(box["i"]))
+            box["i"] += 1
+        bprof = frame_kernel_ms(big_step, 5)
+        bsteady = statistics.median(btimes)
+        log(f"phase 23b game loop @{big[0]}x{big[1]}, {GAME_BOTS} bots: "
+            f"{len(bcounts)} steps, K1 launches {sum(bk1)} (1 a step); "
+            f"{GAME_BIG_STEPS} timed after {GAME_BIG_WARMUP}: "
+            f"{_spread(btimes)} = {1e3 / bsteady:.1f} fps; profiled: "
+            f"{bprof['launches']:.0f} kernels a step, kernels "
+            f"{bprof['kernels']:.3f} ms (K1 {bprof['K1']:.3f}), idle "
+            f"{1.0 - bprof['kernels'] / bsteady:.1%}; took "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        out["big"] = dict(median_ms=bsteady, prof=bprof)
+        bg.close()
+        del bg
+
+        # ---- (d) the K-buffer and ray-traced modes ---------------------
+        t0 = time.perf_counter()
+        kg = _game(device, size, bots=GAME_BOTS, kbuffer=KBUFFER)
+        # Looking down, so the shot at step 5 puts a decal (alpha 0.85) and
+        # its sparks in view: the translucency the peel passes exist for.
+        kg.cam_rotation = np.asarray([-0.5, 0.0, 0.0, 0.8660254],
+                                     np.float32)
+        _reset_counts()
+        with _Recorder(dust2) as kcalls:
+            kcounts = _game_steps(kg, 0, GAME_MODE_STEPS)
+        torch.cuda.synchronize()
+        passes, kn, kref = [], 0, None
+        for k, call in enumerate(kcalls):
+            res, pc = capture_folds(lambda f: _replay(call, Engine(
+                kg.engine.scene, kg.engine.params, device=device,
+                frame_fn=functools.partial(render_frame, fold=f))),
+                tile_raster.tile_fold_plain)
+            passes.append(len(pc) - 1)
+            if kref is None and passes[-1]:
+                # the first frame with live peel passes, against the plain
+                # path's
+                kref = k
+                kn = int((call[2][1][:h] != res[1][:h]).any(-1).sum())
+        check([c[0] for c in kcounts] == [1] * GAME_MODE_STEPS,
+              f"--kbuffer: K1 launches {kcounts}")
+        check([c[1] for c in kcounts] == passes and sum(passes) > 0,
+              f"--kbuffer: K2 launches {[c[1] for c in kcounts]}, live "
+              f"peel passes {passes}")
+        check(kn <= FRAME_COVERED_MISMATCH_MAX * w * h,
+              f"--kbuffer frame {kref}: {kn} pixels off the plain path")
+        kg.close()
+        del kg, kcalls
+        rg = _game(device, size, bots=GAME_BOTS, raytrace=RT_CAP)
+        _reset_counts()
+        with _Recorder(dust2) as rcalls:
+            rcounts = _game_steps(rg, 0, GAME_MODE_STEPS)
+        torch.cuda.synchronize()
+        rplain = _replay(rcalls[0], Engine(
+            rg.engine.scene, rg.engine.params, device=device,
+            frame_fn=functools.partial(render_frame_raytraced,
+                                       cluster_cap=RT_CAP,
+                                       sweep=rt_sweep.rt_sweep_plain)))
+        rn = int((rcalls[0][2][1][:h] != rplain[1][:h]).any(-1).sum())
+        check([c[0] for c in rcounts] == [0] * GAME_MODE_STEPS
+              and [c[2:] for c in rcounts] == [(1, 1)] * GAME_MODE_STEPS,
+              f"--raytrace: K1 and K4 launches a step {rcounts}")
+        check(rn <= FRAME_COVERED_MISMATCH_MAX * w * h,
+              f"--raytrace frame 0: {rn} pixels off K4's twin")
+        log(f"phase 23d game modes @{w}x{h}, {GAME_MODE_STEPS} steps each: "
+            f"--kbuffer {KBUFFER}: K1 {sum(c[0] for c in kcounts)}, K2 "
+            f"{sum(c[1] for c in kcounts)} (per step "
+            f"{[c[1] for c in kcounts]}, the plain path's live peel passes "
+            f"{passes}), frame {kref} (the first with live peel passes) "
+            f"vs the plain path {kn} pixels differ; "
+            f"--raytrace {RT_CAP}: K4 {sum(c[2] for c in rcounts)} nearest "
+            f"+ {sum(c[3] for c in rcounts)} any-hit, frame 0 vs K4's twin "
+            f"{rn} pixels differ; took {time.perf_counter() - t0:.1f} s "
+            f"[{card}]")
+        out["modes"] = dict(k2=[c[1] for c in kcounts], passes=passes)
+        rg.close()
+        del rg, rcalls
+
+        # ---- (e) checkpoint replay on the card ---------------------------
+        # Without bots: their targets come from the host roster and the
+        # pipelined aux, which a checkpoint does not hold (nor the JAX
+        # app's).
+        cg = _game(device, size)
+        save, tail = GAME_CKPT
+        _game_steps(cg, 0, save, offset=GAME_CKPT_OFFSET)
+        ckpt = os.path.join(tmp, "game.npz")
+        cg.save_state(ckpt)
+        _game_steps(cg, save, tail, offset=GAME_CKPT_OFFSET)
+        end = {"char": cg.char, "particles": cg._particles}
+        cg.load_state(ckpt)
+        _game_steps(cg, save, tail, offset=GAME_CKPT_OFFSET)
+        again = {"char": cg.char, "particles": cg._particles}
+        cdiff = _state_diff(again, tree_to_torch(end, "cpu"))
+        alive = int((cg._particles["lifetime"] > 0).sum())
+        log(f"phase 23e checkpoint replay on the card: saved after {save} "
+            f"steps, {tail} more, restored, the same {tail} again: "
+            f"{cdiff['differ']} of {cdiff['values']} state values differ "
+            f"({alive} sparks alive at the end) [{card}]")
+        check(cdiff["differ"] == 0, "game checkpoint replay")
+        cg.close()
+        log(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        os.chdir(cwd)
+    return out
+
+
 def build_kernels() -> None:
     """Phase 2: build every kernel from the checkout's sources and print
     what ptxas says of each."""
@@ -3240,6 +3718,9 @@ def main() -> int:
 
     # ---- phase 22: the simulation ----------------------------------------
     check_simulation(card)
+
+    # ---- phase 23: the Dust2 game ----------------------------------------
+    check_game(card)
     log(f"profiler: {TRACES['retaken']} of device_ms's {TRACES['taken']} "
         f"traces were taken again for a lost launch record")
 

@@ -24,7 +24,11 @@ raises ``NotImplementedError``.  The simulation steps on the same device
 (``sim``: the character controller, the AI crowd and the particle system,
 drawing JAX's own threefry streams through ``sim.prng``); ``scenes``
 holds bench.py config 4's coupled step and a crowd on the bench scene,
-and ``utils.checkpoint`` saves and restores their states.
+and ``utils.checkpoint`` saves and restores their states.  ``apps.dust2``
+is the Dust2 game on all of it (one ``fused_step`` a frame, a pipelined
+present, the JAX app's host loop), with the host layer it needs copied
+from the JAX package under ``io_host`` (window, HUD, audio, networking,
+the glTF and OBJ/STL/PLY loaders).
 """
 
 from softwarerenderer_tpu_torch.config import (  # noqa: F401

@@ -523,8 +523,8 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
             scene["bounds_center"], scene["bounds_radius"],
             scene["mesh_matrices"], view_proj)
         if "mesh_visible" in uniforms:
-            visible = visible & torch.as_tensor(
-                np.asarray(uniforms["mesh_visible"], bool)).to(dev)
+            visible = visible & torch.as_tensor(uniforms["mesh_visible"],
+                                                dtype=torch.bool, device=dev)
         tri_mesh = scene["tri_mesh_id"].long()
         tri_mask = visible[tri_mesh]
     posed = posed or {}
@@ -819,7 +819,9 @@ class Engine(torch.nn.Module):
         color, depth = eng.render(u)   # device tensors
         rgb = eng.present(u)           # uint8 RGB numpy array
 
-    The shaders are the game's unless given.  `device` defaults to
+    `scene` is a packed scene (models.scene.build_scene_buffers) or
+    another engine's ``scene``, whose tensors on `device` are shared, not
+    copied.  The shaders are the game's unless given.  `device` defaults to
     "cuda"; asking for CUDA where there is none raises, it never renders
     on the CPU instead.  frame_fn: a render_frame-compatible callable,
     called as frame_fn(scene, uniforms, params=..., vertex_shader=...,

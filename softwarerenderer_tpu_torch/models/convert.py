@@ -27,10 +27,14 @@ _CHARACTER_KEYS = frozenset(("position", "velocity", "grounded", "ceiling",
                              "jump_cooldown", "actual_step", "noclip"))
 
 
-def scene_to_torch(scene_np: Dict, device) -> Dict[str, torch.Tensor]:
-    """Every array of a packed scene as a tensor on `device`, same dtype."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in scene_np.items()}
+def scene_to_torch(scene: Dict, device) -> Dict[str, torch.Tensor]:
+    """Every array of a packed scene as a tensor on `device`, same dtype.
+    A tensor already on `device` is kept as it is, not copied, so an
+    engine rebuilt from another's scene (``Engine(old.scene, ...)``)
+    shares its buffers."""
+    return {k: v.to(device) if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in scene.items()}
 
 
 def tree_to_torch(tree: Any, device) -> Any:

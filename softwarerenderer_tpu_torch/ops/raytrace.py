@@ -63,8 +63,8 @@ def build_rt_world(scene: Dict[str, torch.Tensor], uniforms: Dict) -> Dict:
     """Collision world plus what shading reads per triangle: the (T, 22)
     ``shade_table`` (uv corners | atlas region | color corners) and the
     (T, 18) ``geom_table`` (v0 | e1 | e2 | n0 | n1 | n2), each one row
-    gather per ray.  uniforms["mesh_visible"] (host bools per mesh) folds
-    into ``tri_mask``."""
+    gather per ray.  uniforms["mesh_visible"] (bools per mesh, on the
+    host or the device) folds into ``tri_mask``."""
     world = build_collision_world(scene)
     dev = world["v0"].device
     idx = scene["indices"].long()
@@ -74,8 +74,9 @@ def build_rt_world(scene: Dict[str, torch.Tensor], uniforms: Dict) -> Dict:
     aoff, asiz = scene["atlas_offsets"], scene["atlas_sizes"]
     mask = None
     if "mesh_visible" in uniforms:
-        vis = torch.from_numpy(np.asarray(uniforms["mesh_visible"], bool))
-        mask = vis.to(dev)[world["tri_mesh_id"].long()]
+        vis = torch.as_tensor(uniforms["mesh_visible"], dtype=torch.bool,
+                              device=dev)
+        mask = vis[world["tri_mesh_id"].long()]
     region = torch.stack([aoff[:, 0][tid], aoff[:, 1][tid], asiz[:, 0][tid],
                           asiz[:, 1][tid]], 1)
     world.update(tri_mask=mask)

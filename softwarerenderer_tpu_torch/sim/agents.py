@@ -373,8 +373,10 @@ def build_waypoint_graph(world: Dict, waypoints, tri_mask=None,
             & ~blocked & ~np.eye(w, dtype=bool))
     edge = edge | edge.T                                      # symmetric
 
-    # Floyd–Warshall with path reconstruction.
-    d = np.where(edge, dist, np.inf)
+    # Floyd–Warshall with path reconstruction, in float64 as JAX's (a
+    # float64 inf promotes the float32 distances; numpy keeps float32
+    # for a Python float's).
+    d = np.where(edge, dist, np.float64(np.inf))
     np.fill_diagonal(d, 0.0)
     nxt = np.where(edge, np.arange(w)[None, :], -1).astype(np.int32)
     np.fill_diagonal(nxt, np.arange(w))

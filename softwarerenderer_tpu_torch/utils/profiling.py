@@ -3,7 +3,7 @@
     python -m softwarerenderer_tpu_torch.utils.profiling [--frames N]
         [--width W] [--height H] [--kbuffer K | --raytrace CAP | --deferred
         | --config 3|5 | --shadows directional|point|spot
-        | --image-quality | --animated | --sim] [--out DIR]
+        | --image-quality | --animated | --sim | --game] [--out DIR]
 
 Renders the bench scene (``scenes.bench_scene()``) through ``Engine(scene,
 RenderParams(W, H), device="cuda")`` with ``scenes.camera_uniforms(u, i)``;
@@ -50,6 +50,16 @@ and ``sim.particles``.  It prints:
   * the device's idle share: 1 - (kernel time per frame) / (synchronised
     frame time without the profiler).
 
+With --game it profiles the Dust2 game's step instead (``profile_game``:
+``apps/dust2.Dust2Game`` at 640x400 unless --width and --height say
+otherwise, 7 bots, bench.py's scripted input, after 130 steps), whose
+spans are ``game.step`` (the host loop), ``game.join`` (the pipelined
+present's wait), ``game.upload`` (the frame's one host-to-device copy),
+``game.fused`` (``fused_step``, with the ``sim.*`` and ``frame.*`` spans
+inside it), ``game.present_copy`` and ``game.shot`` (a shot's cast and
+read).  The module also holds ``FrameStats``, the game's rolling frame
+counters (host only).
+
 The chrome trace and a JSON summary go to --out (default
 ``chiprun_out/profile``; with --sim the summary alone, its spans those
 that saw work).  Needs a CUDA device.
@@ -58,12 +68,14 @@ that saw work).  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import os
 import statistics
 import sys
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -78,11 +90,85 @@ SPANS = ("frame.camera_cull", "frame.vertex_updates", "frame.geometry",
          "shadow.geometry", "shadow.fold", "frame.ssaa_resolve",
          "post.sky", "post.ssao", "post.bloom", "post.tonemap",
          "post.fxaa", "post.callable", "sim.agents", "sim.character",
-         "sim.raycast", "sim.particles")
+         "sim.raycast", "sim.particles", "game.step", "game.join",
+         "game.upload", "game.fused", "game.present_copy", "game.shot")
 # The crowd that --sim profiles: chip_smoke.py phase 22b's largest.
 CROWD_AGENTS = 32
+# The game --game profiles: bench.py's game loop (bench.py:94-154), 7 bots
+# (the app's cap), present depth 3, after one period of its script.
+GAME_BOTS = 7
+GAME_WARMUP = 130
 SHADOW_FRAMES = {"directional": "shadows", "point": "point_shadows",
                  "spot": "spot_shadows"}
+
+
+# The game's frame counters (the JAX package's utils/profiling.FrameStats,
+# host only): the HUD's fps and ms, the debug panel's lines.
+class FrameStats:
+    """Rolling window of frame times + workload counters."""
+
+    def __init__(self, window: int = 120):
+        self._times = collections.deque(maxlen=window)
+        self._stages: Dict[str, collections.deque] = {}
+        self.pixels_per_frame = 0
+        self.triangles_per_frame = 0
+        self._last = None
+
+    def frame(self, pixels: Optional[int] = None,
+              triangles: Optional[int] = None) -> None:
+        """Call once per presented frame."""
+        now = time.perf_counter()
+        if self._last is not None:
+            self._times.append(now - self._last)
+        self._last = now
+        if pixels is not None:
+            self.pixels_per_frame = pixels
+        if triangles is not None:
+            self.triangles_per_frame = triangles
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        """Per-stage host span: with stats.stage("render"): ..."""
+        dq = self._stages.setdefault(name, collections.deque(maxlen=120))
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dq.append(time.perf_counter() - t0)
+
+    def _pct(self, sorted_times, q):
+        if not sorted_times:
+            return 0.0
+        i = min(len(sorted_times) - 1, int(q * (len(sorted_times) - 1)))
+        return sorted_times[i]
+
+    def counters(self) -> Dict[str, float]:
+        ts = sorted(self._times)
+        mean = sum(ts) / len(ts) if ts else 0.0
+        fps = 1.0 / mean if mean > 0 else 0.0
+        out = {
+            "fps": fps,
+            "frame_ms_mean": mean * 1000.0,
+            "frame_ms_p50": self._pct(ts, 0.50) * 1000.0,
+            "frame_ms_p99": self._pct(ts, 0.99) * 1000.0,
+            "mpixels_per_s": self.pixels_per_frame * fps / 1e6,
+            "mtris_per_s": self.triangles_per_frame * fps / 1e6,
+        }
+        for name, dq in self._stages.items():
+            if dq:
+                out[f"stage_{name}_ms"] = 1000.0 * sum(dq) / len(dq)
+        return out
+
+    def debug_lines(self):
+        c = self.counters()
+        lines = [f"{c['fps']:6.1f} fps   {c['frame_ms_mean']:6.2f} ms "
+                 f"(p99 {c['frame_ms_p99']:.2f})",
+                 f"{c['mpixels_per_s']:8.2f} Mpix/s  "
+                 f"{c['mtris_per_s']:8.2f} Mtris/s"]
+        for k, v in sorted(c.items()):
+            if k.startswith("stage_"):
+                lines.append(f"{k[6:]:>10s}: {v:6.2f} ms")
+        return lines
 
 
 def scene_stats(eng, uniforms) -> Dict:
@@ -293,6 +379,41 @@ def sim_programs() -> Dict:
     return {"coupled": coupled, "crowd": crowd_step, "particles": particles}
 
 
+def profile_game(width: int, height: int, frames: int, path: str) -> Dict:
+    """profile() of the Dust2 game's step (apps/dust2.Dust2Game, headless
+    and offline from seed 0, GAME_BOTS bots, present depth 3, bench.py's
+    scripted input) after GAME_WARMUP steps."""
+    import tempfile
+    from softwarerenderer_tpu_torch.apps import dust2
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)          # the game's close() writes hud_layout.json
+        try:
+            game = dust2.Dust2Game(width=width, height=height,
+                                   render_scale=1.0, headless=True,
+                                   offline=True, seed=0, bots=GAME_BOTS,
+                                   device="cuda")
+            game.present_depth = 3
+            box = {"i": 0}
+
+            def step(i):
+                game.step(1.0 / 60.0, dust2.bench_input(box["i"]))
+                box["i"] += 1
+            for i in range(GAME_WARMUP):
+                step(i)
+            stats = {"triangles": int(game.scene["indices"].shape[0]),
+                     "meshes": int(game.n_meshes), "bots": GAME_BOTS,
+                     "profiled_from_step": GAME_WARMUP + 63}
+            result = {"device": torch.cuda.get_device_name(0),
+                      "size": [width, height], "game": stats,
+                      **profile(step, frames, path)}
+            result["shot_reads"] = game.shot_reads
+            game.close()
+        finally:
+            os.chdir(cwd)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=5)
@@ -306,6 +427,7 @@ def main(argv=None) -> int:
     ap.add_argument("--image-quality", action="store_true")
     ap.add_argument("--animated", action="store_true")
     ap.add_argument("--sim", action="store_true")
+    ap.add_argument("--game", action="store_true")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   "profile"))
     a = ap.parse_args(argv)
@@ -317,11 +439,20 @@ def main(argv=None) -> int:
     from softwarerenderer_tpu_torch.engine import Engine
 
     if sum((a.kbuffer > 1, bool(a.raytrace), a.deferred, bool(a.config),
-            bool(a.shadows), a.image_quality, a.animated, a.sim)) > 1:
+            bool(a.shadows), a.image_quality, a.animated, a.sim,
+            a.game)) > 1:
         print("profiling: --kbuffer, --raytrace, --deferred, --config, "
-              "--shadows, --image-quality, --animated and --sim are "
-              "different frames; pick one", file=sys.stderr)
+              "--shadows, --image-quality, --animated, --sim and --game "
+              "are different frames; pick one", file=sys.stderr)
         return 1
+    if a.game:
+        result = profile_game(a.width or 640, a.height or 400, a.frames,
+                              os.path.join(a.out, "trace.json"))
+        os.makedirs(a.out, exist_ok=True)
+        with open(os.path.join(a.out, "summary.json"), "w") as f:
+            json.dump(result, f, indent=1)
+        print(json.dumps(result, indent=1))
+        return 0
     if a.sim:
         # Three traces of eager steps outgrow what a run may bring back:
         # they go to a temporary directory, and the summary keeps the

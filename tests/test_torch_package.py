@@ -45,6 +45,11 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 
 _RENDER_AND_CHECK = """
 import functools, sys
+import torch
+# One intra-op thread: the script is thousands of small ops, which a pool
+# of one thread a core slows down many times over when the suite's
+# workers share the cores.
+torch.set_num_threads(1)
 from softwarerenderer_tpu_torch import RenderParams, scenes
 from softwarerenderer_tpu_torch.engine import Engine
 from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
@@ -121,6 +126,15 @@ crowd = scenes.crowd_setup(world, 2)
 bots = scenes.crowd_step(crowd["state"], crowd, world, cp,
                          sim.default_brain_params())
 assert bots["char"]["position"].shape == (2, 3)
+import os, tempfile
+from softwarerenderer_tpu_torch.apps.dust2 import Dust2Game
+os.chdir(tempfile.mkdtemp())       # close() writes hud_layout.json here
+game = Dust2Game(width=32, height=24, render_scale=1.0, headless=True,
+                 offline=True, seed=1, bots=1, device="cpu")
+for _ in range(3):
+    game.step(1 / 60)
+game.close()
+assert game.window.last_frame.shape == (24, 32, 3)
 bad = [m for m in sys.modules
        if m in ("jax", "jaxlib", "bench", "scripts", "softwarerenderer_tpu")
        or m.startswith(("jax.", "jaxlib.", "scripts.",
@@ -140,8 +154,9 @@ def test_port_never_imports_jax(what):
     the whole post chain and a sky, a bilinear frame, a PBR frame with
     its environment terms, a ray-traced frame with the sky, and an
     animated, normal-mapped LOD frame and its shadowed frame, bench.py
-    config 4's coupled step (character and render) and a step of the
-    crowd on the bench scene (routing and combat), and find
+    config 4's coupled step (character and render), a step of the
+    crowd on the bench scene (routing and combat) and three offline,
+    headless steps of the Dust2 game with a bot, and find
     neither JAX, nor bench or scripts, nor any module of the JAX package
     (``softwarerenderer_tpu_torch`` itself only shares its prefix)."""
     code = _IMPORTS[what] + _RENDER_AND_CHECK
