@@ -114,7 +114,23 @@ drives the port's paths at 1080p (config 5 at 4K):
     CPU's by pixel share); the same game at 1920x1080; ``--kbuffer 4``
     (K2 launches equal to the plain path's live peel passes) and
     ``--raytrace 24`` (1 + 1 K4 a step) against their plain paths; and a
-    checkpoint replayed on the card equal on every value.
+    checkpoint replayed on the card equal on every value;
+  * the capacity caps, shade_rate, split screen, picture-in-picture,
+    render to texture and the game's --mirror --burn-hud --record (phase
+    24): ``scripts/profile_lod.py``'s crowd at 3840x2160 uncapped, at
+    ``lod.suggested_active_cap``, at the script's ladder of active, pair,
+    global and geom caps and with an active_cap at half its valid slots
+    (1 K1 a frame; the capped frames equal to the uncapped one with every
+    counter 0 and no host sync added; the overflowing frame equal to its
+    plain path, its counter the CPU's; K1 on the compacted lists against
+    its twin; the ladder on the deferred route, 1 K5 a frame, and on the
+    K-buffer, 1 + 1 K1 and K2, each equal to its uncapped frame); at
+    1920x1080 the bench frame at shade_rate=2, two-view
+    split screen, picture-in-picture and a 256x256 render-to-texture pass,
+    each equal to its plain path (the atlas to the CPU's write); and the
+    game of phase 23 with the three flags (2 K1 a step, 0 syncs in
+    fused_step, the first steps equal to the CPU's, every recorded frame
+    the frame presented).
 
 Any failed check raises and exits non-zero.  The last three lines of
 standard output are the card's name and power limit, a JSON line with the
@@ -3135,6 +3151,60 @@ def _aux(packed, h, n_aux):
     return packed[h:].reshape(-1)[:4 * n_aux].view(torch.float32)
 
 
+def _cpu_replay(calls, game, h, n_aux, frame_fn=None):
+    """Recorded fused_step calls of `game` again on the CPU, from the
+    first call's state and each call's inputs (a state the app edited on
+    the host between steps is taken over): each step's aux rows checked
+    against the card's (equal but the bots' rotation and aim, within
+    SIM_ROTATION_ATOL and SIM_AIM_ATOL).  Returns (the state diffs, the
+    host edits taken over, frame 0's CPU image).  frame_fn: the game
+    engine's, render_frame by default."""
+    from softwarerenderer_tpu_torch.apps import dust2
+    from softwarerenderer_tpu_torch.engine import Engine
+    from softwarerenderer_tpu_torch.models.convert import tree_to_torch
+    from softwarerenderer_tpu_torch.sim import build_collision_world
+    cpu_eng = Engine(game.scene, game.engine.params, device="cpu",
+                     frame_fn=frame_fn)
+    cpu_kw = dict(world=build_collision_world(cpu_eng.scene),
+                  tri_mask=torch.from_numpy(game._map_tri_mask),
+                  bots=tree_to_torch(game._bots_static(), "cpu"),
+                  gun_slice=game.gun_slice, engine=cpu_eng)
+    state, diffs, resyncs = None, [], 0
+    for k, call in enumerate(calls):
+        (_, sim, ctl, u), _, (new, packed, _) = call
+        if state is None:
+            state = tree_to_torch(sim, "cpu")
+        else:
+            prev = calls[k - 1][2][0]
+            for part in ("char", "bots", "particles"):
+                if _anchor(sim[part]) is not _anchor(prev[part]):
+                    state[part] = tree_to_torch(sim[part], "cpu")
+                    resyncs += 1
+            state["char"] = dict(state["char"],
+                                 noclip=sim["char"]["noclip"].cpu())
+        cnew, cpacked, _ = dust2.fused_step(
+            cpu_eng.scene, state, tree_to_torch(ctl, "cpu"),
+            tree_to_torch(u, "cpu"), **cpu_kw)
+        diffs.append(_state_diff(new["char"], cnew["char"]))
+        diffs.append(_state_diff(new["particles"], cnew["particles"]))
+        diffs.append(_state_diff(new["bots"], cnew["bots"],
+                                 ("rotation", "aim")))
+        a, ca = _aux(packed, h, n_aux).cpu(), _aux(cpacked, h, n_aux)
+        rot = slice(3 + 3 * GAME_BOTS, 3 + 7 * GAME_BOTS)
+        aim = slice(3 + 8 * GAME_BOTS, n_aux)
+        exact = torch.cat([a[:rot.start], a[rot.stop:aim.start]])
+        cexact = torch.cat([ca[:rot.start], ca[rot.stop:aim.start]])
+        check(_differing(exact, cexact) == 0
+              and float((a[rot] - ca[rot]).abs().max())
+              <= SIM_ROTATION_ATOL
+              and float((a[aim] - ca[aim]).abs().max()) <= SIM_AIM_ATOL,
+              f"game step {k}: aux rows card vs CPU")
+        if k == 0:
+            cpu_first = cpacked[:h]
+        state = cnew
+    return diffs, resyncs, cpu_first
+
+
 def check_game(card, device="cuda", size=GAME_SIZE, big=(W, H)) -> dict:
     """Phase 23: the Dust2 game (apps/dust2.Dust2Game) headless and
     offline from seed 0 with 7 bots and present_depth 3, driven by
@@ -3160,7 +3230,6 @@ def check_game(card, device="cuda", size=GAME_SIZE, big=(W, H)) -> dict:
     from softwarerenderer_tpu_torch.models.convert import tree_to_torch
     from softwarerenderer_tpu_torch.ops import rt_sweep, tile_raster
     from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
-    from softwarerenderer_tpu_torch.sim import build_collision_world
     out = {}
     t_phase = time.perf_counter()
     cwd = os.getcwd()
@@ -3261,44 +3330,7 @@ def check_game(card, device="cuda", size=GAME_SIZE, big=(W, H)) -> dict:
 
         # ---- (c) card against CPU over the first steps -----------------
         t0 = time.perf_counter()
-        cpu_eng = Engine(game.scene, game.engine.params, device="cpu")
-        cpu_kw = dict(world=build_collision_world(cpu_eng.scene),
-                      tri_mask=torch.from_numpy(game._map_tri_mask),
-                      bots=tree_to_torch(game._bots_static(), "cpu"),
-                      gun_slice=game.gun_slice, engine=cpu_eng)
-        state, diffs, resyncs = None, [], 0
-        for k, call in enumerate(calls):
-            (_, sim, ctl, u), _, (new, packed, _) = call
-            if state is None:
-                state = tree_to_torch(sim, "cpu")
-            else:
-                prev = calls[k - 1][2][0]
-                for part in ("char", "bots", "particles"):
-                    if _anchor(sim[part]) is not _anchor(prev[part]):
-                        state[part] = tree_to_torch(sim[part], "cpu")
-                        resyncs += 1
-                state["char"] = dict(state["char"],
-                                     noclip=sim["char"]["noclip"].cpu())
-            cnew, cpacked, _ = dust2.fused_step(
-                cpu_eng.scene, state, tree_to_torch(ctl, "cpu"),
-                tree_to_torch(u, "cpu"), **cpu_kw)
-            diffs.append(_state_diff(new["char"], cnew["char"]))
-            diffs.append(_state_diff(new["particles"], cnew["particles"]))
-            diffs.append(_state_diff(new["bots"], cnew["bots"],
-                                     ("rotation", "aim")))
-            a, ca = _aux(packed, h, n_aux).cpu(), _aux(cpacked, h, n_aux)
-            rot = slice(3 + 3 * GAME_BOTS, 3 + 7 * GAME_BOTS)
-            aim = slice(3 + 8 * GAME_BOTS, n_aux)
-            exact = torch.cat([a[:rot.start], a[rot.stop:aim.start]])
-            cexact = torch.cat([ca[:rot.start], ca[rot.stop:aim.start]])
-            check(_differing(exact, cexact) == 0
-                  and float((a[rot] - ca[rot]).abs().max())
-                  <= SIM_ROTATION_ATOL
-                  and float((a[aim] - ca[aim]).abs().max()) <= SIM_AIM_ATOL,
-                  f"game step {k}: aux rows card vs CPU")
-            if k == 0:
-                cpu_first = cpacked[:h]
-            state = cnew
+        diffs, resyncs, cpu_first = _cpu_replay(calls, game, h, n_aux)
         diff = _sum_diffs(diffs)
         first = calls[0][2][1][:h]
         plain_eng = Engine(game.engine.scene, game.engine.params,
@@ -3341,7 +3373,7 @@ def check_game(card, device="cuda", size=GAME_SIZE, big=(W, H)) -> dict:
                                     tile_raster.tile_fold_plain,
                                     "tile_raster_kernel", phase="23c")
         game.close()
-        del game, calls, cpu_eng, plain_eng
+        del game, calls, plain_eng
 
         # ---- (b) the same game at 1920x1080 ----------------------------
         t0 = time.perf_counter()
@@ -3463,6 +3495,419 @@ def check_game(card, device="cuda", size=GAME_SIZE, big=(W, H)) -> dict:
     finally:
         os.chdir(cwd)
     return out
+
+
+# Phase 24: the capacity caps on profile_lod.py's 4K LOD crowd, shade_rate,
+# split screen, picture-in-picture and render to texture at 1080p, and the
+# game with --mirror --burn-hud --record.
+CROWD_FRAMES = 8
+CROWD_PROFILE_FRAMES = 3
+CROWD_SYNC_FRAMES = 3
+SHADE_RATE = 2
+VIEW_FRAMES = 8
+MIRROR_CPU_STEPS = 10      # the first steps, replayed on the CPU
+MIRROR_WARMUP = 20
+MIRROR_STEPS = 40          # timed on the host clock
+
+
+def _equal_frames(a, b) -> int:
+    """Pixels where two (color, depth) frames differ in any value."""
+    return int(((a[0] != b[0]).any(-1) | (a[1] != b[1])).sum())
+
+
+def _caps(params) -> dict:
+    """The capacity caps that are set."""
+    return {k: getattr(params, k) for k in ("active_cap", "geom_cap",
+                                            "pair_cap", "global_cap")
+            if getattr(params, k)}
+
+
+def _stats_ints(stats) -> dict:
+    return {k: int(v) for k, v in stats.items()}
+
+
+def check_crowd_caps(card, device="cuda", size=None) -> dict:
+    """Phase 24a: scripts/profile_lod.py's crowd (scenes.lod_crowd_scene,
+    584,064 packed triangles over three LOD levels) at 3840x2160 through
+    K1: uncapped, at lod.suggested_active_cap, at the script's ladder
+    (scenes.lod_cap_ladder: active, pair, global and geom caps measured on
+    frame 0) and with an active_cap at half the frame's valid slots.  Each
+    run: CROWD_FRAMES frames with 1 K1 launch each, timed on the host
+    clock; its kernels profiled; host syncs a frame; the counters.  The
+    capped frames equal the uncapped frame on every pixel with every
+    counter 0 and no sync added; the overflowing frame equals its
+    plain-twin path on every pixel and its counter the CPU's from the same
+    tensors; K1 on the ladder frame's compacted lists against its twin;
+    and the ladder on the deferred route (K5) and the K-buffer (K1 + K2),
+    each equal to its uncapped frame (check_crowd_routes)."""
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import Engine, render_frame
+    from softwarerenderer_tpu_torch.engine import renderer
+    from softwarerenderer_tpu_torch.models.convert import scene_to_torch
+    from softwarerenderer_tpu_torch.ops import lod, tile_raster
+    size = size or scenes.LOD_CROWD_SIZE
+    w, h = size
+    t_phase = time.perf_counter()
+    sc = scenes.lod_crowd_scene()
+    base = RenderParams(*size)
+    eng = Engine(sc, base, device=device)
+
+    def u_at(i):
+        return scenes.lod_crowd_uniforms(eng.uniforms, i)
+
+    ladder = scenes.lod_cap_ladder(eng.scene, u_at(0), base)
+    n_valid = int(renderer.frame_setup(eng.scene, u_at(0), base)["tris"][
+        "valid"].sum())
+    runs = {"uncapped": base,
+            "suggested": base.replace(
+                active_cap=lod.suggested_active_cap(sc)),
+            "ladder": base.replace(**ladder),
+            "overflow": base.replace(active_cap=n_valid // 2)}
+    out = {}
+    for name, p in runs.items():
+        e = Engine(eng.scene, p, device=device)
+        run = counted_frames(lambda i: e.render(u_at(i)), CROWD_FRAMES, size)
+        check(run["k1"] == [1] * CROWD_FRAMES,
+              f"crowd {name}: K1 launches a frame {run['k1']}")
+        prof = frame_kernel_ms(lambda: e.render(u_at(0)),
+                               CROWD_PROFILE_FRAMES)
+        syncs = host_syncs(lambda i: e.render(u_at(i)), CROWD_SYNC_FRAMES)
+        stats = _stats_ints(render_frame(
+            eng.scene, u_at(0), p.replace(active_cap_stats=True))[2])
+        steady = run["median_ms"]
+        out[name] = dict(params=p, first=run["first"], median_ms=steady,
+                         prof=prof, syncs=syncs, stats=stats,
+                         idle=1.0 - prof["kernels"] / steady,
+                         k1_idle=1.0 - prof["K1"] / steady)
+    ref = out["uncapped"]
+    for name in ("suggested", "ladder"):
+        r = out[name]
+        n = _equal_frames(r["first"], ref["first"])
+        over = {k: v for k, v in r["stats"].items() if k.endswith("overflow")}
+        check(n == 0, f"crowd {name}: {n} pixels off the uncapped frame")
+        check(over and not any(over.values()),
+              f"crowd {name}: counters {r['stats']}")
+        check(r["syncs"] <= ref["syncs"],
+              f"crowd {name}: {r['syncs']} host syncs a frame, uncapped "
+              f"{ref['syncs']}")
+    ov = out["overflow"]
+    p_over = ov["params"]
+    plain = render_frame(eng.scene, u_at(0), p_over,
+                         fold=tile_raster.tile_fold_plain)
+    n_plain = _equal_frames(ov["first"], plain)
+    cpu_over = int(renderer.frame_setup(scene_to_torch(sc, "cpu"), u_at(0),
+                                        p_over)["overflow"][
+        "active_cap_overflow"])
+    check(n_plain == 0, f"crowd overflow: {n_plain} pixels off the plain "
+          f"path")
+    check(ov["stats"]["active_cap_overflow"] == cpu_over > 0,
+          f"crowd overflow counter {ov['stats']} vs the CPU's {cpu_over}")
+    check(_equal_frames(ov["first"], ref["first"]) > 0,
+          "crowd overflow: the frame did not change")
+    for name, r in out.items():
+        log(f"phase 24a crowd {name} @{w}x{h} ({sc['indices'].shape[0]} "
+            f"packed triangles, {n_valid} valid slots on frame 0; "
+            f"{_caps(r['params'])}): "
+            f"{CROWD_FRAMES} frames, 1 K1 launch each, median frame "
+            f"{r['median_ms']:.3f} ms; kernels {r['prof']['kernels']:.3f} ms "
+            f"a frame (K1 {r['prof']['K1']:.3f} ms), "
+            f"{r['prof']['launches']:.0f} launches; idle {r['idle']:.1%} of "
+            f"the frame ({r['k1_idle']:.1%} outside K1); "
+            f"{r['syncs']:.1f} host syncs a frame; counters {r['stats']} "
+            f"[{card}]")
+    log(f"phase 24a crowd: suggested and ladder frames 0 pixels off the "
+        f"uncapped frame, every counter 0; overflow (active_cap "
+        f"{p_over.active_cap}) frame {n_plain} pixels off its plain path, "
+        f"counter {ov['stats']['active_cap_overflow']} = the CPU's "
+        f"{cpu_over}")
+    _, calls = capture_folds(lambda f: render_frame(
+        eng.scene, u_at(0), out["ladder"]["params"], fold=f),
+        tile_raster.tile_fold)
+    out["k1"] = check_path_fold(card, f"K1 on the crowd's ladder frame @"
+                                f"{w}x{h}", calls, tile_raster.tile_fold,
+                                tile_raster.tile_fold_plain,
+                                "tile_raster_kernel", phase="24a")
+    out["routes"] = check_crowd_routes(card, eng, u_at, runs, device, size)
+    log(f"phase 24a took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# The other routes the ladder's caps act on, and the kernels they launch
+# a frame: the deferred route (K5) and the depth-peeled K-buffer without
+# its short-circuit (K1, then K2 for its second layer).
+CROWD_ROUTES = {"deferred": (dict(use_pallas=False), (0, 0, 1)),
+                "K-buffer": (dict(kbuffer=2, kbuffer_short_circuit=False),
+                             (1, 1, 0))}
+
+
+def check_crowd_routes(card, eng, u_at, runs, device, size) -> dict:
+    """Phase 24a on the crowd's other routes: each route uncapped and at
+    the ladder's caps, CROWD_FRAMES frames each with the route's K1, K2
+    and K5 launches counted a frame; the capped frame equal to the
+    uncapped one on every pixel."""
+    from softwarerenderer_tpu_torch.engine import Engine
+    from softwarerenderer_tpu_torch.ops import tile_raster, vis_fold
+    w, h = size
+    out = {}
+    for route, (kw, kernels) in CROWD_ROUTES.items():
+        res = {}
+        for name in ("uncapped", "ladder"):
+            e = Engine(eng.scene, runs[name].replace(**kw), device=device)
+            tile_raster.PEEL_LAUNCHES = 0
+            run = counted_frames(lambda i: e.render(u_at(i)), CROWD_FRAMES,
+                                 size)
+            got = (run["k1"], [tile_raster.PEEL_LAUNCHES // CROWD_FRAMES]
+                   * CROWD_FRAMES, run["k5"])
+            check(all(c == [n] * CROWD_FRAMES for c, n in zip(got, kernels))
+                  and tile_raster.PEEL_LAUNCHES == kernels[1] * CROWD_FRAMES,
+                  f"crowd {route} {name}: K1, K2, K5 launches {got}, K2 "
+                  f"in all {tile_raster.PEEL_LAUNCHES}")
+            prof = frame_kernel_ms(lambda: e.render(u_at(0)),
+                                   CROWD_PROFILE_FRAMES)
+            res[name] = dict(first=run["first"], median_ms=run["median_ms"],
+                             prof=prof)
+        n = _equal_frames(res["ladder"]["first"], res["uncapped"]["first"])
+        check(n == 0, f"crowd {route}: the ladder's frame {n} pixels off "
+              f"the uncapped frame")
+        for name, r in res.items():
+            log(f"phase 24a crowd {route} {name} @{w}x{h}: "
+                f"{CROWD_FRAMES} frames, K1 / K2 / K5 launches "
+                f"{' / '.join(map(str, kernels))} a frame, median frame "
+                f"{r['median_ms']:.3f} ms; kernels {r['prof']['kernels']:.3f}"
+                f" ms (K1 and K2 {r['prof']['K1']:.3f}, K5 "
+                f"{r['prof']['K5']:.3f}), idle "
+                f"{1.0 - r['prof']['kernels'] / r['median_ms']:.1%} [{card}]")
+        log(f"phase 24a crowd {route}: the ladder's frame {n} pixels off the "
+            f"uncapped frame")
+        out[route] = {k: {"median_ms": v["median_ms"], "prof": v["prof"]}
+                      for k, v in res.items()}
+    return out
+
+
+def check_views(card, device="cuda", size=(W, H)) -> dict:
+    """Phase 24b and 24c on the bench scene at 1920x1080: shade_rate=2
+    (VIEW_FRAMES counted frames, 1 K1 each; frame 0 equal to its plain
+    path on every pixel, its anchor rows equal to the full-rate frame's);
+    two-view split screen (2 K1 a frame), picture-in-picture (2 K1) and a
+    render-to-texture pass at 256x256 into the main view (2 K1), each
+    frame 0 equal to its plain path on every pixel, the atlas the pass
+    wrote equal to the CPU's write of the same image, and the pass's frame
+    against the CPU's by pixel share."""
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import (Engine, render_frame,
+                                                   renderer, rtt)
+    from softwarerenderer_tpu_torch.models.convert import scene_to_torch
+    from softwarerenderer_tpu_torch.ops import tile_raster
+    t_phase = time.perf_counter()
+    w, h = size
+    eng, params, u0 = bench_engine(device, size)
+    plain = tile_raster.tile_fold_plain
+
+    def u_at(i):
+        return scenes.camera_uniforms(eng.uniforms, i)
+
+    out = {}
+
+    def frames(name, render, k1, plain_first):
+        run = counted_frames(render, VIEW_FRAMES, size)
+        check(run["k1"] == [k1] * VIEW_FRAMES,
+              f"{name}: K1 launches a frame {run['k1']}")
+        n = _equal_frames(run["first"], plain_first)
+        check(n == 0, f"{name}: {n} pixels off the plain path")
+        prof = frame_kernel_ms(lambda: render(0), CROWD_PROFILE_FRAMES)
+        out[name] = dict(median_ms=run["median_ms"], prof=prof,
+                         first=run["first"])
+        log(f"phase {name} @{w}x{h}: {VIEW_FRAMES} frames, {k1} K1 "
+            f"launch{'es' if k1 > 1 else ''} each, frame 0 vs plain path "
+            f"{n} pixels differ; median frame {run['median_ms']:.3f} ms; "
+            f"kernels {prof['kernels']:.3f} ms (K1 {prof['K1']:.3f} ms), "
+            f"idle {1.0 - prof['kernels'] / run['median_ms']:.1%} [{card}]")
+
+    # (b) shade_rate
+    frames("24b full rate", lambda i: eng.render(u_at(i)), 1,
+           render_frame(eng.scene, u0, params, fold=plain))
+    p_sr = params.replace(shade_rate=SHADE_RATE)
+    e_sr = Engine(eng.scene, p_sr, device=device)
+    frames(f"24b shade_rate={SHADE_RATE}", lambda i: e_sr.render(u_at(i)), 1,
+           render_frame(eng.scene, u0, p_sr, fold=plain))
+    full, half = out["24b full rate"]["first"], \
+        out[f"24b shade_rate={SHADE_RATE}"]["first"]
+    n_anchor = int((full[0][::SHADE_RATE] != half[0][::SHADE_RATE])
+                   .any(-1).sum())
+    check(n_anchor == 0, f"shade_rate anchor rows: {n_anchor} pixels off "
+          f"the full-rate frame")
+    log(f"phase 24b shade_rate={SHADE_RATE}: anchor rows vs the full-rate "
+        f"frame {n_anchor} pixels differ")
+
+    # (c) split screen, picture-in-picture, render to texture
+    views = tuple({k: u_at(i)[k] for k in ("camera_position",
+                                           "camera_rotation")}
+                  for i in (0, 40))
+    frames("24c multiview (2 views, side by side)",
+           lambda i: renderer.render_frame_multiview(eng.scene, u_at(i),
+                                                     params, views), 2,
+           renderer.render_frame_multiview(eng.scene, u0, params, views,
+                                           fold=plain))
+
+    def pip_u(i):
+        u = u_at(i)
+        return dict(u, pip_view={k: u_at(i + 300)[k] for k in
+                                 ("camera_position", "camera_rotation")})
+    frames("24c picture-in-picture",
+           lambda i: renderer.render_frame_pip(eng.scene, pip_u(i), params),
+           2, renderer.render_frame_pip(eng.scene, pip_u(0), params,
+                                        fold=plain))
+    sc_rtt, tid = scenes.rtt_bench_scene()
+    pp = RenderParams(scenes.RTT_SLOT, scenes.RTT_SLOT)
+    passes = (rtt.RttPass(tex_id=tid, params=pp, uniforms_key="feed"),)
+    e_rtt = Engine(sc_rtt, params, device=device, rtt_passes=passes)
+
+    def rtt_u(i):
+        return dict(scenes.camera_uniforms(e_rtt.uniforms, i),
+                    feed=scenes.rtt_pass_uniforms(
+                        renderer.default_frame_uniforms(pp.width,
+                                                        pp.height)))
+    got = rtt.render_frame_rtt(e_rtt.scene, rtt_u(0), params, passes,
+                               return_atlas=True)
+    want = rtt.render_frame_rtt(e_rtt.scene, rtt_u(0), params, passes,
+                                fold=plain, return_atlas=True)
+    n_atlas = int((got[2] != want[2]).sum())
+    check(n_atlas == 0, f"rtt atlas vs plain path: {n_atlas} bytes")
+    frames("24c render to texture (256x256 pass)",
+           lambda i: e_rtt.render(rtt_u(i)), 2, want[:2])
+    feed = render_frame(e_rtt.scene, rtt_u(0)["feed"], pp)[0]
+    st_cpu = scene_to_torch(sc_rtt, "cpu")
+    cpu_atlas = rtt.write_atlas_texture(st_cpu, tid, feed.cpu())[
+        "atlas_data"]
+    n_cpu = int((got[2].cpu() != cpu_atlas).sum())
+    check(n_cpu == 0, f"rtt atlas vs the CPU's write: {n_cpu} bytes")
+    cpu_feed = render_frame(st_cpu, rtt_u(0)["feed"], pp)[0]
+    off = float(((renderer.to_rgb8(feed).cpu().int()
+                  - renderer.to_rgb8(cpu_feed).int()).abs().amax(-1) > 2)
+                .float().mean())
+    check(off <= GAME_CPU_OFF_MAX, f"rtt pass vs the CPU's: {off}")
+    # the monitor's pixels: those the feed changes against the frame over
+    # the placeholder slot
+    bare = render_frame(e_rtt.scene, {k: v for k, v in rtt_u(0).items()
+                                      if k != "feed"}, params)[0]
+    changed = int((got[0] != bare).any(-1).sum())
+    check(changed > 0.02 * w * h, f"rtt: the monitor shows {changed} "
+          f"pixels of its feed")
+    log(f"phase 24c render to texture: atlas {n_atlas} bytes off the plain "
+        f"path, {n_cpu} off the CPU's write of the card's pass; the pass "
+        f"frame card vs CPU {off:.6f} of pixels off by > 2 (bound "
+        f"{GAME_CPU_OFF_MAX}); the monitor covers {changed} pixels")
+    log(f"phase 24b-c took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def check_mirrored_game(card, device="cuda", size=GAME_SIZE,
+                        plain_ms=None) -> dict:
+    """Phase 24d: the game as phase 23 drives it (640x400, 7 bots, present
+    depth 3, bench.py's script) with --mirror --burn-hud --record: 2 K1
+    launches a step (the frame and the rear-view inset, in fused_step);
+    0 host syncs in fused_step on its recorded device inputs; the first
+    MIRROR_CPU_STEPS fused steps replayed on the CPU as phase 23c does
+    (states and aux rows, frame 0 against the CPU's and its plain path);
+    every recorded frame equal to the frame presented; the step time on
+    the host clock beside phase 23's (plain_ms)."""
+    from softwarerenderer_tpu_torch.apps import dust2
+    from softwarerenderer_tpu_torch.engine import Engine
+    from softwarerenderer_tpu_torch.engine import renderer
+    from softwarerenderer_tpu_torch.ops import tile_raster
+    from softwarerenderer_tpu_torch.utils.video import read_avi
+    t_phase = time.perf_counter()
+    w, h = size
+    n_aux = 3 + 11 * GAME_BOTS
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp()
+    os.chdir(tmp)
+    try:
+        clip = os.path.join(tmp, "mirror.avi")
+        game = _game(device, size, bots=GAME_BOTS, mirror=True,
+                     burn_hud=True, record=clip)
+        check(game.engine.frame_fn is renderer.render_frame_pip,
+              "--mirror: the frame is not render_frame_pip")
+        _reset_counts()
+        shown, counts, times = [], [], []
+        with _Recorder(dust2) as calls:
+            for i in range(MIRROR_CPU_STEPS):
+                counts += _game_steps(game, i, 1)
+                shown.append(game.window.last_frame.copy())
+        for i in range(MIRROR_CPU_STEPS, MIRROR_WARMUP):
+            counts += _game_steps(game, i, 1)
+            shown.append(game.window.last_frame.copy())
+        torch.cuda.synchronize()
+        for i in range(MIRROR_WARMUP, MIRROR_WARMUP + MIRROR_STEPS):
+            counts += _game_steps(game, i, 1, times=times)
+            shown.append(game.window.last_frame.copy())
+        torch.cuda.synchronize()
+        k1 = [c[0] for c in counts]
+        check(k1 == [2] * len(k1), f"--mirror: K1 launches a step "
+              f"{sorted(set(k1))}")
+        last = calls[-1]
+        empty = _runtime_calls(lambda: None)
+
+        def replays():
+            for _ in range(3):
+                _replay(last, game.engine)
+        syncs = (sum(n for k, n in _runtime_calls(replays).items()
+                     if "Synchronize" in k)
+                 - sum(n for k, n in empty.items()
+                       if "Synchronize" in k)) / 3
+        check(syncs == 0, f"fused_step with --mirror --burn-hud: {syncs} "
+              f"host syncs")
+        fused = frame_kernel_ms(lambda: _replay(last, game.engine), 3)
+        depth = game.present_depth
+        game.close()
+        frames, _ = read_avi(clip)
+        n_steps = len(counts)
+        check(frames.shape[0] == n_steps, f"--record: {frames.shape[0]} "
+              f"frames for {n_steps} steps")
+        bad = [i for i in range(n_steps - depth)
+               if not np.array_equal(frames[i], shown[i + depth])]
+        check(not bad, f"--record: frames {bad[:5]} differ from the "
+              f"presented frames")
+
+        # the first steps on the CPU, as phase 23c
+        diffs, _, cpu_first = _cpu_replay(calls, game, h, n_aux,
+                                          renderer.render_frame_pip)
+        diff = _sum_diffs(diffs)
+        rot, aim = diff["loose"]["rotation"], diff["loose"]["aim"]
+        check(diff["differ"] == 0 and rot <= SIM_ROTATION_ATOL
+              and aim <= SIM_AIM_ATOL, "mirrored game states card vs CPU")
+        first = calls[0][2][1][:h]
+        plain_eng = Engine(game.engine.scene, game.engine.params,
+                           device=device, frame_fn=functools.partial(
+                               renderer.render_frame_pip,
+                               fold=tile_raster.tile_fold_plain))
+        n_plain = int((first != _replay(calls[0], plain_eng)[1][:h])
+                      .any(-1).sum())
+        off = float(((first.cpu().int() - cpu_first.int()).abs()
+                     .amax(-1) > 2).float().mean())
+        check(n_plain == 0, f"mirrored frame 0: {n_plain} pixels off the "
+              f"plain path")
+        check(off <= GAME_CPU_OFF_MAX, f"mirrored frame 0 vs CPU: {off}")
+        steady = statistics.median(times)
+        log(f"phase 24d game @{w}x{h}, {GAME_BOTS} bots, --mirror "
+            f"--burn-hud --record: {n_steps} steps, K1 launches "
+            f"{sum(k1)} (2 a step); {MIRROR_STEPS} timed steps after "
+            f"{MIRROR_WARMUP}: {_spread(times)} = {1e3 / steady:.1f} fps"
+            + (f" (phase 23a's plain game {plain_ms:.3f} ms)"
+               if plain_ms else "")
+            + f"; fused_step alone: {fused['launches']:.0f} launches, "
+            f"kernels {fused['kernels']:.3f} ms (K1 {fused['K1']:.3f}), "
+            f"{syncs:.1f} host syncs; recorded {frames.shape[0]} frames "
+            f"for {n_steps} steps, each the frame presented; the first "
+            f"{MIRROR_CPU_STEPS} steps card vs CPU: {diff['differ']} of "
+            f"{diff['values']} values differ outside the bots' rotation "
+            f"({rot:.3g}) and aim ({aim:.3g}), aux rows equal, frame 0 "
+            f"{off:.6f} of pixels off by > 2, {n_plain} pixels off the "
+            f"plain path; took {time.perf_counter() - t_phase:.1f} s "
+            f"[{card}]")
+        return dict(median_ms=steady, fused=fused, syncs=syncs)
+    finally:
+        os.chdir(cwd)
 
 
 def build_kernels() -> None:
@@ -3720,7 +4165,12 @@ def main() -> int:
     check_simulation(card)
 
     # ---- phase 23: the Dust2 game ----------------------------------------
-    check_game(card)
+    game = check_game(card)
+
+    # ---- phase 24: caps, shade_rate, views, the mirrored game -------------
+    check_crowd_caps(card)
+    check_views(card)
+    check_mirrored_game(card, plain_ms=game["loop"]["median_ms"])
     log(f"profiler: {TRACES['retaken']} of device_ms's {TRACES['taken']} "
         f"traces were taken again for a lost launch record")
 

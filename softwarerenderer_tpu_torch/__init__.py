@@ -19,14 +19,18 @@ NOT_EQUAL), the wireframe, overdraw and depth views, with
 ``frame_fn=ops.raytrace.render_frame_raytraced`` the ray-traced frame,
 with ``ops.lighting``'s shaders multi-light and PBR frames, and through
 ``engine.render_frame_with_shadows`` / ``_with_point_shadows`` /
-``_with_spot_shadow`` frames with shadow maps; every option outside them
-raises ``NotImplementedError``.  The simulation steps on the same device
+``_with_spot_shadow`` frames with shadow maps, with the capacity caps and
+shade_rate, and through ``engine.render_frame_multiview``,
+``render_frame_pip`` and ``engine.rtt`` split screens, insets and
+render-to-texture passes; ``ops.text`` burns text into a frame and
+``utils.video`` records frames.  The simulation steps on the same device
 (``sim``: the character controller, the AI crowd and the particle system,
 drawing JAX's own threefry streams through ``sim.prng``); ``scenes``
 holds bench.py config 4's coupled step and a crowd on the bench scene,
 and ``utils.checkpoint`` saves and restores their states.  ``apps.dust2``
 is the Dust2 game on all of it (one ``fused_step`` a frame, a pipelined
-present, the JAX app's host loop), with the host layer it needs copied
+present, the JAX app's host loop, its mirror, burned-in HUD and
+recording), with the host layer it needs copied
 from the JAX package under ``io_host`` (window, HUD, audio, networking,
 the glTF and OBJ/STL/PLY loaders).
 """

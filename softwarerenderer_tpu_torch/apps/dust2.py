@@ -36,12 +36,18 @@ Run headless on the CPU or the card:
         --frames 3 --out frame.png [--device cpu]
 
 The JAX app's flags are taken (``--bots N``, ``--dedicated``, ``--kbuffer
-K``, ``--raytrace [CAP]``, ``--config``, networking), plus ``--device``
-(default ``cuda``; the game raises without a card, it never renders on
-the CPU instead).  ``--mirror``, ``--burn-hud`` and ``--record`` need
-modules that are not ported yet and raise ``NotImplementedError`` (ROADMAP
-A6.7).  Without the Dust2 assets the game plays on the JAX app's fallback
-arena (an 80 m plane and 12 cubes).
+K``, ``--raytrace [CAP]``, ``--mirror``, ``--burn-hud``, ``--record
+PATH.avi``, ``--config``, networking), plus ``--device`` (default
+``cuda``; the game raises without a card, it never renders on the CPU
+instead).  ``--mirror`` renders the frame through
+``engine.render_frame_pip``, a rear view inset at the top centre (two K1
+launches in the fused step); ``--burn-hud`` burns the HUD into the frame
+with the ``ops.text`` post-FX stage, its strings packed on the host and
+uploaded with the frame's inputs; ``--record`` writes every presented
+frame to an uncompressed AVI (``utils.video``), the in-flight frames
+flushed on close, so N steps record N frames.  Without the Dust2 assets
+the game plays on the JAX app's fallback arena (an 80 m plane and 12
+cubes).
 """
 
 from __future__ import annotations
@@ -100,14 +106,6 @@ SHOT_DAMAGE = 10.0                                 # Renderer.cs:223
 SHOT_RANGE = 100.0                                 # Renderer.cs:176
 MOUSE_SENSITIVITY = 0.1                            # Camera.cs:10
 BOT_ID_BASE = 10000          # bot player ids live far above host-assigned
-
-# The render modes whose modules are not ported yet (ROADMAP A6.7).
-NOT_PORTED = {
-    "mirror": "--mirror needs engine.render_frame_pip",
-    "burn_hud": "--burn-hud needs ops/text.py and utils/font.py",
-    "record": "--record needs utils/video.py",
-}
-
 
 def bench_input(i: int) -> dict:
     """bench.py's scripted game-loop input for frame i (bench.py:129-137):
@@ -318,16 +316,28 @@ class Dust2Game:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Dust2Game(device='cuda') needs a CUDA device "
                                "and none is available")
-        asked = {"mirror": mirror, "burn_hud": burn_hud, "record": record}
-        refused = [NOT_PORTED[k] for k, v in asked.items() if v]
-        if refused:
-            raise NotImplementedError(
-                "; ".join(refused) + ": not ported to "
-                "softwarerenderer_tpu_torch yet (ROADMAP A6.7)")
         self.window = make_window(width, height, render_scale,
                                   headless=headless or None, out_path=out)
+        # The HUD burned into the frame on the device (ops.text's post-FX
+        # stage), so headless captures and recordings carry it; the host
+        # overlay still draws for a window.
+        self.burn_hud = burn_hud
+        self._recorder = None
+        if record:
+            from softwarerenderer_tpu_torch.utils.video import AviWriter
+            self._recorder = AviWriter(record, fps=record_fps)
+        # Rear-view mirror: a second camera as a top-centre inset of the
+        # same frame (engine.render_frame_pip).
+        self.mirror = mirror
         self._frame_fn = None
+        if mirror:
+            from softwarerenderer_tpu_torch.engine import render_frame_pip
+            self._frame_fn = render_frame_pip
+        self._raytraced = bool(raytrace)
         if raytrace:
+            if mirror:
+                raise SystemExit("--raytrace and --mirror both own the "
+                                 "frame program; pick one")
             from softwarerenderer_tpu_torch.ops.raytrace import (
                 render_frame_raytraced,
             )
@@ -380,6 +390,48 @@ class Dust2Game:
             "ConnectedPlayer",
             [str(self.net.client_id), self.player_name],
             buffer_rpc=True, reliable=self.reliable)
+
+    # The burned-in HUD text's fixed shape (ops.text): slots x chars.
+    HUD_TEXT_SLOTS = 16
+    HUD_TEXT_CHARS = 48
+
+    def _burn_hud_entries(self, tags):
+        """The host HUD's key elements (crosshair, health, fps, chat, the
+        spectator banner, nametags; Renderer.cs:310-656) packed as the
+        text overlay's uniforms (ops.text.pack_text).  tags: the frame's
+        nametags."""
+        from softwarerenderer_tpu_torch.ops import text as text_ops
+        p = self.engine.params
+        # The post chain runs on the supersampled frame: lay out there.
+        rw, rh = p.width * p.ssaa, p.height * p.ssaa
+        f = self._hud_font
+        cw, chh = int(f["cell_w"]), int(f["cell_h"])
+        hs = self.hud.state
+        entries = [("+", (rw // 2 - cw // 2, rh // 2 - chh // 2),
+                    (1.0, 1.0, 1.0, 0.9))]
+        entries.append((f"hp {max(0, int(hs.health))}",
+                        (4, rh - chh - 4), (0.35, 1.0, 0.35)))
+        fps = self.stats.counters()["fps"]
+        fps_s = f"{fps:5.1f} fps"
+        entries.append((fps_s, (rw - len(fps_s) * cw - 4, 4),
+                        (1.0, 1.0, 0.4)))
+        row = 4
+        if hs.spectating:
+            entries.append((f"spectating {hs.spectating}", (4, row),
+                            (1.0, 0.75, 0.2)))
+            row += chh + 2
+        for msg in hs.chat_messages[-4:]:
+            entries.append((msg, (4, row), (1.0, 1.0, 1.0, 0.85)))
+            row += chh + 1
+        # Nametags project at window resolution; rescale to render pixels.
+        sx = rw / max(1, self.window.width)
+        sy = rh / max(1, self.window.height)
+        for tx, ty, name in tags:
+            entries.append((name,
+                            (int(tx * sx - len(name) * cw * 0.5),
+                             int(ty * sy - chh)), (0.9, 0.9, 1.0)))
+        return text_ops.pack_text(entries, max_strings=self.HUD_TEXT_SLOTS,
+                                  max_chars=self.HUD_TEXT_CHARS)
 
     # -- AI bots (sim/agents.py) --------------------------------------------
 
@@ -705,9 +757,26 @@ class Dust2Game:
 
         params = RenderParams(*self.window.render_size,
                               kbuffer=self.kbuffer)
+        if self.burn_hud:
+            from softwarerenderer_tpu_torch.ops import text as text_ops
+            from softwarerenderer_tpu_torch.utils import font as font_mod
+            self._hud_font = font_mod.build_font(cell_h=14)
+            # In params, so every engine rebuild keeps the stage.
+            params = params.replace(post_fx=params.post_fx + (
+                text_ops.text_overlay_fx(self._hud_font),))
         self.engine = Engine(self.scene, params, frame_fn=self._frame_fn,
                              device=self.device)
         u = self.engine.uniforms
+        if self.mirror:
+            u["pip_view"] = {
+                "camera_position": np.zeros(3, F32),
+                "camera_rotation": ml.QUAT_IDENTITY.copy(),
+                "mesh_visible": np.ones(self.n_meshes, bool),
+            }
+        if self.burn_hud:
+            u["hud_text"] = text_ops.pack_text(
+                [], max_strings=self.HUD_TEXT_SLOTS,
+                max_chars=self.HUD_TEXT_CHARS)
         # The game's live-tuned defaults (Renderer.cs:39-46).
         u["fog_start"] = np.float32(1.0)
         u["fog_end"] = np.float32(25.0)
@@ -1507,6 +1576,18 @@ class Dust2Game:
         u["camera_position"] = np.asarray(cam_pos, F32)
         u["camera_rotation"] = np.asarray(cam_rot, F32)
         u["mesh_visible"] = visible
+        if self.mirror:
+            # Rear view: the same eye turned 180 degrees (pitch kept), the
+            # view-model gun hidden.
+            e = np.asarray(ml.quat_to_euler_degrees(cam_rot))
+            rear = ml.quat_from_yaw_pitch_roll(
+                (e[1] + 180.0) * math.pi / 180, e[0] * math.pi / 180,
+                e[2] * math.pi / 180)
+            vis2 = visible.copy()
+            vis2[self.gun_slice[0]:self.gun_slice[1]] = False
+            u["pip_view"] = {"camera_position": np.asarray(cam_pos, F32),
+                             "camera_rotation": np.asarray(rear, F32),
+                             "mesh_visible": vis2}
 
         # Impact sparks: pop one queued burst into this step's emitter.
         em = dict(self._emitter)
@@ -1535,6 +1616,8 @@ class Dust2Game:
         else:
             eng = self.engine
         tags = self._nametags()
+        if self.burn_hud:
+            u["hud_text"] = self._burn_hud_entries(tags)
         ctl = {
             "move": self._move, "jump": self._jump,
             "dt": np.float32(dt if dt > 0 else 1 / 60),
@@ -1551,10 +1634,11 @@ class Dust2Game:
         if self._bots_state is not None:
             ctl.update(self._bot_ctl())
         # One upload a frame: ctl, noclip and, on the raster routes, the
-        # render uniforms (the ray-traced frame computes its camera on the
-        # host, so its uniforms stay host values).
+        # render uniforms with the mirror's pip_view and the HUD's text
+        # (the ray-traced frame computes its camera on the host, so its
+        # uniforms stay host values).
         staged = {"ctl": ctl, "noclip": np.asarray([self.noclip])}
-        if self._frame_fn is None:
+        if not self._raytraced:
             staged["uniforms"] = u
         with record_function("game.upload"):
             d = upload(staged, self.device)
@@ -1590,6 +1674,10 @@ class Dust2Game:
                 rw, rh = self.window.render_size
                 self._blank_frame = np.zeros((rh, rw, 3), np.uint8)
             rgb = self._blank_frame
+        if self._recorder is not None and joined_rgb is not None:
+            # Bootstrap repeats are not recorded; close() flushes the
+            # frames in flight, so an N-step run records frames 0..N-1.
+            self._recorder.add(rgb)
         self.hud.state.rendered_meshes = int(visible.sum())
         self.hud.state.nametags = tags
         rw, rh = self.window.render_size
@@ -1695,6 +1783,18 @@ class Dust2Game:
         self.cam_position = np.asarray(st["cam_position"], F32)
 
     def close(self):
+        if self._recorder is not None:
+            for entry in self._out_q:
+                # The frames still in flight (see _render).
+                rgb = self._fetch(entry)[0]
+                if rgb is None:
+                    continue
+                try:
+                    self._recorder.add(rgb)
+                except ValueError:
+                    pass                      # size changed mid-recording
+            self._recorder.close()
+            self._recorder = None
         try:
             self.hud.save_layout(self.layout_path)
         except OSError:
@@ -1827,7 +1927,8 @@ def main(argv=None):
                          "auto-loaded, SRT_* env vars override; explicit "
                          "CLI flags win over both)")
     ap.add_argument("--mirror", action="store_true",
-                    help="rear-view mirror (not ported yet: raises)")
+                    help="rear-view mirror: a second camera rendered as "
+                         "a picture-in-picture inset of the frame")
     ap.add_argument("--kbuffer", type=int, default=1, metavar="K",
                     help="K-layer ordered translucency (depth-peeled "
                          "tile-kernel passes); 1 = single winner "
@@ -1839,11 +1940,10 @@ def main(argv=None):
                          "kernel); CAP = per-bundle cluster budget "
                          "(default 24)")
     ap.add_argument("--burn-hud", action="store_true",
-                    help="the HUD burned into the frame (not ported yet: "
-                         "raises)")
+                    help="burn the HUD into the frame on the device, so "
+                         "headless captures and recordings carry it")
     ap.add_argument("--record", default=None, metavar="PATH.avi",
-                    help="record presented frames (not ported yet: "
-                         "raises)")
+                    help="record presented frames to an uncompressed AVI")
     ap.add_argument("--record-fps", type=float, default=30.0,
                     help="playback rate stamped into the recording")
     ap.add_argument("--frames", type=int, default=None)

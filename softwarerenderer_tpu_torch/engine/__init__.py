@@ -7,6 +7,8 @@ from softwarerenderer_tpu_torch.engine.renderer import (  # noqa: F401
     frame_setup,
     opaque_tri_flags,
     render_frame,
+    render_frame_multiview,
+    render_frame_pip,
     render_frame_with_point_shadows,
     render_frame_with_shadows,
     render_frame_with_spot_shadow,
@@ -15,4 +17,11 @@ from softwarerenderer_tpu_torch.engine.renderer import (  # noqa: F401
     scene_fragment_shader_trilinear,
     scene_vertex_shader,
     to_rgb8,
+)
+from softwarerenderer_tpu_torch.engine.rtt import (  # noqa: F401
+    RttPass,
+    atlas_id_of,
+    render_frame_rtt,
+    rtt_slot,
+    write_atlas_texture,
 )

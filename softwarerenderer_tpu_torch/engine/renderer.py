@@ -47,8 +47,16 @@ skinning, particle billboards) and ANDs each mesh's LOD level
 (``ops.lod``) into the frustum-cull mask; the shadowed frames pose once
 (``posed_geometry``) and share the pose with their light passes.
 
-A ``RenderParams`` field whose feature this package does not implement
-yet raises ``NotImplementedError`` instead of rendering another image.
+The capacity caps act in ``frame_setup`` as in JAX's render_frame:
+``geom_cap`` before the geometry, ``active_cap`` after it, ``pair_cap``
+in the binning every binned route runs and ``global_cap`` in the tile
+kernels' inputs; ``active_cap_stats`` returns their counters as a third
+value.  ``shade_rate`` shades every r-th row on the opaque tile route.
+``render_frame_multiview`` (split screen) and ``render_frame_pip`` (an
+inset of a second camera) render each view as a render_frame, and
+``Engine(rtt_passes=...)`` renders to texture first (engine.rtt).  A
+fragment shader whose ``tri_extras`` names a channel frame_setup does not
+pack raises ``NotImplementedError`` instead of rendering another image.
 """
 
 from __future__ import annotations
@@ -65,11 +73,11 @@ from softwarerenderer_tpu_torch.config import (BlendMode, DebugMode,
 from softwarerenderer_tpu_torch import shaders
 from softwarerenderer_tpu_torch.models.convert import scene_to_torch
 from softwarerenderer_tpu_torch.models.scene import MAX_MIP_LEVELS
-from softwarerenderer_tpu_torch.ops import (bloom, culling, debugviz,
-                                            forward, fxaa, geometry,
-                                            kbuffer, lighting, lod, morph,
-                                            raster, shadows, skinning, sky,
-                                            ssao, tonemap)
+from softwarerenderer_tpu_torch.ops import (binning, bloom, culling,
+                                            debugviz, forward, fxaa,
+                                            geometry, kbuffer, lighting, lod,
+                                            morph, raster, shadows, skinning,
+                                            sky, ssao, tonemap)
 from softwarerenderer_tpu_torch.ops import texture as tex_ops
 from softwarerenderer_tpu_torch.ops import tile_raster
 from softwarerenderer_tpu_torch.sim import particles
@@ -137,8 +145,10 @@ scene_fragment_shader_trilinear.alpha_sources = ("color", "texture")
 
 
 def opaque_tri_flags(scene: Dict[str, torch.Tensor], vin: Dict,
-                     fragment_shader: Callable,
-                     params: RenderParams) -> Optional[torch.Tensor]:
+                     fragment_shader: Callable, params: RenderParams,
+                     indices: Optional[torch.Tensor] = None,
+                     tri_texture_id: Optional[torch.Tensor] = None
+                     ) -> Optional[torch.Tensor]:
     """Per-triangle 'semantically opaque' flags for the K-buffer peel's
     short-circuit, int32 ×2 for the clipper's fan slots, or None when
     unprovable (JAX's opaque_tri_flags).
@@ -148,11 +158,15 @@ def opaque_tri_flags(scene: Dict[str, torch.Tensor], vin: Dict,
     "texture" = the texture's pack-time min alpha (scene["tex_min_alpha"])
     is 1.  None unless blend_mode is ALPHA and the shader declares
     alpha_sources (NONE blending stops on shaded alpha alone; ADDITIVE and
-    MULTIPLY never stop)."""
+    MULTIPLY never stop).  indices and tri_texture_id: the frame's
+    triangles when they are not the scene's (geom_cap's compaction)."""
     srcs = getattr(fragment_shader, "alpha_sources", None)
     if srcs is None or params.blend_mode != BlendMode.ALPHA:
         return None
-    idx = scene["indices"].reshape(-1, 3).long()
+    idx = (scene["indices"] if indices is None else indices) \
+        .reshape(-1, 3).long()
+    tid = scene["tri_texture_id"] if tri_texture_id is None \
+        else tri_texture_id
     opq = torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device)
     if "color" in srcs:
         a = vin["color"][:, 3][idx]                       # (T, 3)
@@ -160,7 +174,7 @@ def opaque_tri_flags(scene: Dict[str, torch.Tensor], vin: Dict,
     if "texture" in srcs:
         if "tex_min_alpha" not in scene:
             return None
-        opq &= scene["tex_min_alpha"][scene["tri_texture_id"].long()] >= 1.0
+        opq &= scene["tex_min_alpha"][tid.long()] >= 1.0
     return opq.to(torch.int32).repeat_interleave(2)
 
 
@@ -357,16 +371,27 @@ def enabled_post_fx(params: RenderParams, uniforms: Dict) -> tuple:
                  if not isinstance(f, str) or on[f])
 
 
+def tile_route(params: RenderParams) -> bool:
+    """True when render_frame takes the opaque tile route (the tile
+    kernel's fold, one shading pass): binned deferred LESS_EQUAL frames
+    with use_pallas, no debug view and kbuffer <= 1.  The counterpart of
+    JAX's _pallas_route for shade_rate, which only that route
+    implements."""
+    return (params.use_pallas and params.deferred and params.binned
+            and params.debug_mode == DebugMode.NONE
+            and params.depth_test == DepthTest.LESS_EQUAL
+            and params.kbuffer <= 1)
+
+
 def check_supported(params: RenderParams, uniforms=None,
                     fragment_shader: Optional[Callable] = None):
-    """Raise NotImplementedError for the RenderParams fields this package
-    does not implement yet (the capacity caps and shade_rate) and for a
-    fragment shader whose `tri_extras` names a channel frame_setup does
-    not pack, and JAX's ValueErrors: an
+    """Raise NotImplementedError for a fragment shader whose `tri_extras`
+    names a channel frame_setup does not pack, and JAX's ValueErrors: an
     unknown or absent post_fx entry, kbuffer_stats without a binned
     deferred K-buffer, kbuffer_stats or active_cap_stats with ssaa or
     post-FX (their stats are a third return value the wrappers do not
-    pass on)."""
+    pass on), and shade_rate > 1 off the opaque tile route
+    (tile_route)."""
     wrapped = params.ssaa > 1 or bool(enabled_post_fx(params,
                                                       uniforms or {}))
     if params.kbuffer_stats and (wrapped or params.kbuffer <= 1 or not (
@@ -377,16 +402,14 @@ def check_supported(params: RenderParams, uniforms=None,
     if params.active_cap_stats and wrapped:
         raise ValueError("active_cap_stats needs no ssaa/post-fx (the "
                          "stats dict is a third return value)")
-    bad = [name for name, off in (
-        ("active_cap", bool(params.active_cap)),
-        ("active_cap_stats", params.active_cap_stats),
-        ("geom_cap", bool(params.geom_cap)),
-        ("pair_cap", bool(params.pair_cap)),
-        ("global_cap", bool(params.global_cap)),
-        ("shade_rate", params.shade_rate != 1)) if off]
-    bad += [f"tri_extras channel {k}"
-            for k in getattr(fragment_shader, "tri_extras", None) or ()
-            if k not in PACKED_TRI_EXTRAS]
+    if params.shade_rate > 1 and not tile_route(params):
+        raise ValueError("shade_rate > 1 is implemented on the opaque tile "
+                         "route only (use_pallas deferred binned "
+                         "LESS_EQUAL, kbuffer <= 1): elsewhere it would "
+                         "shade at full rate")
+    bad = [f"tri_extras channel {k}"
+           for k in getattr(fragment_shader, "tri_extras", None) or ()
+           if k not in PACKED_TRI_EXTRAS]
     if bad:
         raise NotImplementedError(
             f"not implemented in softwarerenderer_tpu_torch yet: {bad}")
@@ -406,22 +429,25 @@ def _mip_index(x: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
                          hi.to(F32)).to(torch.int32)
 
 
-def mip_regions(scene: Dict[str, torch.Tensor], inv_area: torch.Tensor,
-                tid2: torch.Tensor, trilinear: bool) -> Dict:
+def mip_regions(scene: Dict[str, torch.Tensor], indices: torch.Tensor,
+                inv_area: torch.Tensor, tid2: torch.Tensor,
+                trilinear: bool) -> Dict:
     """JAX render_frame's per-triangle LOD, per clip-fan slot: lod = 0.5 ·
     log2(max(|uv cross| · texels · |inv_area|, 1)), the texel-per-pixel
     ratio of the slot's own screen area; the region of mip int(lod + 0.5),
     or with `trilinear` the regions of mips floor(lod) and the next one
     (tex_*2) and the fraction round(frac · 256) between them.  A slot whose
     lod + 0.5 lands within an ulp of an integer may pick the neighbouring
-    mip on another device (log2 differs by an ulp between libraries)."""
+    mip on another device (log2 differs by an ulp between libraries).
+    indices: the frame's triangles (the scene's, or geom_cap's compacted
+    prefix), tid2 their texture ids, x2 for the fan slots."""
     uvb = scene["uv"].to(F32)
-    idx = scene["indices"].reshape(-1, 3).long()
+    idx = indices.reshape(-1, 3).long()
     e1 = uvb[idx[:, 1]] - uvb[idx[:, 0]]
     e2 = uvb[idx[:, 2]] - uvb[idx[:, 0]]
     uv_cross = (e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]).abs()
     asiz = scene["atlas_sizes"]
-    texels = (asiz[:, 0] * asiz[:, 1]).to(F32)[scene["tri_texture_id"].long()]
+    texels = (asiz[:, 0] * asiz[:, 1]).to(F32)[tid2[::2]]
     uv2 = (uv_cross * texels).repeat_interleave(2)
     lod = 0.5 * torch.log2((uv2 * inv_area.abs()).clamp(min=1.0))
     top = scene["atlas_n_mips"].long()[tid2] - 1
@@ -509,11 +535,20 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
     """Everything a route takes for one frame: {"tris": the set-up
     triangles, "uniforms": the device uniforms the shaders read,
     "per_tri": the per-triangle extras, "fb_color" and "fb_depth": the
-    framebuffer, fb = (color (H, W, 4), depth (H, W)) or cleared}.
-    render_frame routes them; a caller may hand them to another route of
-    ops.tile_raster or ops.raster.  posed: what the caller computed of
-    the frame's geometry (posed_geometry at params.height); a missing
-    entry is computed here."""
+    framebuffer, fb = (color (H, W, 4), depth (H, W)) or cleared,
+    "overflow": the capacity caps' dropped counts, 0-d int32 device
+    tensors by stats name ("geom_cap_overflow", "active_cap_overflow")
+    for the caps that are set}.  render_frame routes them; a caller may
+    hand them to another route of ops.tile_raster or ops.raster.  posed:
+    what the caller computed of the frame's geometry (posed_geometry at
+    params.height); a missing entry is computed here.
+
+    The caps, as JAX's render_frame applies them: params.geom_cap
+    compacts the masked-in input triangles (and their texture, mesh and
+    normal-map ids) before the geometry (geometry.precompact_inputs);
+    params.active_cap compacts the valid fan slots and their extras after
+    it (geometry.compact_triangles).  Both keep submission order, so the
+    frame is the uncapped one while the caps hold."""
     H, W = params.height, params.width
     dev = scene["position"].device
     with record_function("frame.camera_cull"):
@@ -537,13 +572,30 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
             if lod_mask is None:
                 lod_mask = lod.lod_tri_mask(scene, u, H)
             tri_mask = tri_mask & lod_mask
+    # The per-input-triangle tensors every later stage reads; geom_cap
+    # swaps them for their compacted prefix.
+    indices = scene["indices"]
+    tri_tex = scene["tri_texture_id"].long()
+    tri_ntex = (scene["tri_normal_tex_id"].long()
+                if "tri_normal_tex_id" in scene else None)
+    overflow = {}
+    if params.geom_cap:
+        with record_function("frame.geom_cap"):
+            pt = {"tex": tri_tex, "mesh": tri_mesh}
+            if tri_ntex is not None:
+                pt["ntex"] = tri_ntex
+            tri_mask, indices, pt, overflow["geom_cap_overflow"] = \
+                geometry.precompact_inputs(tri_mask, params.geom_cap,
+                                           indices, pt)
+            tri_tex, tri_mesh, tri_ntex = pt["tex"], pt["mesh"], pt.get(
+                "ntex")
     with record_function("frame.geometry"):
         u.update(model=culling.model_matrices_per_vertex(scene),
                  atlas_data=scene["atlas_data"],
                  atlas_offsets=scene["atlas_offsets"],
                  atlas_sizes=scene["atlas_sizes"])
         tris = geometry.build_triangles(
-            vertex_shader, vin, scene["indices"], u, width=W, height=H,
+            vertex_shader, vin, indices, u, width=W, height=H,
             cull_mode=params.cull_mode, tri_mask=tri_mask,
             keep_varyings=getattr(fragment_shader, "varyings", None))
 
@@ -555,14 +607,14 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
     # channels are computed only when kept).
     with record_function("frame.extras"):
         keep = getattr(fragment_shader, "tri_extras", None)
-        tid2 = scene["tri_texture_id"].long().repeat_interleave(2)
+        tid2 = tri_tex.repeat_interleave(2)
         mid2 = tri_mesh.repeat_interleave(2)
         aoff, asiz = scene["atlas_offsets"], scene["atlas_sizes"]
         per_tri = {"tex_id": tid2, "mesh_id": mid2,
                    "tex_oy": aoff[:, 0][tid2], "tex_ox": aoff[:, 1][tid2],
                    "tex_h": asiz[:, 0][tid2], "tex_w": asiz[:, 1][tid2]}
-        if "tri_normal_tex_id" in scene:
-            nid2 = scene["tri_normal_tex_id"].long().repeat_interleave(2)
+        if tri_ntex is not None:
+            nid2 = tri_ntex.repeat_interleave(2)
             per_tri.update(nm_oy=aoff[:, 0][nid2], nm_ox=aoff[:, 1][nid2],
                            nm_h=asiz[:, 0][nid2], nm_w=asiz[:, 1][nid2])
         if "mesh_metallic" in scene:
@@ -571,16 +623,26 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
                     t = scene[table] if col is None else scene[table][:, col]
                     per_tri[k] = quantize256(t[mid2])
         if params.use_mipmaps and "atlas_mip_offsets" in scene:
-            per_tri.update(mip_regions(scene, tris["inv_area"], tid2,
+            per_tri.update(mip_regions(scene, indices, tris["inv_area"],
+                                       tid2,
                                        params.use_mipmaps == "trilinear"))
         if keep is not None:
             per_tri = {k: v for k, v in per_tri.items() if k in keep}
         if params.kbuffer > 1 and params.kbuffer_short_circuit:
             # The opaque flags ride the payload so the peel can stop
             # behind opaque visible winners.
-            opq = opaque_tri_flags(scene, vin, fragment_shader, params)
+            opq = opaque_tri_flags(scene, vin, fragment_shader, params,
+                                   indices, tri_tex)
             if opq is not None:
                 per_tri["opq"] = opq
+
+    if params.active_cap:
+        with record_function("frame.active_cap"):
+            n_slots = tris["valid"].shape[0]
+            tris, per_tri, n_valid = geometry.compact_triangles(
+                tris, params.active_cap, per_tri)
+            overflow["active_cap_overflow"] = (
+                n_valid - min(params.active_cap, n_slots)).clamp(min=0)
 
     if fb is None:
         fb_color = u["clear_color"].expand(H, W, 4)
@@ -590,7 +652,8 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
         fb_color, fb_depth = (torch.as_tensor(x, dtype=F32, device=dev)
                               for x in fb)
     return {"tris": tris, "uniforms": u, "per_tri": per_tri,
-            "fb_color": fb_color, "fb_depth": fb_depth}
+            "fb_color": fb_color, "fb_depth": fb_depth,
+            "overflow": overflow}
 
 
 def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
@@ -603,8 +666,11 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
     (models.convert.scene_to_torch), drawn with the given shaders over
     fb = (color (H, W, 4), depth (H, W)), the cleared framebuffer by
     default.  Returns (color (H, W, 4) f32, depth (H, W) f32) on the
-    scene's device, and with params.kbuffer_stats a third value,
-    {"kbuffer_saturated_px": n}.  The route is the module docstring's.
+    scene's device, and a third value with params.kbuffer_stats,
+    {"kbuffer_saturated_px": n}, or params.active_cap_stats, {"live_pairs",
+    "live_globals" and the "*_overflow" counter of each cap that is set}
+    (merged when both are set; 0-d int32 device tensors).  The route is
+    the module docstring's; frame_setup applies the capacity caps.
 
     With params.ssaa = f > 1 the frame renders at f× in each axis (the
     fb seeds replicated f × f) and is box-filtered down, depth taken at
@@ -660,6 +726,31 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
         return color, depth
     f = frame_setup(scene, uniforms, params, vertex_shader, fragment_shader,
                     fb, posed)
+    out = _route(f, fragment_shader, params, fold)
+    if not params.active_cap_stats:
+        return out
+    # The capacity counters (JAX's render_frame): the frame is exact iff
+    # every *_overflow is 0; live_pairs and live_globals are always there
+    # so a workload can be measured before a cap is chosen.  Device
+    # tensors: reading them is the caller's choice of a sync.
+    with record_function("frame.cap_stats"):
+        live = binning.live_pair_count(f["tris"], params)
+        live_glob = binning.global_count(f["tris"], params)
+        stats = {"live_pairs": live, "live_globals": live_glob,
+                 **f["overflow"]}
+        if params.pair_cap:
+            stats["pair_cap_overflow"] = (live - params.pair_cap).clamp(min=0)
+        if params.global_cap:
+            stats["global_cap_overflow"] = (live_glob - max(
+                params.global_cap, tile_raster.GLOB_RESIDENT)).clamp(min=0)
+    if len(out) == 3:
+        return out[0], out[1], {**out[2], **stats}
+    return out[0], out[1], stats
+
+
+def _route(f: Dict, fragment_shader: Callable, params: RenderParams,
+           fold: Optional[Callable]):
+    """frame_setup's frame through the route the module docstring gives."""
     args = (f["tris"], fragment_shader, f["uniforms"], params,
             f["fb_color"], f["fb_depth"])
     order_dependent = params.depth_test in (DepthTest.EQUAL,
@@ -712,6 +803,87 @@ def apply_post_fx(fx, color: torch.Tensor, depth: torch.Tensor,
     if fx == "fxaa":
         return fxaa.apply_fxaa(color), depth
     return tonemap.apply_tonemap(color, params.tonemap, post_u), depth
+
+
+def render_frame_multiview(scene: Dict[str, torch.Tensor], uniforms: Dict,
+                           params: RenderParams, views, layout: str = "h",
+                           vertex_shader: Callable = scene_vertex_shader,
+                           fragment_shader: Callable = scene_fragment_shader,
+                           fold: Optional[Callable] = None):
+    """Split screen: len(views) views of the scene tiled into the (H, W)
+    frame, side by side ("h") or stacked ("v"); the split axis must
+    divide evenly.  views: per-view uniform overrides (camera pose, fov,
+    lights, "mesh_visible"), the rest from `uniforms`.  Each tile is
+    render_frame at the tile's size, so it equals that view rendered
+    alone (one K1 launch a view on the tile route).  Returns (color
+    (H, W, 4), depth (H, W))."""
+    n = len(views)
+    if n < 1:
+        raise ValueError("views must be non-empty")
+    if layout not in ("h", "v"):
+        raise ValueError("layout must be 'h' or 'v'")
+    size = params.width if layout == "h" else params.height
+    if size % n:
+        raise ValueError(f"{'width' if layout == 'h' else 'height'} "
+                         f"{size} not divisible by {n} views")
+    vp = params.replace(width=params.width // n) if layout == "h" \
+        else params.replace(height=params.height // n)
+    frames = [render_frame(scene, {**uniforms, **ov}, vp,
+                           vertex_shader=vertex_shader,
+                           fragment_shader=fragment_shader, fold=fold)
+              for ov in views]
+    axis = 1 if layout == "h" else 0
+    return (torch.cat([f[0] for f in frames], axis),
+            torch.cat([f[1] for f in frames], axis))
+
+
+# The inset's frame colour in render_frame_pip.
+PIP_BORDER_COLOR = (0.05, 0.05, 0.05, 1.0)
+
+
+def render_frame_pip(scene: Dict[str, torch.Tensor], uniforms: Dict,
+                     params: RenderParams, pip_frac: int = 4,
+                     corner: str = "tc", mirror: bool = True,
+                     border: int = 2,
+                     vertex_shader: Callable = scene_vertex_shader,
+                     fragment_shader: Callable = scene_fragment_shader,
+                     fold: Optional[Callable] = None):
+    """The main view with a picture-in-picture inset of a second camera
+    (a rear-view mirror, a kill cam): the inset is render_frame at
+    (W, H) // pip_frac with the overrides in uniforms["pip_view"] (camera
+    pose, fov, "mesh_visible") and without uniforms["hud_text"] (the
+    burned-in HUD is not drawn again inside it), flipped left to right
+    when `mirror`, and pasted over a `border`-pixel frame in `corner`
+    ("tl", "tr", "bl", "br" or "tc", top centre).  Depth is the main
+    view's.  Two render_frame calls: two K1 launches on the tile
+    route."""
+    main_u = {k: v for k, v in uniforms.items() if k != "pip_view"}
+    color, depth = render_frame(scene, main_u, params,
+                                vertex_shader=vertex_shader,
+                                fragment_shader=fragment_shader, fold=fold)
+    pw = max(1, params.width // pip_frac)
+    ph = max(1, params.height // pip_frac)
+    pu = {k: v for k, v in main_u.items() if k != "hud_text"}
+    pu.update(uniforms.get("pip_view", {}))
+    pc, _ = render_frame(scene, pu, params.replace(width=pw, height=ph),
+                         vertex_shader=vertex_shader,
+                         fragment_shader=fragment_shader, fold=fold)
+    if mirror:
+        pc = pc.flip(1)
+    m = border
+    H, W = params.height, params.width
+    offs = {"tl": (m, m), "tr": (m, W - pw - m),
+            "bl": (H - ph - m, m), "br": (H - ph - m, W - pw - m),
+            "tc": (m, (W - pw) // 2)}
+    if corner not in offs:
+        raise ValueError(f"corner must be one of {sorted(offs)}")
+    y0, x0 = (max(0, v) for v in offs[corner])
+    yb0, xb0 = max(0, y0 - m), max(0, x0 - m)
+    color = color.clone()
+    for c, v in enumerate(PIP_BORDER_COLOR):     # fills: no host copy
+        color[yb0:y0 + ph + m, xb0:x0 + pw + m, c] = v
+    color[y0:y0 + ph, x0:x0 + pw] = pc[:H - y0, :W - x0]
+    return color, depth
 
 
 def render_frame_with_shadows(scene: Dict[str, torch.Tensor], uniforms: Dict,
@@ -827,17 +999,27 @@ class Engine(torch.nn.Module):
     called as frame_fn(scene, uniforms, params=..., vertex_shader=...,
     fragment_shader=...) in place of render_frame (for example
     functools.partial(ops.raytrace.render_frame_raytraced,
-    cluster_cap=24)); render and present both go through it."""
+    cluster_cap=24), or render_frame_pip); render and present both go
+    through it.  rtt_passes: render-to-texture passes (engine.rtt.RttPass)
+    run before each frame through engine.rtt.render_frame_rtt, each with
+    its uniforms sub-dict uniforms[pass.uniforms_key], created here with
+    the pass's defaults; they do not combine with frame_fn."""
 
     def __init__(self, scene: Dict, params: RenderParams,
                  vertex_shader: Callable = scene_vertex_shader,
                  fragment_shader: Callable = scene_fragment_shader,
-                 device="cuda", frame_fn: Optional[Callable] = None):
+                 device="cuda", frame_fn: Optional[Callable] = None,
+                 rtt_passes: tuple = ()):
         super().__init__()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda') needs a CUDA device "
                                "and none is available")
+        if rtt_passes and frame_fn is not None:
+            raise ValueError("frame_fn cannot combine with rtt_passes (the "
+                             "render-to-texture frame owns the whole "
+                             "frame); wrap engine.rtt.render_frame_rtt "
+                             "yourself")
         check_supported(params, fragment_shader=fragment_shader)
         self.params = params
         self.vertex_shader = vertex_shader
@@ -846,6 +1028,13 @@ class Engine(torch.nn.Module):
         for k, v in scene_to_torch(scene, device).items():
             self.register_buffer(k, v, persistent=False)
         self.uniforms = default_frame_uniforms(params.width, params.height)
+        if rtt_passes:
+            from softwarerenderer_tpu_torch.engine import rtt
+            for p in rtt_passes:
+                self.uniforms[p.uniforms_key] = default_frame_uniforms(
+                    p.params.width, p.params.height)
+            self.frame_fn = functools.partial(rtt.render_frame_rtt,
+                                              passes=tuple(rtt_passes))
 
     @property
     def scene(self) -> Dict[str, torch.Tensor]:

@@ -12,7 +12,9 @@ global/binned split changes no pixel.
 
 The sort key is tile << tri_bits | tri in int64: torch on the CPU has no
 ``>>`` for uint32, and 64 bits never overflow where the JAX package needs a
-two-key sort.
+two-key sort.  With ``params.pair_cap`` the live pairs are compacted to
+that many before the sort, as JAX's are; ``live_pair_count`` and
+``global_count`` count what pair_cap and global_cap truncate.
 
 ``visibility_binned`` folds every tile's globals and segment under any
 monotone depth test (ops.raster's keys) for the contiguous band of rows at
@@ -31,6 +33,7 @@ import torch
 
 from softwarerenderer_tpu_torch.config import DepthTest, RenderParams
 from softwarerenderer_tpu_torch.ops import raster
+from softwarerenderer_tpu_torch.ops.geometry import compaction
 
 
 def cdiv(a: int, b: int) -> int:
@@ -50,6 +53,8 @@ def bin_triangles(tris: Dict, params: RenderParams, tile_h: int,
                                  submission order
       n_global   (1,)            number of globals leading `order`
       sorted_tri (N * span_cap,) pair-table triangle ids, sorted by tile
+                                 (params.pair_cap long when that is set
+                                 and below N * span_cap)
       starts, counts (ntiles,)   each tile's segment of sorted_tri
     """
     H, W = params.height, params.width
@@ -90,7 +95,18 @@ def bin_triangles(tris: Dict, params: RenderParams, tile_h: int,
 
     tri_bits = max(1, (n - 1).bit_length())
     tri_id = ids[:, None].expand(n, span_cap).reshape(-1)
-    skey, _ = torch.sort((tile_id << tri_bits) | tri_id)
+    key = (tile_id << tri_bits) | tri_id
+    # Live-pair compaction (params.pair_cap): the live pairs, in their
+    # triangle-major order, stable-compacted to a pair_cap prefix before
+    # the sort, so the sort and the table scale with the cap.  Sorting the
+    # prefix gives the live head of the full table's sort; past the cap the
+    # last-submitted pairs are dropped.  A cap at or above the table is
+    # off.
+    pair_cap = int(params.pair_cap or 0)
+    if 0 < pair_cap < n * span_cap:
+        perm, kept, _ = compaction(tile_id < ntiles, pair_cap)
+        key = torch.where(kept, key[perm], ntiles << tri_bits)
+    skey, _ = torch.sort(key)
     sorted_tile = skey >> tri_bits
     sorted_tri = skey & ((1 << tri_bits) - 1)
 
@@ -106,6 +122,37 @@ def bin_triangles(tris: Dict, params: RenderParams, tile_h: int,
         "counts": (ends - starts).to(i32),
         "ntx": ntx, "nty": nty,
     }
+
+
+def _tile_spans(tris: Dict, params: RenderParams, row_offset: int = 0):
+    """(tile span, validity) of each slot at params' tiling: the bbox
+    arithmetic of bin_triangles without the pair table."""
+    H, th, tw = params.height, params.tile_h, params.tile_w
+    bbox = tris["bbox"].long()
+    by0, by1 = bbox[:, 1] - row_offset, bbox[:, 3] - row_offset
+    valid = tris["valid"] & (by1 >= 0) & (by0 <= H - 1)
+    span = (bbox[:, 2] // tw - bbox[:, 0] // tw + 1) \
+        * (by1.clamp(0, H - 1) // th - by0.clamp(0, H - 1) // th + 1)
+    return span, valid
+
+
+def live_pair_count(tris: Dict, params: RenderParams,
+                    row_offset: int = 0) -> torch.Tensor:
+    """The live (tile, triangle) pairs binning emits at params' tiling and
+    span_cap, the quantity params.pair_cap truncates, as a 0-d int32
+    device tensor (the JAX function's, at its default tiling)."""
+    span, valid = _tile_spans(tris, params, row_offset)
+    return torch.where(valid & (span <= params.span_cap), span, 0).sum(
+        dtype=torch.int32)
+
+
+def global_count(tris: Dict, params: RenderParams,
+                 row_offset: int = 0) -> torch.Tensor:
+    """The global (span > span_cap) triangles at params' tiling, the
+    quantity params.global_cap truncates, as a 0-d int32 device
+    tensor."""
+    span, valid = _tile_spans(tris, params, row_offset)
+    return (valid & (span > params.span_cap)).sum(dtype=torch.int32)
 
 
 def tile_pairs(order, n_global, sorted_tri, starts, counts):

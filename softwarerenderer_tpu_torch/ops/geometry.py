@@ -10,9 +10,16 @@ tensor op over all vertices or triangles with static shapes:
     triangle yields 2 fan slots with validity masks
   * ``setup_triangles``    — vertex reversal, viewport, depth, signed area,
     cull/degeneracy masks, screen bbox
+  * ``precompact_inputs`` and ``compact_triangles`` — the capacity caps'
+    stable compactions (RenderParams.geom_cap before the geometry,
+    active_cap after it)
 
 The JAX module selects clip-table rows with where-chains because TPU
 gathers are slow; here they are plain gathers, which pick the same values.
+Its deferred varyings (``defer_attrs``, ``materialize_attrs``) and lazy
+compaction (``attr_perm``/``attr_full``) move TPU gathers past a
+compaction without changing a consumed value; here the varyings are
+materialized before ``compact_triangles`` gathers them with the rest.
 """
 
 from __future__ import annotations
@@ -207,3 +214,62 @@ def build_triangles(vertex_shader: Callable, vertex_input: Dict,
     if keep_varyings is not None and "screen_coords" not in keep_varyings:
         tris["attrs"].pop("screen_coords", None)
     return tris
+
+
+def compaction(mask: torch.Tensor, cap: int):
+    """The stable compaction of `mask`'s set entries into a `cap`-slot
+    prefix, as the JAX package's cumsum + scatter builds it (the caps of
+    this module and binning.bin_triangles' pair_cap): (perm (cap,) int64,
+    the source of each slot, 0 past the set count; kept (cap,) bool, the
+    slots holding a set entry; n (), the set count, int32).  Set entries
+    past the cap are dropped, the last ones first.  No host read: the
+    dropped and unset entries scatter to a spare slot that is cut off."""
+    n_in = mask.shape[0]
+    dev = mask.device
+    pos = mask.long().cumsum(0) - 1
+    tgt = torch.where(mask & (pos < cap), pos, cap)
+    perm = torch.zeros(cap + 1, dtype=torch.long, device=dev).scatter_(
+        0, tgt, torch.arange(n_in, device=dev))[:cap]
+    n = mask.sum(dtype=torch.int32)
+    return perm, torch.arange(cap, device=dev) < n, n
+
+
+def compact_triangles(tris: Dict, cap: int, per_tri_extra: Dict | None = None):
+    """Stable-partition the valid slots of set-up triangles into a static
+    prefix of min(cap, slots) slots (RenderParams.active_cap), so every
+    later stage scales with the active triangles.  Valid slots keep
+    submission order, and every fold downstream is lexicographic in
+    (depth, slot index), so the frame is the uncompacted one whenever the
+    valid slots fit; past the cap the last-submitted slots are dropped.
+    Tail slots take slot 0's rows with valid False.
+
+    Returns (tris, per_tri_extra, n_valid) with every tensor cap-sized;
+    n_valid is a 0-d int32 device tensor (overflow = max(0, n_valid -
+    cap))."""
+    cap = min(int(cap), tris["valid"].shape[0])
+    perm, kept, n_valid = compaction(tris["valid"], cap)
+    out = {k: ({ak: av[perm] for ak, av in v.items()} if k == "attrs"
+               else v[perm]) for k, v in tris.items()}
+    out["valid"] = out["valid"] & kept
+    extra = None if per_tri_extra is None else {
+        k: v[perm] for k, v in per_tri_extra.items()}
+    return out, extra, n_valid
+
+
+def precompact_inputs(tri_mask: torch.Tensor, cap: int,
+                      indices: torch.Tensor, per_tri: Dict | None = None):
+    """Pre-geometry compaction (RenderParams.geom_cap): the masked-in
+    input triangles stable-partitioned into a prefix of min(cap, T)
+    slots before any vertex assembly, so the geometry stage scales with
+    them.  per_tri: (T,)-leading per-triangle tensors (texture and mesh
+    ids) compacted alike.  Exact as compact_triangles is; past the cap
+    the last-submitted triangles are dropped.
+
+    Returns (tri_mask (cap,), indices (cap, 3), per_tri, overflow), the
+    overflow max(0, n_active - cap) a 0-d int32 device tensor."""
+    idx3 = indices.reshape(-1, 3)
+    cap = min(int(cap), idx3.shape[0])
+    perm, kept, n_act = compaction(tri_mask, cap)
+    out_pt = None if per_tri is None else {
+        k: v[perm] for k, v in per_tri.items()}
+    return kept, idx3[perm], out_pt, (n_act - cap).clamp(min=0)

@@ -1,7 +1,7 @@
 """Tile raster: visibility fold + winner resolve + interpolation, then shading.
 
 Counterpart of ``softwarerenderer_tpu/ops/pallas_tile.py``: the opaque
-route (``render_tile_pallas`` with ``shade_rate == 1``), the depth-peeled
+route (``render_tile_pallas``, ``shade_rate`` included), the depth-peeled
 K-buffer (``render_tile_pallas_kbuffer``) and its single-pass sibling
 (``render_tile_pallas_kbuffer_single``).  Their kernels become hand-written
 CUDA kernels: ``pallas_tile._kernel`` (``peel=False`` and ``peel=True``) is
@@ -45,6 +45,9 @@ KINDS = {"pc": 0, "pw": 1, "pw3": 2, "bary": 3, "v0": 4}
 BLOCK_PX = 1024       # pixels a block of tile_raster.cu owns: any tile_h x
                       # tile_w runs as cdiv(tile_h * tile_w, BLOCK_PX) blocks
 MAX_KDEEP = 8         # the deepest K tile_kdeep.cu is instantiated for
+GLOB_RESIDENT = 256   # the fewest globals params.global_cap keeps: the
+                      # TPU kernel's resident global block, a semantic of
+                      # the cap (pallas_tile.GLOB_RESIDENT)
 
 # Kernel launches so far, one count per kernel: K1 (tile_fold, opaque
 # mode), K2 (tile_fold with prev maps, peel mode) and K3 (tile_fold_kdeep).
@@ -125,6 +128,14 @@ def prepare(tris: Dict, params: RenderParams, fb_depth: torch.Tensor,
         gb_slices["tri." + k] = (j, j + 1)
         j += 1
 
+    # params.global_cap: the fold streams only the first max(global_cap,
+    # GLOB_RESIDENT) entries of `order`, whose globals lead it in
+    # submission order, so n_global is clamped to that length on the
+    # device (no host read); past it the last-submitted globals drop.
+    n_global = bins["n_global"]
+    gcap = int(params.global_cap or 0)
+    if gcap and gcap < n:
+        n_global = n_global.clamp(max=max(gcap, GLOB_RESIDENT))
     fbd = torch.nn.functional.pad(fb_depth, (0, Wp - W, 0, Hp - H))
     return dict(
         tile_h=tile_h, tile_w=tile_w, H=H, W=W, Hp=Hp, Wp=Wp, kp=kp, kpi=j,
@@ -132,7 +143,7 @@ def prepare(tris: Dict, params: RenderParams, fb_depth: torch.Tensor,
         plan=tuple(plan),
         gb_slices=gb_slices, extra_keys=extra_keys, fbd=fbd.contiguous(),
         setup=setup, payload=payload, order=bins["order"],
-        n_global=bins["n_global"], sorted_tri=bins["sorted_tri"],
+        n_global=n_global, sorted_tri=bins["sorted_tri"],
         starts=bins["starts"], counts=bins["counts"])
 
 
@@ -570,9 +581,18 @@ def render_tile(tris: Dict, fragment_shader: Callable, uniforms: Dict,
                 fold: Optional[Callable] = None):
     """Full frame: the tile fold, one full-frame shading pass, blend.
 
+    With params.shade_rate = sr > 1 the fold stays at full resolution and
+    the shader runs on every sr-th row of the G-buffer, each shaded row
+    repeated down its block of sr rows (pallas_tile.py:1072-1089); the
+    height must divide by sr.
+
     fold: tile_fold (the default) or tile_fold_plain, which lets a check
     on the card render the same frame through the plain twin.
     Returns (color (H, W, 4), depth (H, W))."""
+    sr = int(params.shade_rate)
+    if sr > 1 and params.height % sr:
+        raise ValueError(f"shade_rate={sr} needs the frame height "
+                         f"divisible by it, got {params.height}")
     ctx = _prepare_for(tris, fragment_shader, params, fb_depth,
                        per_tri_extra)
     args, kwargs = fold_inputs(ctx)
@@ -580,8 +600,10 @@ def render_tile(tris: Dict, fragment_shader: Callable, uniforms: Dict,
         gbuf, best_d, best_i = (fold or tile_fold)(*args, **kwargs)
     H, W = ctx["H"], ctx["W"]
     with record_function("tile.shade"):
-        color = fragment_shader(frag_from_planes(ctx, gbuf[:, :H, :W]),
+        color = fragment_shader(frag_from_planes(ctx, gbuf[:, :H:sr, :W]),
                                 uniforms)
+        if sr > 1:
+            color = color.repeat_interleave(sr, 0)
         written = (best_i[:H, :W] >= 0) & (color[..., 3] > 0)
         out_c = torch.where(written[..., None],
                             blend(color, fb_color, params.blend_mode),

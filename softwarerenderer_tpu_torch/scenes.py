@@ -30,7 +30,14 @@ host layer (numpy, no JAX).
     ``crowd_step``: a crowd on the bench scene in the dust2 app's shape
     (two spawn centres, floor waypoints, routing, combat);
     ``spark_emitter`` and ``fountain_emitter``: the dust2 app's impact
-    sparks and a fountain for the animated scene's slots (phase 22).
+    sparks and a fountain for the animated scene's slots (phase 22);
+  * ``lod_crowd_scene`` (``lod_crowd_instances`` packed),
+    ``lod_crowd_uniforms(u, i)`` and ``lod_cap_ladder``:
+    ``scripts/profile_lod.py``'s 4K crowd of 24 x 24 LOD spheres with its
+    camera, and its ladder of capacity caps measured on a frame
+    (phase 24); ``rtt_bench_scene``: the bench soup with a monitor quad
+    whose texture is a render-to-texture slot, in the bench camera's
+    view, and ``rtt_pass_uniforms``, the camera that feeds it.
 
 Each equals its source array for array (tests/test_torch_package.py).
 """
@@ -766,3 +773,113 @@ def fountain_emitter() -> Dict:
               base_velocity=np.asarray([0.0, 4.0, 0.0], F32),
               rate=F32(600.0), floor_y=F32(-1.0))
     return em
+
+
+# scripts/profile_lod.py's crowd (:28-47): a 24 x 24 grid of LOD spheres
+# (532 triangles at level 0, two decimated levels) receding from the
+# camera, at 3840 x 2160 (:50-56).
+LOD_CROWD_GRID = 24
+LOD_CROWD_SIZE = (3840, 2160)
+
+
+def lod_crowd_instances() -> List[scene_mod.MeshInstance]:
+    """profile_lod.build_instances(with_lod=True): the grid's placement,
+    jitter and seed (7)."""
+    from softwarerenderer_tpu_torch.ops.lod import add_lods
+    mesh = add_lods(primitives.uv_sphere(0.45, rings=14, sectors=20),
+                    cells=(8, 4), px=(60.0, 24.0))
+    rng = np.random.default_rng(7)
+    insts = []
+    for gz in range(LOD_CROWD_GRID):
+        for gx in range(LOD_CROWD_GRID):
+            x = (gx - 11.5) * 2.2 + rng.uniform(-0.4, 0.4)
+            z = -4.0 - gz * 2.6 + rng.uniform(-0.4, 0.4)
+            y = rng.uniform(-0.5, 0.5)
+            insts.append(scene_mod.MeshInstance(
+                mesh, ml.translation([x, y, z])))
+    return insts
+
+
+def lod_crowd_scene() -> Dict[str, np.ndarray]:
+    return scene_mod.build_scene_buffers(lod_crowd_instances())
+
+
+def lod_crowd_uniforms(uniforms: Dict, i: int = 0) -> Dict:
+    """profile_lod's camera (:88-92) and its frame i's field of view, 90 +
+    0.01 i degrees (:124-127)."""
+    u = dict(uniforms)
+    u["camera_position"] = np.asarray([0.0, 0.3, 2.0], np.float32)
+    u["far_clip"] = np.float32(200.0)
+    u["fog_start"] = np.float32(150.0)
+    u["fog_end"] = np.float32(220.0)
+    u["fov_degrees"] = np.float32(90.0 + 0.01 * i)
+    return u
+
+
+def _round128(x: float) -> int:
+    return -(-int(x) // 128) * 128
+
+
+def lod_cap_ladder(scene: Dict[str, torch.Tensor], uniforms: Dict,
+                   params) -> Dict[str, int]:
+    """profile_lod's caps (:98-217) measured on one frame of `scene` (its
+    tensors), as RenderParams fields: active_cap, the frame's valid slots
+    x 1.25; pair_cap, its live pairs x 1.25; global_cap, twice its globals
+    and at least 256; geom_cap, its LOD-selected triangles x 1.25; each
+    rounded up to 128.  Reads the counts back to the host: a set-up step,
+    not a frame."""
+    from softwarerenderer_tpu_torch.engine import renderer
+    from softwarerenderer_tpu_torch.ops import binning, lod
+    tris = renderer.frame_setup(scene, uniforms, params)["tris"]
+    u = renderer.device_uniforms(uniforms, params.width, params.height,
+                                 scene["position"].device)
+    active = int(lod.lod_tri_mask(scene, u, params.height).sum())
+    tiled = params.replace(tile_h=min(params.tile_h, 32))
+    return {"active_cap": _round128(int(tris["valid"].sum()) * 1.25),
+            "pair_cap": _round128(
+                int(binning.live_pair_count(tris, tiled)) * 1.25),
+            "global_cap": max(256, _round128(
+                int(binning.global_count(tris, tiled)) * 2)),
+            "geom_cap": _round128(active * 1.25)}
+
+
+# The render-to-texture frame (phase 24): a RTT_SLOT-texel monitor quad 3 m
+# in front of the bench camera of frame 0, facing it.
+RTT_SLOT = 256
+
+
+def rtt_bench_scene(slot: int = RTT_SLOT):
+    """(packed scene, the slot's atlas id): bench_scene's soup and a 2 x
+    1.5 m quad textured with a (slot, slot) render-to-texture slot
+    (engine.rtt.rtt_slot), 3 m along the bench camera's view at frame 0
+    and turned to face it."""
+    from softwarerenderer_tpu_torch.engine.rtt import atlas_id_of, rtt_slot
+    tex = rtt_slot(slot, slot)
+    yaw = 0.6
+    quad = {"position": np.float32([[-1.0, -0.75, 0], [1.0, -0.75, 0],
+                                    [1.0, 0.75, 0], [-1.0, 0.75, 0]]),
+            "uv": np.float32([[0, 1], [1, 1], [1, 0], [0, 0]]),
+            "normal": np.tile(np.float32([0, 0, 1]), (4, 1)),
+            "color": np.ones((4, 4), np.float32),
+            "indices": np.int32([[0, 1, 2], [0, 2, 3]])}
+    at = np.float32([-3.0 * np.sin(yaw), 2.0, 6.0 - 3.0 * np.cos(yaw)])
+    insts = [scene_mod.MeshInstance(
+                 primitives.random_triangle_soup(9061, seed=0),
+                 texture=_bench_texture()),
+             scene_mod.MeshInstance(
+                 quad, (ml.matrix_from_yaw_pitch_roll(yaw, 0.0, 0.0)
+                        @ ml.translation(at)).astype(np.float32),
+                 texture=tex)]
+    return scene_mod.build_scene_buffers(insts), atlas_id_of(insts, tex)
+
+
+def rtt_pass_uniforms(uniforms: Dict) -> Dict:
+    """The monitor's feed: the soup seen from above its far side, the
+    monitor itself hidden."""
+    u = dict(uniforms)
+    u["camera_position"] = np.float32([0.0, 6.0, -8.0])
+    u["camera_rotation"] = ml.quat_from_yaw_pitch_roll(
+        np.float32(np.pi), np.float32(-0.5), np.float32(0))
+    u["clear_color"] = np.float32([0.1, 0.2, 0.3, 1.0])
+    u["mesh_visible"] = np.asarray([True, False])
+    return u

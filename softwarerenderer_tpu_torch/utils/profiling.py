@@ -3,7 +3,8 @@
     python -m softwarerenderer_tpu_torch.utils.profiling [--frames N]
         [--width W] [--height H] [--kbuffer K | --raytrace CAP | --deferred
         | --config 3|5 | --shadows directional|point|spot
-        | --image-quality | --animated | --sim | --game] [--out DIR]
+        | --image-quality | --animated | --crowd uncapped|suggested|ladder
+        | --sim | --game] [--out DIR]
 
 Renders the bench scene (``scenes.bench_scene()``) through ``Engine(scene,
 RenderParams(W, H), device="cuda")`` with ``scenes.camera_uniforms(u, i)``;
@@ -27,8 +28,12 @@ box filter as ``frame.ssaa_resolve``; with --animated the animated frame
 of ``scenes.animated_scene()`` (skinned, flip-book, morphing, particle and
 LOD meshes over a normal-mapped floor) with the normal-mapped shaders at
 ``scenes.animated_uniforms(u, i)``, whose updates show as
-``frame.vertex_updates``.  Without --width and
---height a frame is 1920x1080, config 5 bench.py's 3840x2160.  With --sim
+``frame.vertex_updates``; with --crowd ``scripts/profile_lod.py``'s 4K
+crowd of LOD spheres (``scenes.lod_crowd_scene()``) at its camera,
+uncapped, at ``lod.suggested_active_cap`` or at the script's ladder of
+caps measured on frame 0 (``scenes.lod_cap_ladder``), whose compactions
+show as ``frame.geom_cap`` and ``frame.active_cap``.  Without --width and
+--height a frame is 1920x1080, config 5's and the crowd's 3840x2160.  With --sim
 it profiles the simulation instead, three programs (``sim_programs``):
 bench.py config 4's coupled step at 1280x720, a crowd step of
 ``CROWD_AGENTS`` (32) agents on the bench scene with routing and combat,
@@ -81,8 +86,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SPANS = ("frame.camera_cull", "frame.vertex_updates", "frame.geometry",
-         "frame.extras", "tile.bin_pack", "tile.fold", "tile.shade",
+SPANS = ("frame.camera_cull", "frame.vertex_updates", "frame.geom_cap",
+         "frame.geometry", "frame.extras", "frame.active_cap",
+         "tile.bin_pack", "tile.fold", "tile.shade",
          "tile.peel_prev", "tile.peel_fold", "tile.peel_shade", "tile.replay",
          "rt.world", "rt.accel", "rt.prep", "rt.sweep_nearest",
          "rt.sweep_any", "rt.winner", "rt.shade", "rt.brute_cast",
@@ -426,6 +432,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shadows", choices=sorted(SHADOW_FRAMES))
     ap.add_argument("--image-quality", action="store_true")
     ap.add_argument("--animated", action="store_true")
+    ap.add_argument("--crowd", choices=("uncapped", "suggested", "ladder"))
     ap.add_argument("--sim", action="store_true")
     ap.add_argument("--game", action="store_true")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
@@ -439,11 +446,11 @@ def main(argv=None) -> int:
     from softwarerenderer_tpu_torch.engine import Engine
 
     if sum((a.kbuffer > 1, bool(a.raytrace), a.deferred, bool(a.config),
-            bool(a.shadows), a.image_quality, a.animated, a.sim,
-            a.game)) > 1:
+            bool(a.shadows), a.image_quality, a.animated, bool(a.crowd),
+            a.sim, a.game)) > 1:
         print("profiling: --kbuffer, --raytrace, --deferred, --config, "
-              "--shadows, --image-quality, --animated, --sim and --game "
-              "are different frames; pick one", file=sys.stderr)
+              "--shadows, --image-quality, --animated, --crowd, --sim and "
+              "--game are different frames; pick one", file=sys.stderr)
         return 1
     if a.game:
         result = profile_game(a.width or 640, a.height or 400, a.frames,
@@ -472,7 +479,8 @@ def main(argv=None) -> int:
             json.dump(result, f, indent=1)
         print(json.dumps(result, indent=1))
         return 0
-    default = scenes.BENCH_SIZES.get(a.config, (1920, 1080))
+    default = scenes.LOD_CROWD_SIZE if a.crowd \
+        else scenes.BENCH_SIZES.get(a.config, (1920, 1080))
     a.width, a.height = a.width or default[0], a.height or default[1]
     fixed = None
     if a.config:
@@ -501,6 +509,18 @@ def main(argv=None) -> int:
                      RenderParams(a.width, a.height), device="cuda",
                      vertex_shader=normalmap.normal_mapped_vertex_shader,
                      fragment_shader=normalmap.normal_mapped_fragment_shader)
+    elif a.crowd:
+        from softwarerenderer_tpu_torch.ops import lod
+        sc = scenes.lod_crowd_scene()
+        params = RenderParams(a.width, a.height)
+        eng = Engine(sc, params, device="cuda")
+        fixed = scenes.lod_crowd_uniforms(eng.uniforms)
+        if a.crowd == "suggested":
+            params = params.replace(active_cap=lod.suggested_active_cap(sc))
+        elif a.crowd == "ladder":
+            params = params.replace(**scenes.lod_cap_ladder(
+                eng.scene, fixed, params))
+        eng = Engine(eng.scene, params, device="cuda")
     elif a.kbuffer > 1:
         eng = Engine(scenes.translucent_scene(),
                      RenderParams(a.width, a.height, kbuffer=a.kbuffer,
@@ -537,6 +557,9 @@ def main(argv=None) -> int:
               "raytrace": a.raytrace, "deferred": a.deferred,
               "config": a.config, "shadows": a.shadows,
               "image_quality": a.image_quality, "animated": a.animated,
+              "crowd": a.crowd, "caps": {
+                  k: getattr(eng.params, k) for k in (
+                      "active_cap", "geom_cap", "pair_cap", "global_cap")},
               "scene": stats,
               **profile(lambda i: eng.render(uniforms_at(i)), a.frames,
                         os.path.join(a.out, "trace.json"))}

@@ -9,7 +9,9 @@ volley), equals the port's fused_step on the same inputs within a jitted
 step's bounds; and the two whole games, stepped on the same inputs, keep
 the same host pose, recoil, decals and roster.  The rest holds the
 behaviours of tests/test_dust2_app.py on the port's game, its toggles,
-checkpoints, CLI, refusals and a loopback two-player session."""
+checkpoints, CLI, refusals and a loopback two-player session.  A second
+pair of games runs with --mirror --burn-hud --record and is held against
+JAX's the same way."""
 
 import os
 import socket
@@ -568,15 +570,199 @@ def test_engine_rebuilt_from_tensors_shares_buffers():
     np.testing.assert_array_equal(again.present(u), eng.present(u))
 
 
-@pytest.mark.parametrize("flag", sorted(dust2.NOT_PORTED))
-def test_unported_modes_raise_by_name(flag):
-    """--mirror, --burn-hud and --record need modules the port does not
-    have yet: the game refuses them by name before building anything."""
-    value = "clip.avi" if flag == "record" else True
-    with pytest.raises(NotImplementedError, match="--" + flag.replace(
-            "_", "-")) as e:
-        make_game(**{flag: value})
-    assert "A6.7" in str(e.value)
+# The mirrored game: both games with --mirror --burn-hud --record, over
+# the script's first FLAG_FRAMES frames (the shot's decal and sparks and
+# the first bot volley among them).
+FLAG_FRAMES = 12
+FLAGS = ("burn_hud", "mirror", "record")
+
+
+def _steady_fps(game):
+    """The HUD's fps reading fixed at 60, so the text burned into both
+    games' frames is the same whatever their host clocks."""
+    counters = game.stats.counters
+    game.stats.counters = lambda: dict(counters(), fps=60.0)
+
+
+@pytest.fixture(scope="module")
+def flag_games(tmp_path_factory):
+    """A JAX and a port game with --mirror --burn-hud --record, stepped
+    FLAG_FRAMES frames on scripted(i) and closed (the recordings
+    flushed): JAX's fused-step inputs and outputs of every frame, each
+    game's presented frames, host states and recording."""
+    cwd = os.getcwd()
+    tmp = tmp_path_factory.mktemp("flag_games")
+    os.chdir(tmp)
+    kw = dict(width=SIZE[0], height=SIZE[1], render_scale=1.0,
+              headless=True, offline=True, seed=SEED, bots=BOTS,
+              mirror=True, burn_hud=True)
+    jg = jax_dust2.Dust2Game(record=str(tmp / "jax.avi"), **kw)
+    pg = dust2.Dust2Game(record=str(tmp / "port.avi"), device="cpu", **kw)
+    try:
+        captured = []
+        get_fused = jg._get_fused
+
+        def capture(eng):
+            fn = get_fused(eng)
+
+            def fused(scene, sim, ctl, uniforms):
+                inputs = jax.tree_util.tree_map(
+                    np.array, (jax.device_get(sim), ctl, uniforms))
+                out = fn(scene, sim, ctl, uniforms)
+                captured.append((inputs, jax.device_get(out)))
+                return out
+            return fused
+        jg._get_fused = capture
+        out = {"jax": jg, "port": pg, "captured": captured}
+        for name, g in (("jax", jg), ("port", pg)):
+            _steady_fps(g)
+            out[name + "_frames"], out[name + "_hosts"] = [], []
+        for i in range(FLAG_FRAMES):
+            for name, g in (("jax", jg), ("port", pg)):
+                g.step(DT, scripted(i))
+                out[name + "_frames"].append(g.window.last_frame.copy())
+                out[name + "_hosts"].append(_host_state(g))
+        jg.close()
+        pg.close()
+        from softwarerenderer_tpu_torch.utils.video import read_avi
+        for name in ("jax", "port"):
+            out[name + "_avi"] = read_avi(str(tmp / f"{name}.avi"))[0]
+        yield out
+    finally:
+        os.chdir(cwd)
+
+
+def _fused_frames_match(flag_games):
+    """test_fused_step_matches_jax's checks on the mirrored game's frames:
+    the port's fused_step on JAX's captured inputs (pip_view and hud_text
+    among its uniforms); returns the packed images, JAX's and the
+    port's."""
+    pg = flag_games["port"]
+    h = SIZE[1]
+    n_aux = 3 + 11 * BOTS
+    images = []
+    for k, ((sim, ctl, u), (jsim, jpacked, _)) in \
+            enumerate(flag_games["captured"]):
+        assert {"pip_view", "hud_text"} <= set(u)
+        new, packed, tail = dust2.fused_step(
+            pg.engine.scene, port_sim(sim), tree_to_torch(ctl, "cpu"), u,
+            engine=pg.engine, world=pg.world,
+            tri_mask=pg._map_tri_mask_dev, gun_slice=pg.gun_slice,
+            bots=pg._bots_static())
+        assert_tree(jsim, numpy_sim(new), f"frame {k}: ", JIT_RTOL,
+                    JIT_ATOL)
+        got, want = packed.numpy(), np.asarray(jpacked)
+        assert got.shape == want.shape
+        off = np.abs(got[:h].astype(int) - want[:h].astype(int)).max(-1)
+        assert (off > 2).mean() <= RGB_OFF_MAX, (k, (off > 2).mean())
+        np.testing.assert_array_equal(tail.numpy(), got[h - 1:])
+        aux = got[h:].ravel()[:4 * n_aux].view(F32)
+        jaux = want[h:].ravel()[:4 * n_aux].view(F32)
+        np.testing.assert_allclose(aux, jaux, rtol=JIT_RTOL, atol=JIT_ATOL)
+        images.append((want[:h], got[:h]))
+    assert len(images) == FLAG_FRAMES
+    return images
+
+
+def test_fused_step_matches_jax_mirrored_burned_hud(flag_games):
+    """test_fused_step_matches_jax with --mirror --burn-hud: each frame's
+    new states, image (the rear-view inset and the HUD text included)
+    and aux rows against JAX's fused step on the same inputs, within the
+    same bounds."""
+    _fused_frames_match(flag_games)
+
+
+def test_whole_game_matches_jax_mirrored_burned_hud(flag_games):
+    """test_whole_game_matches_jax with --mirror --burn-hud --record: the
+    same recoil, decals, health and roster after every frame, host poses
+    within POSE_ATOL and bot positions within BOT_ATOL."""
+    for i, (j, p) in enumerate(zip(flag_games["jax_hosts"],
+                                   flag_games["port_hosts"])):
+        np.testing.assert_allclose(p["pose"], j["pose"], atol=POSE_ATOL,
+                                   err_msg=f"frame {i}")
+        np.testing.assert_array_equal(p["recoil"], j["recoil"])
+        assert p["decals"] == j["decals"] and p["health"] == j["health"], i
+        assert [r[:4] for r in p["roster"]] == [r[:4] for r in j["roster"]]
+        for rp, rj in zip(p["roster"], j["roster"]):
+            np.testing.assert_allclose(rp[4], rj[4], atol=BOT_ATOL,
+                                       err_msg=f"frame {i} {rp[0]}")
+    assert flag_games["port_hosts"][-1]["decals"] >= 1
+
+
+@pytest.mark.parametrize("flag", FLAGS)
+def test_unported_modes_raise_by_name(flag, flag_games):
+    """The name is kept from when --mirror, --burn-hud and --record were
+    refused.  Each now runs, in the game with all three, and is held
+    against the JAX game with the same flags: --mirror's inset (the
+    rear view, top centre over a dark border) and --burn-hud's text are
+    JAX's fused step's within the frame bound; --record writes the
+    presented frames, one a step, within that bound of JAX's
+    recording."""
+    h, w = SIZE[1], SIZE[0]
+    pw, ph = w // 4, h // 4
+    x0 = (w - pw) // 2
+    inset = (slice(2, 2 + ph), slice(x0, x0 + pw))
+    if flag == "record":
+        frames, jframes = flag_games["port_avi"], flag_games["jax_avi"]
+        assert frames.shape == (FLAG_FRAMES, h, w, 3) == jframes.shape
+        # frame i is the one presented present_depth steps later; the
+        # last ones were in flight and flushed by close()
+        depth = flag_games["port"].present_depth
+        shown = flag_games["port_frames"]
+        for i in range(FLAG_FRAMES - depth):
+            np.testing.assert_array_equal(frames[i], shown[i + depth])
+        off = np.abs(frames.astype(int) - jframes.astype(int)).max(-1)
+        assert (off > 2).mean() <= RGB_OFF_MAX
+        return
+    images = _fused_frames_match(flag_games)
+    # what the flag draws: the inset (mirror) or the text (burn-hud; on
+    # the port's frames against the same frames without it)
+    for want, got in images:
+        if flag == "mirror":
+            assert (got[0, x0 - 2:x0 + pw + 2] <= 20).all()
+            off = np.abs(got[inset].astype(int)
+                         - want[inset].astype(int)).max(-1)
+            assert (off > 2).mean() <= RGB_OFF_MAX * (w * h) / (pw * ph)
+    if flag == "burn_hud":
+        pg = flag_games["port"]
+        (sim, ctl, u), _ = flag_games["captured"][-1]
+        kw = dict(engine=pg.engine, world=pg.world,
+                  tri_mask=pg._map_tri_mask_dev, gun_slice=pg.gun_slice,
+                  bots=pg._bots_static())
+        with_text = dust2.fused_step(pg.engine.scene, port_sim(sim),
+                                     tree_to_torch(ctl, "cpu"), u, **kw)[1]
+        bare = {k: v for k, v in u.items() if k != "hud_text"}
+        without = dust2.fused_step(pg.engine.scene, port_sim(sim),
+                                   tree_to_torch(ctl, "cpu"), bare, **kw)[1]
+        assert int((with_text[:h] != without[:h]).any(-1).sum()) > 50
+
+
+def test_record_exact_frame_count(tmp_path):
+    """--record: an N-step run records exactly N frames (the bootstrap
+    repeats are not recorded; close() flushes the frames in flight), at
+    the asked rate, each a presented frame."""
+    from softwarerenderer_tpu_torch.utils.video import read_avi
+    clip = str(tmp_path / "c.avi")
+    g = make_game(record=clip, record_fps=24.0)
+    shown = []
+    try:
+        for _ in range(5):
+            g.step(1 / 30)
+            shown.append(g.window.last_frame.copy())
+    finally:
+        g.close()
+    frames, fps = read_avi(clip)
+    assert frames.shape == (5, 48, 64, 3)
+    assert fps == pytest.approx(24.0, abs=1e-3)
+    for i in range(5 - g.present_depth):
+        np.testing.assert_array_equal(frames[i], shown[i + g.present_depth])
+    assert any((frames[i] != frames[i + 1]).any() for i in range(4))
+
+
+def test_raytrace_rejects_mirror():
+    """As in the JAX app: --raytrace and --mirror both own the frame."""
+    with pytest.raises(SystemExit):
+        make_game(raytrace=6, mirror=True)
 
 
 def test_needs_a_card(monkeypatch):

@@ -647,6 +647,13 @@ def test_tile_fold_rejects_a_bad_plan(plan, kpi, match):
 # frames are held against JAX in tests/test_torch_post_fx.py and
 # tests/test_torch_texture_filtering.py.
 PORTED_PARAMS = ("ssaa", "ssao", "bloom", "tonemap", "fxaa", "use_mipmaps")
+# Fields refused until the capacity caps and shade_rate were ported
+# (tests/test_torch_caps.py holds them against JAX at length).
+CAP_PARAMS = ("active_cap", "geom_cap", "pair_cap", "global_cap",
+              "shade_rate", "active_cap_stats")
+# PERF.md section 2's D5 share: pixels where XLA's contracted edge
+# functions flip an edge pixel.
+D5_SHARE = 5e-3
 
 
 @pytest.mark.parametrize("field,value", [
@@ -656,24 +663,46 @@ PORTED_PARAMS = ("ssaa", "ssao", "bloom", "tonemap", "fxaa", "use_mipmaps")
     ("use_mipmaps", True), ("shade_rate", 2), ("active_cap_stats", True),
 ])
 def test_unsupported_params_raise(field, value):
-    """A field the port does not implement raises NotImplementedError by
-    name.  The name and cases are kept from before the image-quality
-    fields (PORTED_PARAMS) were ported: each of those now renders through
-    Engine and changes the package scene's frame (bloom with its
-    threshold lowered to 0.3, which the scene's lit colors pass)."""
+    """The name and cases are kept from when these fields raised
+    NotImplementedError.  Each renders now, through Engine.  The
+    image-quality fields (PORTED_PARAMS) change the package scene's frame
+    (bloom with its threshold lowered to 0.3, which the scene's lit
+    colors pass).  The caps (CAP_PARAMS), which all hold on this scene,
+    leave the frame as it is uncapped on every pixel; active_cap_stats
+    adds JAX's counters; shade_rate=2 keeps the full-rate frame's anchor
+    rows; and each frame is JAX's for the same params (its Pallas route
+    in interpret mode, the route that honours global_cap and shade_rate)
+    within the D5 share."""
     from softwarerenderer_tpu_torch.engine import default_frame_uniforms
     params = RenderParams(64, 48).replace(**{field: value})
-    if field not in PORTED_PARAMS:
-        with pytest.raises(NotImplementedError, match=field):
-            Engine(small_scene(), params, device="cpu")
-        return
     u = dict(default_frame_uniforms(64, 48), bloom_threshold=np.float32(0.3))
-    c, d = Engine(small_scene(), params, device="cpu").render(u)
-    base, _ = Engine(small_scene(), RenderParams(64, 48),
-                     device="cpu").render(u)
+    out = Engine(small_scene(), params, device="cpu").render(u)
+    base, base_d = Engine(small_scene(), RenderParams(64, 48),
+                          device="cpu").render(u)
+    c, d = out[:2]
     assert c.shape == base.shape and d.shape == (48, 64)
     assert torch.isfinite(c).all()
-    assert float((c - base).abs().max()) > 0.05
+    if field not in CAP_PARAMS:
+        assert float((c - base).abs().max()) > 0.05
+        return
+    import jax
+    from softwarerenderer_tpu import RenderParams as JaxRenderParams
+    from softwarerenderer_tpu.engine import renderer as jr
+    jout = jax.jit(functools.partial(jr.render_frame, params=JaxRenderParams(
+        64, 48, pallas_interpret=True).replace(**{field: value})))(
+            small_scene(), u)
+    if field == "shade_rate":
+        assert torch.equal(c[::2], base[::2])
+        assert torch.equal(d[::2], base_d[::2])
+    else:
+        assert torch.equal(c, base) and torch.equal(d, base_d)
+    assert len(out) == len(jout) == (3 if field == "active_cap_stats" else 2)
+    if len(out) == 3:
+        assert {k: int(v) for k, v in out[2].items()} == \
+            {k: int(v) for k, v in jout[2].items()}
+    jc, jd = np.asarray(jout[0]), np.asarray(jout[1])
+    assert (np.abs(d.numpy() - jd) > 1e-5).mean() <= D5_SHARE
+    assert (np.abs(c.numpy() - jc).max(-1) > 1e-5).mean() <= D5_SHARE
 
 
 @pytest.mark.parametrize("field,value", [
@@ -820,26 +849,125 @@ def test_unsupported_scene_keys_raise(key):
     assert np.abs(c2.numpy() - c).max() > 0.05
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of many small ops (the shadowed
+    frames' light passes): with the suite's workers sharing the cores,
+    torch's default pool makes them several times slower
+    (tests/test_torch_dust2.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("field,value", [
     ("active_cap", 1000), ("active_cap_stats", True), ("geom_cap", 1000),
     ("pair_cap", 1000), ("global_cap", 512), ("shade_rate", 2)])
-def test_remaining_params_raise_by_name(field, value):
-    """The only refusals left: the capacity caps and shade_rate, by name,
-    through Engine, render_frame and each shadowed frame, on a scene that
-    holds every once-refused scene key."""
+def test_remaining_params_raise_by_name(field, value, one_thread):
+    """The name and cases are kept from when the capacity caps and
+    shade_rate were the port's last refusals.  Each renders now, through
+    Engine, render_frame and each shadowed frame, on a scene that holds
+    every once-refused scene key.  A cap that holds (its counter 0)
+    leaves each frame as it is without the cap, on every pixel;
+    geom_cap=1000, below the frame's masked-in triangles, drops the last
+    ones and changes the frame; active_cap_stats adds a third value and
+    leaves the frame; shade_rate=2 keeps each frame's anchor rows.
+    pair_cap caps the light passes' pair tables too, as JAX's does: 1000
+    pairs hold for the main pass and not for the 512 and 256 maps, so a
+    shadowed frame equals the uncapped one when its light passes fold
+    uncapped, and the directional map under the cap is JAX's.
+    render_frame's frame with the normal-mapped shaders is JAX's for the
+    same params under the animated frame's limits, with JAX's counters
+    (JAX's CPU route ignores global_cap, which holds here; shade_rate is
+    held against JAX's Pallas route on smaller scenes, in
+    test_unsupported_params_raise and tests/test_torch_caps.py)."""
+    import jax
+    from softwarerenderer_tpu import RenderParams as JaxRenderParams
+    from softwarerenderer_tpu.engine import renderer as jr
+    from softwarerenderer_tpu.ops import normalmap as jnm
+    from softwarerenderer_tpu.ops import shadows as js
     from softwarerenderer_tpu_torch.engine import renderer
-    sc, _, _ = _animated()
-    params = RenderParams(*ANIMATED_SIZE).replace(**{field: value})
+    from softwarerenderer_tpu_torch.ops import shadows
+    sc, shaders, _ = _animated()
+    base_p = RenderParams(*ANIMATED_SIZE)
+    params = base_p.replace(**{field: value})
     st = scene_to_torch(sc, "cpu")
-    u = _animated_uniforms(0)
-    calls = [lambda: Engine(sc, params, device="cpu"),
-             lambda: render_frame(st, u, params),
-             lambda: renderer.render_frame_with_shadows(st, u, params),
-             lambda: renderer.render_frame_with_point_shadows(st, u, params),
-             lambda: renderer.render_frame_with_spot_shadow(st, u, params)]
+    u = _animated_uniforms(
+        0, point_light_position=np.float32([0.0, 3.0, -4.0]),
+        point_light_color=np.ones(4, np.float32),
+        spot_position=np.float32([1.5, 3.0, -2.0]),
+        spot_direction=np.float32([0.0, -1.0, 0.0]),
+        spot_inner=np.float32(0.35), spot_outer=np.float32(0.6),
+        spot_color=np.ones(4, np.float32))
+
+    def light_fold_uncapped(tris, sp):
+        return shadows.light_pass_visibility(sp, tris["screen"].device)(
+            tris, sp.replace(pair_cap=0))
+    shadow_kw = {"visibility_fn": light_fold_uncapped} \
+        if field == "pair_cap" else {}
+    calls = [lambda p, **kw: Engine(sc, p, device="cpu").render(u),
+             lambda p, **kw: render_frame(st, u, p),
+             lambda p, **kw: renderer.render_frame_with_shadows(st, u, p,
+                                                                **kw),
+             lambda p, **kw: renderer.render_frame_with_point_shadows(
+                 st, u, p, **kw),
+             lambda p, **kw: renderer.render_frame_with_spot_shadow(
+                 st, u, p, **kw)]
+    stats = render_frame(st, u, params.replace(active_cap_stats=True))[2]
+    dropped = sum(int(v) for k, v in stats.items() if k.endswith("overflow"))
+    assert (dropped > 0) == (field == "geom_cap")
     for call in calls:
-        with pytest.raises(NotImplementedError, match=field):
-            call()
+        out, (bc, bd) = call(params, **shadow_kw), call(base_p)
+        assert len(out) == (3 if field == "active_cap_stats" else 2)
+        if field == "shade_rate":
+            assert torch.equal(out[0][::2], bc[::2])
+        elif dropped:
+            assert not torch.equal(out[0], bc)
+        else:
+            assert torch.equal(out[0], bc) and torch.equal(out[1], bd)
+    if field == "pair_cap":
+        center, radius = shadows.scene_bounds(st)
+        view, proj, _ = shadows.directional_light_camera(
+            u["light_direction"], center, radius)
+        got = shadows.render_shadow_depth(st, u, view, proj, 512, params)
+        full = shadows.render_shadow_depth(st, u, view, proj, 512, base_p)
+        assert not torch.equal(got, full)
+        want = np.asarray(jax.jit(functools.partial(
+            js.render_shadow_depth, shadow_size=512,
+            params=JaxRenderParams(*ANIMATED_SIZE, pair_cap=value)))(
+                sc, u, view.numpy(), proj.numpy()))
+        assert (np.abs(got.numpy() - want) > 1e-5).mean() \
+            <= ANIMATED_DEPTH_OFF_MAX
+    if field == "shade_rate":
+        return
+    jp = JaxRenderParams(*ANIMATED_SIZE, active_cap_stats=True).replace(
+        **{field: value})
+    jc, jd, jstats = jax.jit(functools.partial(
+        jr.render_frame, params=jp,
+        vertex_shader=jnm.normal_mapped_vertex_shader,
+        fragment_shader=jnm.normal_mapped_fragment_shader))(sc, u)
+    sp = params.replace(active_cap_stats=True)
+    c, d, got = render_frame(st, u, sp, **shaders)
+    got = {k: int(v) for k, v in got.items()}
+    want = {k: int(v) for k, v in jstats.items()}
+    assert got.keys() == want.keys()
+    assert all(got[k] == want[k] for k in got if k != "live_pairs")
+    # live_pairs: JAX's count of the port's set-up triangles exactly; of
+    # JAX's own, less the pairs of the mesh's degenerate slots (two equal
+    # vertices), whose area is 0 here and 1e-7 under XLA's contracted
+    # edge function, which makes them valid there (PARITY.md D5).
+    from softwarerenderer_tpu.ops import binning as jbin
+    tris = renderer.frame_setup(st, u, sp, **shaders)["tris"]
+    assert got["live_pairs"] == int(jbin.live_pair_count(
+        {k: tris[k].numpy() for k in ("bbox", "valid")}, jp))
+    assert 0 <= want["live_pairs"] - got["live_pairs"] \
+        <= 0.02 * want["live_pairs"]
+    c, d = c.numpy(), d.numpy()
+    assert (np.abs(c - np.asarray(jc)).max(-1) > 1e-5).mean() \
+        <= ANIMATED_COLOR_OFF_MAX
+    assert (np.abs(d - np.asarray(jd)) > 1e-5).mean() \
+        <= ANIMATED_DEPTH_OFF_MAX
     renderer.check_supported(RenderParams(*ANIMATED_SIZE), u)
 
 
