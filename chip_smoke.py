@@ -130,7 +130,19 @@ drives the port's paths at 1080p (config 5 at 4K):
     each equal to its plain path (the atlas to the CPU's write); and the
     game of phase 23 with the three flags (2 K1 a step, 0 syncs in
     fused_step, the first steps equal to the CPU's, every recorded frame
-    the frame presented).
+    the frame presented);
+  * the multi-device layer (phase 25, ``parallel``): K1, K2 and K5 with a
+    tile origin map against their twins and against the unmapped kernels'
+    whole frame, for every band of 4 and 8 contiguous bands, a permuted
+    tile-row map and a tile map, and the mapped K1 and K2 timed beside the
+    unmapped ones; a one-rank NCCL group (mesh (1, 1)) whose sharded bench
+    frame equals Engine.render's; and four ranks spawned on the card under
+    gloo (the kernels built first, here) rendering the meshes (4, 1),
+    (2, 2) and (1, 4) at 1080p, config 5 at 4K on (2, 2) and (1, 4),
+    balanced rows and tiles (and tiles on the deferred route), the
+    K-buffer over contiguous and balanced-row bands, the ring at n = 4 on
+    both frames, four views and ray-traced bands, each 0 values off its
+    single-card frame on every rank (over NCCL too with four cards).
 
 Any failed check raises and exits non-zero.  The last three lines of
 standard output are the card's name and power limit, a JSON line with the
@@ -175,8 +187,9 @@ GBUF_ATOL = 1e-5           # G-buffer, kernel vs plain
 FRAME_COVERED_MISMATCH_MAX = 1e-4
 KBUFFER = 4
 # Registers a thread of K1, K2 and K5 may use: 4, 3 and 4 blocks of 256
-# threads an SM.
-TILE_REGISTERS = {"K1": 64, "K2": 80, "K5": 64}
+# threads an SM; K1, K2 and K5 with a tile origin map (K1m, K2m, K5m) 3.
+TILE_REGISTERS = {"K1": 64, "K2": 80, "K5": 64, "K1m": 80, "K2m": 80,
+                  "K5m": 80}
 # Phase 3's other tilings of the bench frame: a tile smaller than a block
 # of 1,024 pixels, one of three whole blocks, one with a ragged last block
 # and one whose width does not divide 256 (the kernel's other pixel layout).
@@ -499,7 +512,13 @@ def _vis_case(tris, globs, segs, fbd, tile_h, tile_w, row_offset, device):
         torch.tensor([len(globs)], dtype=i32),
         torch.tensor([t for s in segs for t in s], dtype=i32),
         torch.tensor(starts, dtype=i32), torch.tensor(counts, dtype=i32)))
-    return args, dict(tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
+    # A band at row_offset: each tile's screen origin (row_offset +
+    # ty * tile_h, tx * tile_w).
+    nty, ntx = fbd.shape[0] // tile_h, fbd.shape[1] // tile_w
+    origin = torch.tensor([[row_offset + ty * tile_h, tx * tile_w]
+                           for ty in range(nty) for tx in range(ntx)],
+                          dtype=i32, device=device) if row_offset else None
+    return args, dict(tile_h=tile_h, tile_w=tile_w, origin=origin)
 
 
 def vis_fold_edge_cases(device):
@@ -704,13 +723,22 @@ def sweep_bound_tested(args, outputs, tested) -> dict:
 def report_ptxas(output: str) -> None:
     """Print ptxas's registers, spills and shared memory per kernel
     instantiation; fail on a spill."""
-    names = {"tile_raster_kernelILb0ELb1E": "K1 tile_raster_kernel<opaque, "
-                                            "one column a thread>",
-             "tile_raster_kernelILb0ELb0E": "K1 tile_raster_kernel<opaque>",
-             "tile_raster_kernelILb1ELb0E": "K2 tile_raster_kernel<peel>",
-             "vis_fold_kernelILb1E": "K5 vis_fold_kernel<one column a "
-                                     "thread>",
-             "vis_fold_kernelILb0E": "K5 vis_fold_kernel"}
+    names = {"tile_raster_kernelILb0ELb1ELb0E":
+             "K1 tile_raster_kernel<opaque, one column a thread>",
+             "tile_raster_kernelILb0ELb0ELb0E": "K1 tile_raster_kernel<opaque>",
+             "tile_raster_kernelILb1ELb0ELb0E": "K2 tile_raster_kernel<peel>",
+             "tile_raster_kernelILb0ELb1ELb1E":
+             "K1m tile_raster_kernel<opaque, one column a thread, mapped>",
+             "tile_raster_kernelILb0ELb0ELb1E":
+             "K1m tile_raster_kernel<opaque, mapped>",
+             "tile_raster_kernelILb1ELb0ELb1E":
+             "K2m tile_raster_kernel<peel, mapped>",
+             "vis_fold_kernelILb1ELb0E": "K5 vis_fold_kernel<one column a "
+                                         "thread>",
+             "vis_fold_kernelILb0ELb0E": "K5 vis_fold_kernel",
+             "vis_fold_kernelILb1ELb1E": "K5m vis_fold_kernel<one column a "
+                                         "thread, mapped>",
+             "vis_fold_kernelILb0ELb1E": "K5m vis_fold_kernel<mapped>"}
     fn = "?"
     for line in output.splitlines():
         if "Compiling entry function" in line:
@@ -731,7 +759,7 @@ def report_ptxas(output: str) -> None:
                   f"{fn} spills: {line.strip()}")
             if fn.startswith(("K1", "K2", "K5")) and "Used " in line:
                 regs = int(line.split("Used ")[1].split()[0])
-                most = TILE_REGISTERS[fn[:2]]
+                most = TILE_REGISTERS[fn.split()[0]]
                 check(regs <= most, f"{fn} uses {regs} registers, more "
                       f"than {most}")
 
@@ -1580,8 +1608,7 @@ def check_vis_fold_kernel(card, k1_args, k1_kwargs, k1_out,
     and largest difference."""
     from softwarerenderer_tpu_torch.ops import binning, vis_fold
     args = k1_args[:7]
-    kwargs = dict(tile_h=k1_kwargs["tile_h"], tile_w=k1_kwargs["tile_w"],
-                  row_offset=0)
+    kwargs = dict(tile_h=k1_kwargs["tile_h"], tile_w=k1_kwargs["tile_w"])
     kd, ki = vis_fold.vis_fold(*args, **kwargs)
     pd, pi = vis_fold.visibility_fold_plain(*args, **kwargs)
     torch.cuda.synchronize()
@@ -3910,6 +3937,533 @@ def check_mirrored_game(card, device="cuda", size=GAME_SIZE,
         os.chdir(cwd)
 
 
+# ---- phase 25: the multi-device layer ---------------------------------------
+
+PAR_RANKS = 4
+PAR_TIMED = 3              # timed frames a case, after one checked frame
+PAR_ROWS_TILE_H = 27       # 1080 = 40 tile rows of 27, 10 a rank
+PAR_BANDS = (4, 8)
+PAR_GROUP_FRAMES = 10
+
+
+def _launch_counts() -> dict:
+    """Every kernel's launches so far: K1, K2 and K5 without a tile origin
+    map and with one (K1m, K2m, K5m), K4 (K4a its any-hit casts)."""
+    from softwarerenderer_tpu_torch.ops import rt_sweep, tile_raster, vis_fold
+    return {"K1": tile_raster.LAUNCHES, "K2": tile_raster.PEEL_LAUNCHES,
+            "K1m": tile_raster.MAPPED_LAUNCHES,
+            "K2m": tile_raster.MAPPED_PEEL_LAUNCHES,
+            "K4": rt_sweep.LAUNCHES, "K4a": rt_sweep.ANY_HIT_LAUNCHES,
+            "K5": vis_fold.VIS_LAUNCHES,
+            "K5m": vis_fold.VIS_MAPPED_LAUNCHES}
+
+
+def _zero_counts() -> None:
+    from softwarerenderer_tpu_torch.ops import tile_raster, vis_fold
+    _reset_counts()
+    tile_raster.MAPPED_LAUNCHES = tile_raster.MAPPED_PEEL_LAUNCHES = 0
+    vis_fold.VIS_LAUNCHES = vis_fold.VIS_MAPPED_LAUNCHES = 0
+
+
+def _values_off(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Values of got that differ from want (same device), NaN equal to
+    NaN; every value when the shapes differ."""
+    if got.shape != want.shape:
+        return max(got.numel(), want.numel())
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want)) \
+        if got.is_floating_point() else got == want
+    return int((~same).sum())
+
+
+def _origin_layouts(params, device):
+    """Phase 25a's bands of the frame at K1's tiling: (name, band params,
+    the band's tile origin map, its row offset (a contiguous band, binned
+    there) or None, full-frame tile ids (binned over the whole frame) or
+    None)."""
+    from softwarerenderer_tpu_torch.ops import binning
+    th, tw = min(params.tile_h, 32), params.tile_w
+    ntx = binning.cdiv(params.width, tw)
+    nty = binning.cdiv(params.height, th)
+    out = []
+    for n in PAR_BANDS:
+        h = params.height // n
+        out += [(f"{n} bands, band {i}", params.replace(height=h),
+                 binning.band_origin(binning.cdiv(h, th), ntx, th, tw, i * h,
+                                     device), i * h, None)
+                for i in range(n)]
+    gen = torch.Generator().manual_seed(25)
+    rows = torch.randperm(nty, generator=gen)[:nty // 4].to(device)
+    tiles = (rows[:, None] * ntx
+             + torch.arange(ntx, device=device)).reshape(-1)
+    out.append((f"tile-row map ({len(rows)} permuted rows)",
+                params.replace(height=len(rows) * th),
+                binning.tile_origins(tiles, ntx, th, tw), None, tiles))
+    tiles = torch.randperm(nty * ntx, generator=gen)[:97].to(device)
+    out.append(("tile map (97 permuted tiles)",
+                params.replace(height=len(tiles) * th, width=tw),
+                binning.tile_origins(tiles, ntx, th, tw), None, tiles))
+    return out
+
+
+def check_origin_map(card, eng, params, u0, device="cuda") -> dict:
+    """Phase 25a: K1, K2 and K5 with a tile origin map, on the bench
+    frame's triangles, against their twins and against the unmapped
+    kernels' whole frame at the same screen pixels: every band of
+    PAR_BANDS contiguous bands, a permuted tile-row map and a tile map.
+    Then the mapped K1, K2 and K5 on the whole frame (an identity map)
+    timed in turns with the unmapped kernels.  Returns the mapped
+    kernels' numbers and the unmapped K1's times."""
+    from softwarerenderer_tpu_torch.engine import (frame_setup,
+                                                   scene_fragment_shader)
+    from softwarerenderer_tpu_torch.ops import (binning, raster, tile_raster,
+                                                vis_fold)
+    t_phase = time.perf_counter()
+    f = frame_setup(eng.scene, u0, params)
+    keep = frozenset(scene_fragment_shader.varyings)
+    ctx = tile_raster.prepare(f["tris"], params, f["fb_depth"], f["per_tri"],
+                              keep)
+    args, kw = tile_raster.fold_inputs(ctx)
+    th, tw = kw["tile_h"], kw["tile_w"]
+    full1 = tile_raster.tile_fold(*args, **kw)
+    prev = dict(prev_d=full1[1], prev_i=full1[2])
+    full2 = tile_raster.tile_fold(*args, **kw, **prev)
+    full5 = vis_fold.vis_fold(*args[:7], tile_h=th, tile_w=tw)
+    H, W = params.height, params.width
+    worst = {"K1": 0.0, "K2": 0.0, "K5": 0.0}
+    off = {"K1": 0, "K2": 0, "K5": 0}
+    pixels = 0
+    for name, pb, origin, row_offset, tiles in _origin_layouts(params,
+                                                               device):
+        bins = (binning.bin_triangles(f["tris"], pb, th, tw, params.span_cap,
+                                      row_offset) if tiles is None
+                else binning.bin_tiles(f["tris"], params, th, tw,
+                                       params.span_cap, tiles))
+        fb = torch.full((pb.height, pb.width), raster.DEPTH_CLEAR,
+                        device=device)
+        bctx = tile_raster.prepare(f["tris"], pb, fb, f["per_tri"], keep,
+                                   origin=origin, bins=bins)
+        bargs, bkw = tile_raster.fold_inputs(bctx)
+        hp, wp = bctx["Hp"], bctx["Wp"]
+        px, py = binning.pixel_coords(hp, wp, th, tw, device, origin)
+        px, py = px.long(), py.long()
+        # The band's own pixels (not its tile padding) that lie on the
+        # screen.
+        stored = (torch.arange(hp, device=device)[:, None] < pb.height) \
+            & (torch.arange(wp, device=device)[None, :] < pb.width)
+        on = (py < H) & (px < W) & stored.reshape(-1)
+        ys, xs = py.clamp(max=H - 1), px.clamp(max=W - 1)
+        pixels += int(on.sum())
+        bprev = dict(
+            prev_d=torch.where(on, full1[1][ys, xs],
+                               raster.DEPTH_CLEAR).reshape(hp, wp),
+            prev_i=torch.where(on, full1[2][ys, xs], -1).reshape(hp, wp))
+        runs = {
+            "K1": (lambda fn: fn(*bargs, **bkw), tile_raster.tile_fold,
+                   tile_raster.tile_fold_plain, full1),
+            "K2": (lambda fn: fn(*bargs, **bkw, **bprev),
+                   tile_raster.tile_fold, tile_raster.tile_fold_plain, full2),
+            "K5": (lambda fn: fn(*bargs[:7], tile_h=th, tile_w=tw,
+                                 origin=origin), vis_fold.vis_fold,
+                   vis_fold.visibility_fold_plain, full5)}
+        for k, (run, kernel, plain, full) in runs.items():
+            for g, p, w in zip(run(kernel), run(plain), full):
+                g = g.reshape(*g.shape[:-2], -1)[..., on]
+                p = p.reshape(*p.shape[:-2], -1)[..., on]
+                w = w[..., ys, xs][..., on]
+                if g.dim() == 2:       # the G-buffer: within GBUF_ATOL
+                    err = float((g - p).abs().max())
+                    worst[k] = max(worst[k], err)
+                    off[k] += int(((g - p).abs() > GBUF_ATOL).sum())
+                else:
+                    off[k] += _values_off(g, p)
+                    if g.is_floating_point() and g.numel():
+                        err = torch.where(g == p, 0.0, (g - p).abs())
+                        worst[k] = max(worst[k], float(err.max()))
+                off[k] += _values_off(g, w)
+    log(f"phase 25a tile origin map, bench frame @{W}x{H}, {th}x{tw} tiles "
+        f"(K5 on the same bins): every band of {' and '.join(map(str, PAR_BANDS))} "
+        f"contiguous bands, a permuted tile-row map and a tile map, "
+        f"{pixels} screen pixels; values off the twin or the unmapped whole "
+        f"frame: K1 {off['K1']}, K2 {off['K2']}, K5 {off['K5']}; largest "
+        f"diff to the twin K1 {worst['K1']:.3g}, K2 {worst['K2']:.3g}, K5 "
+        f"{worst['K5']:.3g} [{card}]")
+    check(off == {"K1": 0, "K2": 0, "K5": 0}, f"origin map values off {off}")
+
+    # The mapped instantiations on the whole frame through an identity map,
+    # in turns with the unmapped ones, and their twins through the map.
+    ident = binning.tile_origins(torch.arange(args[5].numel(), device=device),
+                                 binning.cdiv(W, tw), th, tw)
+    mkw = dict(kw, origin=ident)
+    kw5 = dict(tile_h=th, tile_w=tw)
+    mkw5 = dict(kw5, origin=ident)
+    check(all(torch.equal(a, b) for a, b in zip(
+        tile_raster.tile_fold(*args, **mkw), full1)),
+        "K1 through an identity map differs from K1")
+    check(all(torch.equal(a, b) for a, b in zip(
+        tile_raster.tile_fold(*args, **mkw, **prev), full2)),
+        "K2 through an identity map differs from K2")
+    check(all(torch.equal(a, b) for a, b in zip(
+        vis_fold.vis_fold(*args[:7], **mkw5), full5)),
+        "K5 through an identity map differs from K5")
+    ms = {k: [] for k in ("K1", "K1m", "K2", "K2m", "K5", "K5m")}
+    for _ in range(2):
+        for k, fn, kwk in (
+                ("K1", tile_raster.tile_fold, kw),
+                ("K1m", tile_raster.tile_fold, mkw),
+                ("K2", tile_raster.tile_fold, dict(kw, **prev)),
+                ("K2m", tile_raster.tile_fold, dict(mkw, **prev)),
+                ("K5", vis_fold.vis_fold, kw5),
+                ("K5m", vis_fold.vis_fold, mkw5)):
+            a = args if k[:2] != "K5" else args[:7]
+            ms[k].append(cuda_ms(lambda: fn(*a, **kwk), KERNEL_RUNS))
+    plain1 = cuda_ms(lambda: tile_raster.tile_fold_plain(*args, **mkw),
+                     PLAIN_RUNS)
+    plain2 = cuda_ms(lambda: tile_raster.tile_fold_plain(*args, **mkw,
+                                                         **prev), PLAIN_RUNS)
+    plain5 = cuda_ms(lambda: vis_fold.visibility_fold_plain(*args[:7],
+                                                            **mkw5),
+                     PLAIN_RUNS)
+
+    def pair(k):
+        return " and ".join(f"{x:.3f}" for x in ms[k])
+
+    log(f"phase 25a whole frame in turns (medians of {KERNEL_RUNS}, with "
+        f"the wrappers): K1 unmapped {pair('K1')} ms, through an identity "
+        f"map {pair('K1m')} ms (twin {plain1:.3f}); K2 pass 1 unmapped "
+        f"{pair('K2')} ms, mapped {pair('K2m')} ms (twin {plain2:.3f}); K5 "
+        f"unmapped {pair('K5')} ms, mapped {pair('K5m')} ms (twin "
+        f"{plain5:.3f}); took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"K1m": dict(fold_bound(args, kw, full1),
+                        ms=statistics.median(ms["K1m"]), plain_ms=plain1,
+                        max_abs_err=worst["K1"]),
+            "K2m": dict(fold_bound(args, dict(kw, **prev), full2),
+                        ms=statistics.median(ms["K2m"]), plain_ms=plain2,
+                        max_abs_err=worst["K2"]),
+            "K5m": dict(fold_bound(args[:7], kw5, full5),
+                        ms=statistics.median(ms["K5m"]), plain_ms=plain5,
+                        max_abs_err=worst["K5"]),
+            "K1_ms": ms["K1"]}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_one_rank_group(card, eng, params, u0, device="cuda") -> dict:
+    """Phase 25b: a one-rank process group through the port's bootstrap
+    (NCCL on the card), mesh (1, 1): the sharded bench frame equal to
+    Engine.render's on every value with one launch of the mapped K1 a
+    frame (a band always folds through its origin map) and none of the
+    unmapped one, timed in turns with the unsharded frame, whose launches
+    are the unmapped K1's.  Returns the mapped K1's launches over the
+    timed sharded frames and the medians."""
+    import torch.distributed as dist
+    from softwarerenderer_tpu_torch import parallel
+    from softwarerenderer_tpu_torch.parallel import multihost
+    os.environ.update(SRT_COORD=f"localhost:{_free_port()}",
+                      SRT_NUM_PROCS="1", SRT_PROC_ID="0")
+    try:
+        check(multihost.initialize_from_env(device=device),
+              "initialize_from_env started no group")
+        mesh = parallel.make_mesh(1, 1, device=device)
+
+        def sharded():
+            return parallel.render_frame_sharded(eng.scene, u0, params, mesh)
+
+        want = eng.render(u0)
+        _zero_counts()
+        got = sharded()
+        first = _launch_counts()
+        n_off = _values_off(got[0], want[0]) + _values_off(got[1], want[1])
+        check(n_off == 0, f"sharded (1, 1) frame: {n_off} values off")
+        check(first["K1m"] == 1 and first["K1"] == 0,
+              f"sharded (1, 1) frame: K1 mapped {first['K1m']}, unmapped "
+              f"{first['K1']}")
+        times = {"sharded": [], "unsharded": []}
+        _zero_counts()
+        for _ in range(PAR_GROUP_FRAMES):
+            for name, fn in (("sharded", sharded),
+                             ("unsharded", lambda: eng.render(u0))):
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3)
+        counts = _launch_counts()
+        check(counts["K1m"] == PAR_GROUP_FRAMES
+              and counts["K1"] == PAR_GROUP_FRAMES,
+              f"over {PAR_GROUP_FRAMES} frames of each: K1 mapped "
+              f"{counts['K1m']}, unmapped {counts['K1']}")
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"phase 25b one-rank {dist.get_backend()} group, mesh (1, 1), "
+            f"bench frame @{params.width}x{params.height}: 0 values off "
+            f"Engine.render's frame; {PAR_GROUP_FRAMES} frames each in turns "
+            f"(host clock, synchronised): mapped K1 launches "
+            f"{counts['K1m']} (sharded), unmapped {counts['K1']} "
+            f"(unsharded); sharded median {med['sharded']:.2f} ms, "
+            f"unsharded {med['unsharded']:.2f} ms [{card}]")
+        return {"launches": counts["K1m"], "median_ms": med}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in ("SRT_COORD", "SRT_NUM_PROCS", "SRT_PROC_ID"):
+            os.environ.pop(k, None)
+
+
+PAR_KERNELS = ("K1", "K1m", "K2", "K2m", "K4", "K4a", "K5", "K5m")
+
+
+def _peel_passes(frame):
+    """An expectation of a K-buffer case: the mapped K1 once and the mapped
+    K2 once per live peel pass of this rank's band, the passes counted by
+    rendering the band again through the plain twin (every rank calls it,
+    as the frame's gather needs)."""
+    from softwarerenderer_tpu_torch.ops import tile_raster
+
+    def expect(mesh):
+        peels = []
+
+        def counting(*a, **k):
+            if k.get("prev_i") is not None:
+                peels.append(1)
+            return tile_raster.tile_fold_plain(*a, **k)
+        frame(mesh, fold=counting)
+        return {"K1m": 1, "K2m": len(peels)}
+    return expect
+
+
+def _par_cases(device) -> dict:
+    """Phase 25c's cases: name -> (mesh maker taking device=, frame of the
+    mesh, single-card reference frame, each kernel's launches expected on
+    a rank: a dict of PAR_KERNELS counts, 0 where absent, or a callable
+    of the mesh that returns one)."""
+    from softwarerenderer_tpu_torch import RenderParams, parallel, scenes
+    from softwarerenderer_tpu_torch.engine import (default_frame_uniforms,
+                                                   render_frame)
+    from softwarerenderer_tpu_torch.models.convert import scene_to_torch
+    from softwarerenderer_tpu_torch.models.scene import build_scene_buffers
+    from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
+
+    def packed(sc):
+        return {n: scene_to_torch(parallel.shard_scene_triangles(sc, n),
+                                  device) for n in (1, 2, 4)}
+
+    bench = packed(scenes.bench_scene())
+    cfg5 = packed(build_scene_buffers(scenes.golden_config(5)))
+    glass = packed(scenes.translucent_scene())
+    u = scenes.camera_uniforms(default_frame_uniforms(W, H), 0)
+    w5, h5 = scenes.BENCH_SIZES[5]
+    u5 = scenes.golden_uniforms(5, default_frame_uniforms(w5, h5))
+    p, p5 = RenderParams(W, H), RenderParams(w5, h5)
+    s5 = scenes.golden_shaders(5)
+    pk = RenderParams(W, H, kbuffer=KBUFFER, cull_mode=0)
+    rows = dict(tile_h=PAR_ROWS_TILE_H)
+    views = [{k: scenes.camera_uniforms(dict(u), i)[k]
+              for k in ("camera_position", "camera_rotation")}
+             for i in range(PAR_RANKS)]
+    # One mapped fold a band: K1 on the tile route, K5 on the deferred one.
+    tile, deferred = {"K1m": 1}, {"K5m": 1}
+
+    def sharded(shape, sc, uu, pp, expect, balanced=False, **kw):
+        def frame(mesh, **more):
+            return parallel.render_frame_sharded(
+                sc[shape[1]], uu, pp, mesh, balanced=balanced, **kw, **more)
+        return (functools.partial(parallel.make_mesh, *shape), frame,
+                lambda: render_frame(sc[1], uu, pp, **kw)[:2],
+                _peel_passes(frame) if expect is None else expect)
+
+    cases = {}
+    for shape in ((4, 1), (2, 2), (1, 4)):
+        cases[f"mesh {shape[0]}x{shape[1]}, bench 1080p"] = sharded(
+            shape, bench, u, p, tile)
+    for shape in ((2, 2), (1, 4)):
+        cases[f"mesh {shape[0]}x{shape[1]}, config 5 4K"] = sharded(
+            shape, cfg5, u5, p5, tile, **s5)
+    for mode in ("rows", "tiles"):
+        cases[f"balanced {mode}, bench 1080p, tile_h 27"] = sharded(
+            (4, 1), bench, u, p.replace(**rows), tile, mode)
+    cases["balanced tiles, deferred route (K5), tile_h 27"] = sharded(
+        (4, 1), bench, u, p.replace(use_pallas=False, **rows), deferred,
+        "tiles")
+    cases["K-buffer K=4, contiguous bands, translucent 1080p"] = sharded(
+        (4, 1), glass, u, pk, None)
+    cases["K-buffer K=4, balanced rows, tile_h 27"] = sharded(
+        (4, 1), glass, u, pk.replace(**rows), None, "rows")
+    for name, sc, uu, pp, kw in (("bench 1080p", bench, u, p, {}),
+                                 ("config 5 4K", cfg5, u5, p5, s5)):
+        # n shards fold into each band, one mapped K5 each.
+        cases[f"ring n=4, {name}"] = (
+            functools.partial(parallel.make_ring_mesh, PAR_RANKS),
+            lambda mesh, sc=sc, uu=uu, pp=pp, kw=kw:
+            parallel.render_frame_ring(sc[PAR_RANKS], uu, pp, mesh, **kw),
+            lambda sc=sc, uu=uu, pp=pp, kw=kw:
+            render_frame(sc[1], uu, pp, **kw)[:2], {"K5m": PAR_RANKS})
+    # A view is a whole frame: the unmapped K1.
+    cases["views V=4, bench 1080p"] = (
+        functools.partial(parallel.make_view_mesh, PAR_RANKS),
+        lambda mesh: parallel.render_frame_views(
+            bench[1], u, p, parallel.stack_views(views), mesh),
+        lambda: tuple(torch.stack(x) for x in zip(
+            *[render_frame(bench[1], {**u, **ov}, p) for ov in views])),
+        {"K1": 1})
+    # A band's nearest cast and its shadow (any-hit) cast.
+    cases["ray-traced bands, cluster_cap 24, hard shadows"] = (
+        functools.partial(parallel.make_mesh, PAR_RANKS, 1),
+        lambda mesh: parallel.render_frame_raytraced_sharded(
+            bench[1], u, p, mesh, cluster_cap=RT_CAP),
+        lambda: render_frame_raytraced(bench[1], u, p, cluster_cap=RT_CAP),
+        {"K4": 2, "K4a": 1})
+    return cases
+
+
+def _par_rank(rank: int, n: int, port: int, out_dir: str, device: str,
+              backend: str) -> None:
+    """One rank of phase 25c: the port's bootstrap, then every case (one
+    checked frame with its launches against the single-card frame and the
+    expected launches, then PAR_TIMED timed frames each beside the
+    single-card frame), written as JSON to out_dir."""
+    import traceback
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    os.environ.update(SRT_COORD=f"localhost:{port}", SRT_NUM_PROCS=str(n),
+                      SRT_PROC_ID=str(rank))
+    result = {"rank": rank, "cases": {}, "error": None}
+    try:
+        from softwarerenderer_tpu_torch.parallel import (collectives,
+                                                         multihost)
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", multihost.local_rank(rank))
+            torch.cuda.set_device(dev)
+        multihost.initialize_from_env(device=dev.type, backend=backend)
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+
+        for name, (make, frame, ref, expect) in _par_cases(dev).items():
+            mesh = make(device=str(dev))
+            _zero_counts()
+            got = frame(mesh)
+            sync()
+            counts = _launch_counts()
+            if callable(expect):
+                expect = expect(mesh)
+            want = ref()
+            n_off = _values_off(got[0], want[0]) \
+                + _values_off(got[1], want[1])
+            del got, want
+            times, single = [], []
+            for _ in range(PAR_TIMED):
+                dist.barrier()
+                t = time.perf_counter()
+                frame(mesh)
+                sync()
+                times.append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                ref()
+                sync()
+                single.append((time.perf_counter() - t) * 1e3)
+            result["cases"][name] = {
+                "off": n_off, "launches": counts,
+                "expected": {k: expect.get(k, 0) for k in PAR_KERNELS},
+                "ms": statistics.median(times),
+                "single_ms": statistics.median(single)}
+        result["host_staged"] = dict(collectives.HOST_STAGED)
+        result["backend"] = dist.get_backend()
+    except Exception:
+        result["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(result, fh)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def run_par_ranks(n: int, device: str, backend: str) -> list:
+    """Spawn n ranks of _par_rank (never fork: this process holds a CUDA
+    context) and return their results, a missing one as an error."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=_par_rank,
+                             args=(r, n, port, out_dir, device, backend))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        out = []
+        for r, p in enumerate(procs):
+            if p.is_alive():
+                p.kill()
+                p.join()
+            path = os.path.join(out_dir, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as fh:
+                    out.append(json.load(fh))
+            else:
+                out.append({"rank": r, "error": f"rank {r} exited "
+                            f"{p.exitcode} without a result"})
+    return out
+
+
+def check_parallel_ranks(card, device="cuda") -> dict:
+    """Phase 25c: four ranks spawned on the one card under gloo (NCCL
+    refuses two ranks on one device; gloo takes CUDA tensors for
+    all_reduce and broadcast, and the port stages its gather and ring
+    exchange through pinned host buffers), every case at full width with
+    each rank's kernels on the card: each frame 0 values off the
+    single-card frame on every rank, each kernel of the case launched on
+    every rank.  With PAR_RANKS cards or more, the same over NCCL, a card
+    a rank.  Returns each run's rank results by backend."""
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    runs = [("gloo", f"{PAR_RANKS} ranks on {min(n_cards, PAR_RANKS)} "
+             f"card(s)")]
+    if n_cards >= PAR_RANKS:
+        runs.append(("nccl", f"{PAR_RANKS} ranks, a card each"))
+    else:
+        log(f"phase 25c NCCL over {PAR_RANKS} cards: not run, {n_cards} "
+            f"card(s) here")
+    out = {}
+    for backend, label in runs:
+        res = run_par_ranks(PAR_RANKS, device, backend)
+        errors = [r["error"] for r in res if r.get("error")]
+        for e in errors:
+            log(e)
+        check(not errors, f"phase 25c ({backend}): a rank failed")
+        log(f"phase 25c {backend}, {label}: collectives staged through "
+            f"pinned host buffers, calls on rank 0: "
+            f"{res[0]['host_staged'] or 'none'}.  The ranks share "
+            f"{'one card and its host' if n_cards < PAR_RANKS else 'a host'}"
+            f", so the times below measure nothing about scale-out [{card}]")
+        for name in res[0]["cases"]:
+            per = [r["cases"][name] for r in res]
+            offs = [c["off"] for c in per]
+            launches = {k: [c["launches"][k] for c in per]
+                        for k in PAR_KERNELS}
+            expected = {k: [c["expected"][k] for c in per]
+                        for k in PAR_KERNELS}
+            shown = "; ".join(
+                f"{k} {launches[k]}" for k in PAR_KERNELS
+                if any(launches[k]) or any(expected[k]))
+            log(f"phase 25c {name}: values off the single-card frame per "
+                f"rank {offs}; launches per rank {shown} (every other "
+                f"kernel 0), as expected: {launches == expected}; median "
+                f"frame per rank {[round(c['ms'], 2) for c in per]} ms "
+                f"beside the single-card frame "
+                f"{[round(c['single_ms'], 2) for c in per]} ms [{card}]")
+            check(all(o == 0 for o in offs), f"{name}: values off {offs}")
+            check(launches == expected,
+                  f"{name}: launches {launches}, expected {expected}")
+        out[backend] = res
+    log(f"phase 25c took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def build_kernels() -> None:
     """Phase 2: build every kernel from the checkout's sources and print
     what ptxas says of each."""
@@ -4171,6 +4725,16 @@ def main() -> int:
     check_crowd_caps(card)
     check_views(card)
     check_mirrored_game(card, plain_ms=game["loop"]["median_ms"])
+
+    # ---- phase 25: the multi-device layer --------------------------------
+    mapped = check_origin_map(card, eng, params, u0)
+    group = check_one_rank_group(card, eng, params, u0)
+    ranks = check_parallel_ranks(card)
+    # The mapped K2's and K5's launches on rank 0 over phase 25c's cases.
+    k2m_launches = sum(c["launches"]["K2m"]
+                       for c in ranks["gloo"][0]["cases"].values())
+    k5m_launches = sum(c["launches"]["K5m"]
+                       for c in ranks["gloo"][0]["cases"].values())
     log(f"profiler: {TRACES['retaken']} of device_ms's {TRACES['taken']} "
         f"traces were taken again for a lost launch record")
 
@@ -4196,7 +4760,13 @@ def main() -> int:
         entry("rt_sweep_any_hit", "rt_sweep.cu", "ops/rt_pallas.py:59",
               rt["launches"]["any_hit"], sweep["shadow"]),
         entry("vis_fold", "vis_fold.cu", "ops/pallas_raster.py:67",
-              deferred["launches"], k5)]}))
+              deferred["launches"], k5),
+        entry("tile_raster_mapped", "tile_raster.cu", "ops/pallas_tile.py:96",
+              group["launches"], mapped["K1m"]),
+        entry("tile_raster_peel_mapped", "tile_raster.cu",
+              "ops/pallas_tile.py:96", k2m_launches, mapped["K2m"]),
+        entry("vis_fold_mapped", "vis_fold.cu", "ops/pallas_raster.py:67",
+              k5m_launches, mapped["K5m"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -68,6 +68,15 @@
 //     padding, sub-chunk predication and f32-carried ids are TPU shapes
 //     with no counterpart here.  The peel mode is a template parameter, so
 //     the opaque instantiation carries none of it.
+//   * A band of a sharded frame (parallel/sharding.py) stores tiles that
+//     are not its own screen rows: contiguous bands start at a row offset,
+//     balanced bands hold any set of tile rows or tiles.  An optional
+//     (ntiles, 2) int32 map gives each storage tile's screen origin
+//     (y0, x0); a pixel is evaluated and resolved at its screen position
+//     and stored where it was.  The map is a third template parameter, so
+//     the unmapped instantiations are the kernels as they were, registers
+//     and all; a mapped one carries the tile's (storage - screen) offset
+//     through the fold to place its writes, at 3 blocks an SM.
 
 #include <float.h>
 #include <limits.h>
@@ -176,15 +185,20 @@ __device__ __forceinline__ void fold_stream(
 // prev_d and prev_i for 4 pixels do not without spilling, so it takes 3.
 // kColumn: kThreads is a multiple of tile_w, so the pixels t + k * 256 of
 // a thread lie in one column (opaque mode only: the peel deals pixels out
-// anew).
-template <bool kPeel, bool kColumn>
-__global__ void __launch_bounds__(kThreads, kPeel ? 3 : 4) tile_raster_kernel(
+// anew).  kOrigin: tile_origin maps each storage tile to its screen origin
+// (y0, x0); without it a storage tile is its own screen tile.  The map's
+// offset stays live through the fold, so a mapped instantiation takes 3
+// blocks an SM too rather than spill.
+template <bool kPeel, bool kColumn, bool kOrigin>
+__global__ void __launch_bounds__(kThreads, kPeel || kOrigin ? 3 : 4)
+    tile_raster_kernel(
     const float* __restrict__ fbd, const float* __restrict__ prev_d,
     const int* __restrict__ prev_i, const float* __restrict__ setup,
     const int* __restrict__ order, const int* __restrict__ n_global,
     const int* __restrict__ seg_tri, const int* __restrict__ starts,
     const int* __restrict__ counts,
     const long long* __restrict__ tile_order,
+    const int* __restrict__ tile_origin,
     const float* __restrict__ payload, const int* __restrict__ plan,
     int n_plan, float* __restrict__ gbuf, float* __restrict__ best_d,
     int* __restrict__ best_i, int ntx, int tile_h, int tile_w, int Hp,
@@ -197,6 +211,12 @@ __global__ void __launch_bounds__(kThreads, kPeel ? 3 : 4) tile_raster_kernel(
   const int tile = static_cast<int>(tile_order[blockIdx.x / blocks_per_tile]);
   const int ty = tile / ntx, tx = tile % ntx;
   const int x_lo = tx * tile_w, y_lo = ty * tile_h;
+  // Storage minus screen position of the tile's pixels (0 unmapped).
+  int dy = 0, dx = 0;
+  if constexpr (kOrigin) {
+    dy = y_lo - tile_origin[2 * tile];
+    dx = x_lo - tile_origin[2 * tile + 1];
+  }
   const int tpx = tile_h * tile_w;
   const int t = threadIdx.x;
   const int warp = t >> 5;
@@ -316,8 +336,8 @@ __global__ void __launch_bounds__(kThreads, kPeel ? 3 : 4) tile_raster_kernel(
   for (int k = 0; k < kPix; ++k) {
     const int q = first + src[k];
     const int x = x_lo + q % tile_w, y = y_lo + q / tile_w;
-    f.px[k] = static_cast<float>(x);
-    f.py[k] = static_cast<float>(y);
+    f.px[k] = static_cast<float>(x - dx);
+    f.py[k] = static_cast<float>(y - dy);
     f.bd[k] = fbd[y * Wp + x];
     f.bi[k] = -1;
     if constexpr (kPeel) {
@@ -336,8 +356,8 @@ __global__ void __launch_bounds__(kThreads, kPeel ? 3 : 4) tile_raster_kernel(
   for (int k = 0; k < kPix; ++k) {
     if ((mine >> k) & 1u) {
       const float px = f.px[k], py = f.py[k];
-      const long long o = static_cast<long long>(py) * Wp
-                          + static_cast<long long>(px);
+      const long long o = (static_cast<long long>(py) + dy) * Wp
+                          + static_cast<long long>(px) + dx;
       best_d[o] = f.bd[k];
       best_i[o] = f.bi[k];
       tile::resolve_pixel(gbuf + o, plane, f.bi[k], px, py, payload, s_plan,
@@ -353,14 +373,17 @@ __global__ void __launch_bounds__(kThreads, kPeel ? 3 : 4) tile_raster_kernel(
 // (Hp, Wp) f32 and prev_i (Hp, Wp) i32, both null for the opaque mode and
 // both set for the peel mode; setup (N, 10) f32; order (N,), n_global (1,),
 // seg_tri (L,), starts and counts (ntiles,) i32; tile_order (ntiles,) i64,
-// a permutation of the tiles, the order in which blocks take them; payload
-// (N, 3*kp) f32; plan (n_plan, 3) i32; outputs gbuf (kpi, Hp, Wp) f32,
-// best_d (Hp, Wp) f32, best_i (Hp, Wp) i32.  Any tile_h x tile_w.
+// a permutation of the tiles, the order in which blocks take them;
+// tile_origin (ntiles, 2) i32, each storage tile's screen (y0, x0), or null
+// for a frame stored at its screen rows; payload (N, 3*kp) f32; plan
+// (n_plan, 3) i32; outputs gbuf (kpi, Hp, Wp) f32, best_d (Hp, Wp) f32,
+// best_i (Hp, Wp) i32.  Any tile_h x tile_w.
 extern "C" int tile_raster_launch(
     const float* fbd, const float* prev_d, const int* prev_i,
     const float* setup, const int* order, const int* n_global,
     const int* seg_tri, const int* starts, const int* counts,
-    const long long* tile_order, const float* payload, const int* plan,
+    const long long* tile_order, const int* tile_origin,
+    const float* payload, const int* plan,
     int n_plan, float* gbuf, float* best_d, int* best_i, int ntx, int nty,
     int tile_h, int tile_w, int kp, int kpi, int sl_screen, int sl_ia,
     int clip_w_off, cudaStream_t stream) {
@@ -376,18 +399,27 @@ extern "C" int tile_raster_launch(
   const unsigned grid = static_cast<unsigned>(ntiles * per_tile);
   const int blocks_per_tile = static_cast<int>(per_tile);
   const int Hp = nty * tile_h, Wp = ntx * tile_w;
-#define TILE_RASTER_LAUNCH(PEEL, COLUMN)                                    \
-  tile_raster_kernel<PEEL, COLUMN><<<grid, kThreads, 0, stream>>>(          \
+#define TILE_RASTER_LAUNCH(PEEL, COLUMN, ORIGIN)                            \
+  tile_raster_kernel<PEEL, COLUMN, ORIGIN><<<grid, kThreads, 0, stream>>>(  \
       fbd, prev_d, prev_i, setup, order, n_global, seg_tri, starts, counts, \
-      tile_order, payload, plan, n_plan, gbuf, best_d, best_i, ntx, tile_h, \
-      tile_w, Hp, Wp, blocks_per_tile, kp, kpi, sl_screen, sl_ia,           \
-      clip_w_off)
-  if (prev_d != nullptr) {
-    TILE_RASTER_LAUNCH(true, false);
-  } else if (kThreads % tile_w == 0) {
-    TILE_RASTER_LAUNCH(false, true);
+      tile_order, tile_origin, payload, plan, n_plan, gbuf, best_d, best_i, \
+      ntx, tile_h, tile_w, Hp, Wp, blocks_per_tile, kp, kpi, sl_screen,     \
+      sl_ia, clip_w_off)
+  const bool column = kThreads % tile_w == 0;
+  if (tile_origin == nullptr) {
+    if (prev_d != nullptr) {
+      TILE_RASTER_LAUNCH(true, false, false);
+    } else if (column) {
+      TILE_RASTER_LAUNCH(false, true, false);
+    } else {
+      TILE_RASTER_LAUNCH(false, false, false);
+    }
+  } else if (prev_d != nullptr) {
+    TILE_RASTER_LAUNCH(true, false, true);
+  } else if (column) {
+    TILE_RASTER_LAUNCH(false, true, true);
   } else {
-    TILE_RASTER_LAUNCH(false, false);
+    TILE_RASTER_LAUNCH(false, false, true);
   }
 #undef TILE_RASTER_LAUNCH
   return static_cast<int>(cudaGetLastError());

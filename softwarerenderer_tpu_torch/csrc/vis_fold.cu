@@ -14,8 +14,12 @@
 // carried over); a NaN seed keeps its pixel.  -0.0 and +0.0 compare equal;
 // a winning zero is written as +0.0, as the plain twin's integer keys give
 // it.  Ids are int32, so there is no 2^24 limit (the TPU kernel carries
-// them as f32).  Pixel (x, y) of the band is evaluated at screen row
-// y + row_offset.
+// them as f32).  Pixel (x, y) is evaluated at screen (x, y), or, with a
+// tile origin map, at its storage tile's screen origin (y0, x0) plus its
+// place in the tile: a band of a sharded frame (parallel/sharding.py), a
+// contiguous band at a row offset being the map (row_offset + ty * tile_h,
+// tx * tile_w).  The map changes where a pixel is evaluated, never where
+// it is stored.
 //
 // What bounds it on the card: operations, (globals + segment length) edge
 // tests per pixel (23 FP32 operations each); the bytes are a seed read and
@@ -171,19 +175,23 @@ __device__ __forceinline__ unsigned long long stored_key(float d, int idx) {
 
 // The launch bound caps registers at 64, so 4 blocks (32 warps) fit an SM.
 // kColumn: kThreads is a multiple of tile_w, so the pixels t + k * 256 of
-// a thread lie in one column.
-template <bool kColumn>
-__global__ void __launch_bounds__(kThreads, 4) vis_fold_kernel(
+// a thread lie in one column.  kOrigin: tile_origin maps each storage tile
+// to its screen origin; the map's pointer stays live through the
+// persistent loop, so a mapped instantiation takes 3 blocks an SM rather
+// than spill, and the unmapped ones are the kernel as it was.
+template <bool kColumn, bool kOrigin>
+__global__ void __launch_bounds__(kThreads, kOrigin ? 3 : 4) vis_fold_kernel(
     const float* __restrict__ fbd, const float* __restrict__ setup,
     const int* __restrict__ order, const int* __restrict__ n_global,
     const int* __restrict__ seg_tri, const int* __restrict__ starts,
     const int* __restrict__ counts,
     const long long* __restrict__ tile_order,
+    const int* __restrict__ tile_origin,
     const int* __restrict__ first_item, float* __restrict__ best_d,
     int* __restrict__ best_i, unsigned long long* __restrict__ keys,
     int* __restrict__ arrivals, int* __restrict__ work, int ntx,
-    int ntiles, int tile_h, int tile_w, int Wp, int row_offset,
-    int part_len, int blocks_per_tile) {
+    int ntiles, int tile_h, int tile_w, int Wp, int part_len,
+    int blocks_per_tile) {
   __shared__ float4 s_row[kThreads][kRow / 4];
   __shared__ int s_idx[kThreads];
   __shared__ int s_item;
@@ -221,6 +229,12 @@ __global__ void __launch_bounds__(kThreads, 4) vis_fold_kernel(
     const bool split = nparts > 1;
     const int ty = tile / ntx, tx = tile - ty * ntx;
     const int x_lo = tx * tile_w, y_lo = ty * tile_h;
+    // The tile's screen origin when mapped (else its storage place).
+    int sx_lo = 0, sy_lo = 0;
+    if constexpr (kOrigin) {
+      sx_lo = tile_origin[2 * tile + 1];
+      sy_lo = tile_origin[2 * tile];
+    }
     // This block owns tile pixels [first, first + kBlockPx); first < tpx.
     const int first = blk * kBlockPx;
     const int wn = max(0, min(kPix, (tpx - first - warp * 32 + kThreads - 1)
@@ -236,8 +250,13 @@ __global__ void __launch_bounds__(kThreads, 4) vis_fold_kernel(
       const bool has = first + s < tpx;
       const int q = first + (has ? s : 0);
       const int x = x_lo + q % tile_w, y = y_lo + q / tile_w;
-      f.px[k] = static_cast<float>(x);
-      f.py[k] = static_cast<float>(y + row_offset);
+      if constexpr (kOrigin) {
+        f.px[k] = static_cast<float>(sx_lo + q % tile_w);
+        f.py[k] = static_cast<float>(sy_lo + q / tile_w);
+      } else {
+        f.px[k] = static_cast<float>(x);
+        f.py[k] = static_cast<float>(y);
+      }
       f.bd[k] = split ? -INFINITY : fbd[y * Wp + x];
       f.bi[k] = -1;
       mine |= (has ? 1u : 0u) << k;
@@ -367,35 +386,37 @@ __global__ void __launch_bounds__(kPlanThreads) vis_fold_plan_kernel(
   }
 }
 
-template <bool kColumn>
+template <bool kColumn, bool kOrigin>
 int blocks_per_sm(int* per_sm) {
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, vis_fold_kernel<kColumn>, kThreads, 0));
+      per_sm, vis_fold_kernel<kColumn, kOrigin>, kThreads, 0));
 }
 
-template <bool kColumn>
+template <bool kColumn, bool kOrigin>
 int launch(const float* fbd, const float* setup, const int* order,
            const int* n_global, const int* seg_tri, const int* starts,
            const int* counts, const long long* tile_order,
-           int* first_item, float* best_d, int* best_i,
-           unsigned long long* keys, int* arrivals, int* work, int ntx,
-           int ntiles, int tile_h, int tile_w, int Wp, int row_offset,
-           int part_len, int blocks_per_tile, cudaStream_t stream) {
+           const int* tile_origin, int* first_item, float* best_d,
+           int* best_i, unsigned long long* keys, int* arrivals, int* work,
+           int ntx, int ntiles, int tile_h, int tile_w, int Wp, int part_len,
+           int blocks_per_tile, cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = static_cast<cudaError_t>(blocks_per_sm<kColumn>(&per_sm));
+    err = static_cast<cudaError_t>(
+        blocks_per_sm<kColumn, kOrigin>(&per_sm));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (sms * per_sm <= 0) return static_cast<int>(cudaErrorInvalidValue);
   vis_fold_plan_kernel<<<1, kPlanThreads, 0, stream>>>(
       tile_order, counts, n_global, ntiles, part_len, blocks_per_tile,
       first_item);
-  vis_fold_kernel<kColumn><<<sms * per_sm, kThreads, 0, stream>>>(
+  vis_fold_kernel<kColumn, kOrigin>
+      <<<sms * per_sm, kThreads, 0, stream>>>(
       fbd, setup, order, n_global, seg_tri, starts, counts, tile_order,
-      first_item, best_d, best_i, keys, arrivals, work, ntx, ntiles, tile_h,
-      tile_w, Wp, row_offset, part_len, blocks_per_tile);
+      tile_origin, first_item, best_d, best_i, keys, arrivals, work, ntx,
+      ntiles, tile_h, tile_w, Wp, part_len, blocks_per_tile);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -405,18 +426,19 @@ int launch(const float* fbd, const float* setup, const int* order,
 // are device pointers to contiguous tensors: fbd (Hp, Wp) f32 with
 // Hp = nty * tile_h and Wp = ntx * tile_w; setup (N, 10) f32; order (N,),
 // n_global (1,), seg_tri (L,), starts and counts (ntx * nty,) i32;
-// tile_order (ntx * nty,) i64 (tile_raster.tile_order); first_item
-// (ntx * nty + 1,) i32 scratch for the work list at this part_len, whose
-// last entry, the number of items, must fit an int (the plan kernel writes
-// it); outputs best_d (Hp, Wp) f32 and best_i
-// (Hp, Wp) i32; scratch keys (Hp * Wp,) u64, arrivals (ntx * nty *
+// tile_order (ntx * nty,) i64 (tile_raster.tile_order); tile_origin
+// (ntx * nty, 2) i32, each storage tile's screen (y0, x0), or null for
+// tiles at their own place; first_item (ntx * nty + 1,) i32 scratch for
+// the work list at this part_len, whose last entry, the number of items,
+// must fit an int (the plan kernel writes it); outputs best_d (Hp, Wp) f32
+// and best_i (Hp, Wp) i32; scratch keys (Hp * Wp,) u64, arrivals (ntx * nty *
 // ceil(tile_h * tile_w / 1024),) i32 and work (2,) i32, all zero, left zero.
 extern "C" int vis_fold_launch(
     const float* fbd, const float* setup, const int* order,
     const int* n_global, const int* seg_tri, const int* starts,
-    const int* counts, const long long* tile_order, int* first_item,
-    float* best_d, int* best_i, unsigned long long* keys, int* arrivals,
-    int* work, int ntx, int nty, int tile_h, int tile_w, int row_offset,
+    const int* counts, const long long* tile_order, const int* tile_origin,
+    int* first_item, float* best_d, int* best_i, unsigned long long* keys,
+    int* arrivals, int* work, int ntx, int nty, int tile_h, int tile_w,
     int part_len, cudaStream_t stream) {
   if (tile_h <= 0 || tile_w <= 0 || ntx < 0 || nty < 0 || part_len <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -430,11 +452,17 @@ extern "C" int vis_fold_launch(
     return static_cast<int>(cudaErrorInvalidValue);
 #define VIS_FOLD_ARGS                                                       \
   fbd, setup, order, n_global, seg_tri, starts, counts, tile_order,         \
-      first_item, best_d, best_i, keys, arrivals, work, ntx,                \
+      tile_origin, first_item, best_d, best_i, keys, arrivals, work, ntx,   \
       static_cast<int>(ntiles), tile_h, tile_w, static_cast<int>(Wp),       \
-      row_offset, part_len, static_cast<int>(per_tile), stream
-  const int err = kThreads % tile_w == 0 ? launch<true>(VIS_FOLD_ARGS)
-                                         : launch<false>(VIS_FOLD_ARGS);
+      part_len, static_cast<int>(per_tile), stream
+  const bool column = kThreads % tile_w == 0;
+  int err;
+  if (tile_origin == nullptr)
+    err = column ? launch<true, false>(VIS_FOLD_ARGS)
+                 : launch<false, false>(VIS_FOLD_ARGS);
+  else
+    err = column ? launch<true, true>(VIS_FOLD_ARGS)
+                 : launch<false, true>(VIS_FOLD_ARGS);
 #undef VIS_FOLD_ARGS
   return err;
 }
@@ -456,10 +484,13 @@ extern "C" int vis_fold_plan_launch(const long long* tile_order,
 }
 
 // Blocks of the fold an SM holds (the occupancy API), for tile_w dividing
-// 256 (column = 1) or not; a negative CUDA error code on failure.
-extern "C" int vis_fold_blocks_per_sm(int column) {
+// 256 (column = 1) or not, with a tile origin map (origin = 1) or without;
+// a negative CUDA error code on failure.
+extern "C" int vis_fold_blocks_per_sm(int column, int origin) {
   int per_sm = 0;
-  const int err = column ? blocks_per_sm<true>(&per_sm)
-                         : blocks_per_sm<false>(&per_sm);
+  const int err = origin ? (column ? blocks_per_sm<true, true>(&per_sm)
+                                   : blocks_per_sm<false, true>(&per_sm))
+                         : (column ? blocks_per_sm<true, false>(&per_sm)
+                                   : blocks_per_sm<false, false>(&per_sm));
   return err ? -err : per_sm;
 }

@@ -55,8 +55,9 @@ value.  ``shade_rate`` shades every r-th row on the opaque tile route.
 ``render_frame_multiview`` (split screen) and ``render_frame_pip`` (an
 inset of a second camera) render each view as a render_frame, and
 ``Engine(rtt_passes=...)`` renders to texture first (engine.rtt).  A
-fragment shader whose ``tri_extras`` names a channel frame_setup does not
-pack raises ``NotImplementedError`` instead of rendering another image.
+fragment shader's ``tri_extras`` prunes the channels frame_setup packs; a
+name it does not pack is dropped, as JAX's render_frame drops it, and a
+shader that reads such a channel fails with a KeyError in both packages.
 """
 
 from __future__ import annotations
@@ -383,15 +384,12 @@ def tile_route(params: RenderParams) -> bool:
             and params.kbuffer <= 1)
 
 
-def check_supported(params: RenderParams, uniforms=None,
-                    fragment_shader: Optional[Callable] = None):
-    """Raise NotImplementedError for a fragment shader whose `tri_extras`
-    names a channel frame_setup does not pack, and JAX's ValueErrors: an
-    unknown or absent post_fx entry, kbuffer_stats without a binned
-    deferred K-buffer, kbuffer_stats or active_cap_stats with ssaa or
-    post-FX (their stats are a third return value the wrappers do not
-    pass on), and shade_rate > 1 off the opaque tile route
-    (tile_route)."""
+def check_supported(params: RenderParams, uniforms=None):
+    """Raise JAX's ValueErrors: an unknown or absent post_fx entry,
+    kbuffer_stats without a binned deferred K-buffer, kbuffer_stats or
+    active_cap_stats with ssaa or post-FX (their stats are a third return
+    value the wrappers do not pass on), and shade_rate > 1 off the opaque
+    tile route (tile_route)."""
     wrapped = params.ssaa > 1 or bool(enabled_post_fx(params,
                                                       uniforms or {}))
     if params.kbuffer_stats and (wrapped or params.kbuffer <= 1 or not (
@@ -407,12 +405,6 @@ def check_supported(params: RenderParams, uniforms=None,
                          "route only (use_pallas deferred binned "
                          "LESS_EQUAL, kbuffer <= 1): elsewhere it would "
                          "shade at full rate")
-    bad = [f"tri_extras channel {k}"
-           for k in getattr(fragment_shader, "tri_extras", None) or ()
-           if k not in PACKED_TRI_EXTRAS]
-    if bad:
-        raise NotImplementedError(
-            f"not implemented in softwarerenderer_tpu_torch yet: {bad}")
 
 
 def quantize256(x: torch.Tensor) -> torch.Tensor:
@@ -541,7 +533,9 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
     for the caps that are set}.  render_frame routes them; a caller may
     hand them to another route of ops.tile_raster or ops.raster.  posed:
     what the caller computed of the frame's geometry (posed_geometry at
-    params.height); a missing entry is computed here.
+    params.height); a missing entry is computed here.  A scene with a
+    "tri_valid" entry (parallel.shard_scene_triangles' mask of real
+    triangles) draws only those.
 
     The caps, as JAX's render_frame applies them: params.geom_cap
     compacts the masked-in input triangles (and their texture, mesh and
@@ -572,6 +566,8 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
             if lod_mask is None:
                 lod_mask = lod.lod_tri_mask(scene, u, H)
             tri_mask = tri_mask & lod_mask
+    if "tri_valid" in scene:
+        tri_mask = tri_mask & scene["tri_valid"]
     # The per-input-triangle tensors every later stage reads; geom_cap
     # swaps them for their compacted prefix.
     indices = scene["indices"]
@@ -681,49 +677,26 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
     default; tile_raster.tile_fold_plain renders the same frame through
     the plain twins.  posed: the frame's posed geometry (posed_geometry)
     when the caller shares it with its light passes."""
-    check_supported(params, uniforms, fragment_shader)
+    check_supported(params, uniforms)
     shaders_kw = dict(vertex_shader=vertex_shader,
                       fragment_shader=fragment_shader, fold=fold)
     posed = posed or {}
     dev = scene["position"].device
     if params.ssaa > 1:
         f = params.ssaa
-        hi = params.replace(width=params.width * f,
-                            height=params.height * f, ssaa=1)
         if fb is not None:
             fb = tuple(torch.as_tensor(x, dtype=F32, device=dev)
                        .repeat_interleave(f, 0).repeat_interleave(f, 1)
                        for x in fb)
         # The vertices carry over; the LOD levels are the f×-high frame's.
-        color, depth = render_frame(scene, uniforms, hi, fb=fb,
-                                    posed={"vin": posed.get("vin")},
-                                    **shaders_kw)
-        with record_function("frame.ssaa_resolve"):
-            H, W = params.height, params.width
-            n = torch.full((), float(f * f), device=dev)
-            color = color.reshape(H, f, W, f, 4).sum((1, 3)) / n
-            return color, depth[::f, ::f]
+        return supersampled(lambda hi: render_frame(
+            scene, uniforms, hi, fb=fb, posed={"vin": posed.get("vin")},
+            **shaders_kw), params, dev)
     chain = enabled_post_fx(params, uniforms)
     if chain:
-        # The base frame with every effect stripped (callable stages too,
-        # or it would recurse); in the sky branch the shaders still see
-        # the panorama as env_panorama (PBR's reflections).
-        base = params.replace(
-            tonemap=None, bloom=False, ssao=False, fxaa=False,
-            post_fx=tuple(f for f in params.post_fx if isinstance(f, str)))
-        u2 = uniforms
-        if "sky" in chain:
-            u2 = {k: v for k, v in uniforms.items() if k != "sky_panorama"}
-            u2["env_panorama"] = uniforms["sky_panorama"]
-        color, depth = render_frame(scene, u2, base, fb=fb, posed=posed,
-                                    **shaders_kw)
-        pu = post_uniforms(uniforms, dev)
-        for fx in chain:
-            with record_function("post.callable" if callable(fx)
-                                 else f"post.{fx}"):
-                color, depth = apply_post_fx(fx, color, depth, uniforms, pu,
-                                             params)
-        return color, depth
+        return post_chained(lambda u2, base: render_frame(
+            scene, u2, base, fb=fb, posed=posed, **shaders_kw),
+            uniforms, params, chain, dev)
     f = frame_setup(scene, uniforms, params, vertex_shader, fragment_shader,
                     fb, posed)
     out = _route(f, fragment_shader, params, fold)
@@ -746,6 +719,42 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
     if len(out) == 3:
         return out[0], out[1], {**out[2], **stats}
     return out[0], out[1], stats
+
+
+def supersampled(render: Callable, params: RenderParams, device):
+    """The params.ssaa = f frame: render(params at f× in each axis, ssaa
+    1) box-filtered down, depth taken at every f-th sample."""
+    f = params.ssaa
+    color, depth = render(params.replace(width=params.width * f,
+                                         height=params.height * f, ssaa=1))
+    with record_function("frame.ssaa_resolve"):
+        H, W = params.height, params.width
+        n = torch.full((), float(f * f), device=device)
+        color = color.reshape(H, f, W, f, 4).sum((1, 3)) / n
+        return color, depth[::f, ::f]
+
+
+def post_chained(render: Callable, uniforms: Dict, params: RenderParams,
+                 chain: tuple, device):
+    """The post chain (enabled_post_fx) over render(uniforms, params) of
+    the base frame: every effect stripped from params (callable stages
+    too, or it would recurse); in the sky branch the shaders still see
+    the panorama as env_panorama (PBR's reflections)."""
+    base = params.replace(
+        tonemap=None, bloom=False, ssao=False, fxaa=False,
+        post_fx=tuple(f for f in params.post_fx if isinstance(f, str)))
+    u2 = uniforms
+    if "sky" in chain:
+        u2 = {k: v for k, v in uniforms.items() if k != "sky_panorama"}
+        u2["env_panorama"] = uniforms["sky_panorama"]
+    color, depth = render(u2, base)
+    pu = post_uniforms(uniforms, device)
+    for fx in chain:
+        with record_function("post.callable" if callable(fx)
+                             else f"post.{fx}"):
+            color, depth = apply_post_fx(fx, color, depth, uniforms, pu,
+                                         params)
+    return color, depth
 
 
 def _route(f: Dict, fragment_shader: Callable, params: RenderParams,
@@ -903,7 +912,7 @@ def render_frame_with_shadows(scene: Dict[str, torch.Tensor], uniforms: Dict,
     render_frame's; visibility_fn folds the light pass
     (shadows.light_pass_visibility by default)."""
     fragment_shader = fragment_shader or shadows.shadowed_scene_fragment_shader
-    check_supported(params, uniforms, fragment_shader)
+    check_supported(params, uniforms)
     center, radius = shadows.scene_bounds(scene)
     view, proj, _ = shadows.directional_light_camera(
         uniforms["light_direction"], center, radius)
@@ -933,7 +942,7 @@ def render_frame_with_point_shadows(scene: Dict[str, torch.Tensor],
     render_frame_with_shadows (default fragment shader
     shadows.point_shadowed_fragment_shader)."""
     fragment_shader = fragment_shader or shadows.point_shadowed_fragment_shader
-    check_supported(params, uniforms, fragment_shader)
+    check_supported(params, uniforms)
     posed = posed_geometry(scene, device_uniforms(
         uniforms, params.width, params.height, scene["position"].device),
         params.height)
@@ -961,7 +970,7 @@ def render_frame_with_spot_shadow(scene: Dict[str, torch.Tensor],
     fold and visibility_fn as render_frame_with_shadows (default
     fragment shader shadows.spot_shadowed_fragment_shader)."""
     fragment_shader = fragment_shader or shadows.spot_shadowed_fragment_shader
-    check_supported(params, uniforms, fragment_shader)
+    check_supported(params, uniforms)
     view, proj = shadows.spot_light_camera(
         uniforms["spot_position"], uniforms["spot_direction"],
         uniforms["spot_outer"], device=scene["position"].device)
@@ -1020,7 +1029,7 @@ class Engine(torch.nn.Module):
                              "render-to-texture frame owns the whole "
                              "frame); wrap engine.rtt.render_frame_rtt "
                              "yourself")
-        check_supported(params, fragment_shader=fragment_shader)
+        check_supported(params)
         self.params = params
         self.vertex_shader = vertex_shader
         self.fragment_shader = fragment_shader

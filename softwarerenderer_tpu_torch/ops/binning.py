@@ -18,15 +18,22 @@ that many before the sort, as JAX's are; ``live_pair_count`` and
 
 ``visibility_binned`` folds every tile's globals and segment under any
 monotone depth test (ops.raster's keys) for the contiguous band of rows at
-``row_offset``.  The JAX function's ``tile_row_map`` and ``tile_map``
-modes, which let a device own an arbitrary set of tiles, belong to the
-multi-device port (``parallel/``) and are not here; ``render_binned_fused``,
-a one-hot-matmul TPU shape of the same fold, resolve and shade, is not
-ported: the tile kernel and ops.raster.render_deferred cover its frame.
+``row_offset``.  The folds place a band's pixels on the screen by one
+means, a tile origin map: an (ntiles, 2) int32 tensor of each storage
+tile's screen (y0, x0), which the folds here, the tile kernels and K5 take
+alike (``tile_pixels``).  A contiguous band is binned at its row offset
+and mapped by ``band_origin``; a band that owns any set of tile rows or
+tiles (the JAX function's ``tile_row_map`` and ``tile_map`` modes, which
+``parallel.sharding`` uses) is binned once over the whole frame
+(``bin_tiles`` gathers its tiles' segments) and mapped by
+``tile_origins``.  ``render_binned_fused``, a one-hot-matmul TPU shape of
+the same fold, resolve and shade, is not ported: the tile kernel and
+ops.raster.render_deferred cover its frame.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -155,6 +162,76 @@ def global_count(tris: Dict, params: RenderParams,
     return (valid & (span > params.span_cap)).sum(dtype=torch.int32)
 
 
+def bin_tiles(tris: Dict, params: RenderParams, tile_h: int, tile_w: int,
+              span_cap: int, tiles: torch.Tensor) -> Dict:
+    """bin_triangles over the whole params.height x params.width frame,
+    with starts and counts gathered at `tiles` (int64 full-frame tile
+    ids): the bins of a band that owns those tiles, storage tile i being
+    full-frame tile tiles[i].  order, n_global and sorted_tri are the
+    frame's."""
+    bins = bin_triangles(tris, params, tile_h, tile_w, span_cap)
+    return dict(bins, starts=bins["starts"][tiles].contiguous(),
+                counts=bins["counts"][tiles].contiguous())
+
+
+def tile_origins(tiles: torch.Tensor, ntx: int, tile_h: int,
+                 tile_w: int) -> torch.Tensor:
+    """The tile origin map of full-frame tile ids `tiles` (int64) in a
+    frame ntx tiles wide: (len(tiles), 2) int32 screen (y0, x0)."""
+    return torch.stack([(tiles // ntx) * tile_h, (tiles % ntx) * tile_w],
+                       1).to(torch.int32).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def band_origin(nty: int, ntx: int, tile_h: int, tile_w: int,
+                row_offset: int, device) -> torch.Tensor:
+    """The tile origin map of a contiguous band of nty x ntx tiles whose
+    first row is screen row row_offset."""
+    origin = tile_origins(torch.arange(nty * ntx, device=device), ntx,
+                          tile_h, tile_w)
+    origin[:, 0] += row_offset
+    return origin
+
+
+def tile_pixels(tl: torch.Tensor, ntx: int, tile_h: int, tile_w: int,
+                origin=None):
+    """Screen (x, y) of every pixel of storage tiles tl (int64): (len(tl),
+    tile_h * tile_w) f32 each, the tile's pixels row-major.  A storage tile
+    sits at screen (ty * tile_h, tx * tile_w), or at its entry of the tile
+    origin map `origin`."""
+    lane = torch.arange(tile_h * tile_w, device=tl.device)
+    if origin is None:
+        y0 = (tl // ntx) * tile_h
+        x0 = (tl % ntx) * tile_w
+    else:
+        o = origin.long()[tl]
+        y0, x0 = o[:, 0], o[:, 1]
+    return ((x0[:, None] + lane % tile_w).to(torch.float32),
+            (y0[:, None] + lane // tile_w).to(torch.float32))
+
+
+def pixel_coords(Hp: int, Wp: int, tile_h: int, tile_w: int, device,
+                 origin=None):
+    """Screen (x, y) of every pixel of a padded (Hp, Wp) storage frame,
+    flat row-major f32, by tile_pixels."""
+    ntx = Wp // tile_w
+    tl = torch.arange((Hp // tile_h) * ntx, device=device)
+    px, py = tile_pixels(tl, ntx, tile_h, tile_w, origin)
+    return (to_image(px.reshape(-1), Hp, Wp, tile_h, tile_w).reshape(-1),
+            to_image(py.reshape(-1), Hp, Wp, tile_h, tile_w).reshape(-1))
+
+
+def band_coords(origin: torch.Tensor, h: int, w: int, tile_h: int,
+                tile_w: int):
+    """Screen (x, y) of the h x w stored pixels of a band mapped by the
+    tile origin map `origin` of its tile_h x tile_w tiles: two (1, h * w)
+    f32 rows, row-major (raster.interpolate_at_pixels' coords)."""
+    hp, wp = cdiv(h, tile_h) * tile_h, cdiv(w, tile_w) * tile_w
+    px, py = pixel_coords(hp, wp, tile_h, tile_w, origin.device, origin)
+    return (px.reshape(hp, wp)[:h, :w].reshape(1, -1),
+            py.reshape(hp, wp)[:h, :w].reshape(1, -1))
+
+
 def tile_pairs(order, n_global, sorted_tri, starts, counts):
     """Every (tile, triangle) pair a tile fold evaluates: each tile with
     every global (order[:n_global]), then with its own segment of
@@ -188,16 +265,19 @@ def to_image(t: torch.Tensor, Hp: int, Wp: int, tile_h: int,
 
 
 def fold_binned(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
-                tile_h: int, tile_w: int, row_offset: int = 0,
-                mode: DepthTest = DepthTest.LESS_EQUAL, below=None):
+                tile_h: int, tile_w: int,
+                mode: DepthTest = DepthTest.LESS_EQUAL, below=None,
+                origin=None):
     """The binned per-pixel winner under `mode` over padded (Hp, Wp)
     tiles: each pixel's seed fbd, then every tile's globals and segment.
 
     setup: (N, 10) set-up rows (raster.setup_rows), indexed by triangle
-    id.  Pixel (x, y) of the band is evaluated at screen row
-    y + row_offset.  Pairs are expanded over their tile's pixels at most
-    raster.MAX_CHUNK_ELEMS at a time, each fragment becomes a
-    raster.fold_keys key and a scatter-amax keeps each pixel's largest.
+    id.  Pixel (x, y) is evaluated at screen (x, y), or with a tile
+    origin map `origin` (ntiles, 2) int32 at its tile's screen origin
+    (tile_pixels).  Pairs are expanded over
+    their tile's pixels at most raster.MAX_CHUNK_ELEMS at a time, each
+    fragment becomes a raster.fold_keys key and a scatter-amax keeps each
+    pixel's largest.
     below: None, or (Hp, Wp) int64 keys; a fragment then enters only if
     its key is strictly below its pixel's (the K-slot fold's rounds,
     ops.kbuffer).  Returns (best_d (Hp, Wp) f32, best_i (Hp, Wp) i32)."""
@@ -205,7 +285,6 @@ def fold_binned(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
     Hp, Wp = fbd.shape
     ntx, tpx = Wp // tile_w, tile_h * tile_w
     lane = torch.arange(tpx, device=dev)
-    lx, ly = lane % tile_w, lane // tile_w + row_offset
     pair_tile, pair_tri = tile_pairs(order, n_global, sorted_tri, starts,
                                      counts)
     seed = to_tiles(fbd, tile_h, tile_w)
@@ -217,8 +296,7 @@ def fold_binned(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
     for c0 in range(0, pair_tile.numel(), step):
         tl = pair_tile[c0:c0 + step]
         tri = pair_tri[c0:c0 + step]
-        px = (((tl % ntx) * tile_w)[:, None] + lx).to(torch.float32)
-        py = (((tl // ntx) * tile_h)[:, None] + ly).to(torch.float32)
+        px, py = tile_pixels(tl, ntx, tile_h, tile_w, origin)
         inside, d = raster.fragments(setup[tri], px, py)
         key = raster.fold_keys(d, tri[:, None], mode)
         pix = (tl[:, None] * tpx + lane).reshape(-1)
@@ -235,8 +313,10 @@ def fold_binned(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
 def fold_inputs(tris: Dict, params: RenderParams, tile_h: int, tile_w: int,
                 span_cap: int, init_depth=None, row_offset: int = 0):
     """(args, kwargs) of fold_binned (and of K5, vis_fold.vis_fold) for a
-    frame: the seed init_depth (DEPTH_CLEAR by default) padded to whole
-    tiles, the set-up rows and the bins."""
+    frame, or the band of params.height rows at screen row row_offset: the
+    seed init_depth (DEPTH_CLEAR by default) padded to whole tiles, the
+    set-up rows, the bins and the band's tile origin map (band_origin;
+    None at row 0)."""
     H, W = params.height, params.width
     nty, ntx = cdiv(H, tile_h), cdiv(W, tile_w)
     if init_depth is None:
@@ -249,7 +329,9 @@ def fold_inputs(tris: Dict, params: RenderParams, tile_h: int, tile_w: int,
     args = (fbd.contiguous(), raster.setup_rows(tris), bins["order"],
             bins["n_global"], bins["sorted_tri"], bins["starts"],
             bins["counts"])
-    return args, dict(tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
+    origin = band_origin(nty, ntx, tile_h, tile_w, row_offset,
+                         fbd.device) if row_offset else None
+    return args, dict(tile_h=tile_h, tile_w=tile_w, origin=origin)
 
 
 def visibility_binned(tris: Dict, params: RenderParams, chunk: int = 32,

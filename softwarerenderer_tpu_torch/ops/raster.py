@@ -296,21 +296,25 @@ def _packed(tris: Dict):
 
 
 def interpolate_at_pixels(tris: Dict, tri_id: torch.Tensor,
-                          covered: torch.Tensor, row_offset=0) -> Dict:
+                          covered: torch.Tensor, row_offset=0,
+                          coords=None) -> Dict:
     """Perspective-correct fragment inputs of each pixel's winning triangle
     (Rasterizer.Interpolate, Rasterizer.cs:566-640): area-normalized edge
     weights at integer pixel centres, the clip-w reciprocal correction
     summed left to right, the vec3 "data" renormalization.  Pixels not
     covered read triangle 0.  Every varying, the screen positions and
     1/area are packed into one row per triangle and gathered once per
-    pixel into planes, (3·Ktot, H·W): each column a contiguous plane."""
+    pixel into planes, (3·Ktot, H·W): each column a contiguous plane.
+    A pixel sits at screen row row_offset + y, or at coords, its (x, y)
+    as two (1, H*W) f32 rows (the pixels of a band mapped by a tile origin
+    map, binning.band_coords)."""
     H, W = tri_id.shape
     packed, slices, sl_screen = _packed(tris)
     n, _, ktot = packed.shape
     t = torch.where(covered, tri_id, 0).reshape(-1).long()
     planes = packed.reshape(n, 3 * ktot).t().contiguous()[:, t]
     a = [planes[v * ktot:(v + 1) * ktot] for v in range(3)]
-    px, py = pixel_grid(H, W, tri_id.device, row_offset)
+    px, py = coords or pixel_grid(H, W, tri_id.device, row_offset)
     px, py = px[0], py[0]
     corners = [r[sl_screen + j] for r in a for j in (0, 1)]
     ia = a[0][sl_screen + 2]
@@ -353,12 +357,14 @@ def write(color, written, best_depth, params: RenderParams, fb_color,
 
 def winner_fragments(tris: Dict, best_tri: torch.Tensor,
                      per_tri_extra: Optional[Dict] = None,
-                     row_offset=0) -> Dict:
+                     row_offset=0, coords=None) -> Dict:
     """The fragment shader's input at each pixel's winner best_tri (H, W)
-    (interpolate_at_pixels; a pixel at NO_TRI reads triangle 0), with
-    per_tri_extra's (T,) per-triangle tensors gathered into frag["tri"]."""
+    (interpolate_at_pixels at row_offset or coords; a pixel at NO_TRI
+    reads triangle 0), with per_tri_extra's (T,) per-triangle tensors
+    gathered into frag["tri"]."""
     covered = best_tri != NO_TRI
-    frag = interpolate_at_pixels(tris, best_tri, covered, row_offset)
+    frag = interpolate_at_pixels(tris, best_tri, covered, row_offset,
+                                 coords)
     if per_tri_extra:
         t = torch.where(covered, best_tri, 0).long()
         frag["tri"] = {k: v[t] for k, v in per_tri_extra.items()}
@@ -370,13 +376,16 @@ def shade_deferred(tris: Dict, best_depth, best_tri,
                    params: RenderParams, fb_color: torch.Tensor,
                    fb_depth: torch.Tensor,
                    per_tri_extra: Optional[Dict] = None,
-                   row_offset=0):
+                   row_offset=0, coords=None):
     """Shade each covered pixel's winner once, blend where the shaded alpha
     is > 0, and write its depth there (none with DISABLED).
-    per_tri_extra: (T,) per-triangle tensors gathered into frag["tri"]."""
+    per_tri_extra: (T,) per-triangle tensors gathered into frag["tri"];
+    row_offset or coords place the pixels on the screen
+    (interpolate_at_pixels)."""
     covered = best_tri != NO_TRI
     with record_function("deferred.interp"):
-        frag = winner_fragments(tris, best_tri, per_tri_extra, row_offset)
+        frag = winner_fragments(tris, best_tri, per_tri_extra, row_offset,
+                                coords)
     with record_function("deferred.shade"):
         color = fragment_shader(frag, uniforms)
         return write(color, covered & (color[..., 3] > 0), best_depth,

@@ -18,6 +18,12 @@ extras, for each of the three vertices) and the interpolation plan that
 maps payload columns to G-buffer channels.  Triangle ids are int32
 throughout; payload rows are indexed by triangle id, so the winner's row is
 read once per pixel after the fold.
+
+A band of a sharded frame (``parallel.sharding``) folds tiles that are not
+its own screen rows: ``prepare(origin=, bins=)`` takes the band's bins and
+its tile origin map (``binning.tile_pixels``), which ``tile_fold`` hands
+the kernel and its twin; without one the fold is the frame's, as it
+always was.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from torch.profiler import record_function
 
 from softwarerenderer_tpu_torch.config import BlendMode, DepthTest, RenderParams
 from softwarerenderer_tpu_torch.ops.binning import (bin_triangles, cdiv,
-                                                   tile_pairs, to_image,
+                                                   pixel_coords, tile_pairs,
+                                                   tile_pixels, to_image,
                                                    to_tiles)
 from softwarerenderer_tpu_torch.ops.geometry import unflatten_varyings
 from softwarerenderer_tpu_torch.ops import forward, raster
@@ -50,33 +57,69 @@ GLOB_RESIDENT = 256   # the fewest globals params.global_cap keeps: the
                       # the cap (pallas_tile.GLOB_RESIDENT)
 
 # Kernel launches so far, one count per kernel: K1 (tile_fold, opaque
-# mode), K2 (tile_fold with prev maps, peel mode) and K3 (tile_fold_kdeep).
-# chip_smoke.py resets them and reads them back to show that a frame went
-# through the kernels.
+# mode), K2 (tile_fold with prev maps, peel mode), each without a tile
+# origin map and with one (MAPPED_*: a band of a sharded frame), and K3
+# (tile_fold_kdeep).  chip_smoke.py resets them and reads them back to show
+# that a frame went through the kernels.
 LAUNCHES = 0
 PEEL_LAUNCHES = 0
+MAPPED_LAUNCHES = 0
+MAPPED_PEEL_LAUNCHES = 0
 KDEEP_LAUNCHES = 0
 
 
 def prepare(tris: Dict, params: RenderParams, fb_depth: torch.Tensor,
-            per_tri_extra: Optional[Dict], gb_keep=None) -> Dict:
-    """Bin, pack the setup rows and payload, and build the plan.
+            per_tri_extra: Optional[Dict], gb_keep=None,
+            origin: Optional[torch.Tensor] = None,
+            bins: Optional[Dict] = None) -> Dict:
+    """Bin, pack the setup rows and payload (pack_payload), and build the
+    plan.
 
-    gb_keep: the flat varyings the fragment shader reads, or None for all.
-    When "clip_position" is not among them only its (z, w) columns are
-    packed and only z reaches the G-buffer (fog reads z, w divides); the
-    barycentric channels are written only when "barycentric" is read."""
+    gb_keep: the flat varyings the fragment shader reads, or None for all
+    (pack_payload).  params.height x params.width is the stored frame: the
+    screen, or a band of a sharded frame whose tiles sit at the screen
+    origins of `origin` ((ntiles, 2) int32, binning.tile_pixels) with its
+    `bins` at this tiling (binning.bin_triangles at the band's row offset,
+    or binning.bin_tiles for a band of any tiles)."""
     tile_w = params.tile_w
     tile_h = min(params.tile_h, 32)
     H, W = params.height, params.width
     nty, ntx = cdiv(H, tile_h), cdiv(W, tile_w)
     Hp, Wp = nty * tile_h, ntx * tile_w
-    bins = bin_triangles(tris, params, tile_h, tile_w, params.span_cap)
+    if bins is None:
+        bins = bin_triangles(tris, params, tile_h, tile_w, params.span_cap)
+    n = tris["screen"].shape[0]
 
+    # params.global_cap: the fold streams only the first max(global_cap,
+    # GLOB_RESIDENT) entries of `order`, whose globals lead it in
+    # submission order, so n_global is clamped to that length on the
+    # device (no host read); past it the last-submitted globals drop.
+    n_global = bins["n_global"]
+    gcap = int(params.global_cap or 0)
+    if gcap and gcap < n:
+        n_global = n_global.clamp(max=max(gcap, GLOB_RESIDENT))
+    fbd = torch.nn.functional.pad(fb_depth, (0, Wp - W, 0, Hp - H))
+    return dict(
+        pack_payload(tris, per_tri_extra, gb_keep),
+        tile_h=tile_h, tile_w=tile_w, H=H, W=W, Hp=Hp, Wp=Wp,
+        fbd=fbd.contiguous(), setup=setup_rows(tris), order=bins["order"],
+        n_global=n_global, sorted_tri=bins["sorted_tri"],
+        starts=bins["starts"], counts=bins["counts"], origin=origin)
+
+
+def pack_payload(tris: Dict, per_tri_extra: Optional[Dict],
+                 gb_keep=None) -> Dict:
+    """The per-triangle payload rows the resolve reads and the plan that
+    maps them to G-buffer channels: {"payload" (N, 3*kp) f32, zero rows
+    for invalid slots, "plan", "kp", "kpi", "sl_screen", "sl_ia",
+    "clip_w_off", "gb_slices", "extra_keys"}.
+
+    gb_keep: the flat varyings the fragment shader reads, or None for all.
+    When "clip_position" is not among them only its (z, w) columns are
+    packed and only z reaches the G-buffer (fog reads z, w divides); the
+    barycentric channels are written only when "barycentric" is read."""
     screen, valid = tris["screen"], tris["valid"]
     n = screen.shape[0]
-    setup = setup_rows(tris)
-
     prune_clip = gb_keep is not None and "clip_position" not in gb_keep
     keys = sorted(tris["attrs"].keys())
     parts, slices, off = [], {}, 0
@@ -127,24 +170,9 @@ def prepare(tris: Dict, params: RenderParams, fb_depth: torch.Tensor,
         plan.append(("v0", extra_slices[k], 0))
         gb_slices["tri." + k] = (j, j + 1)
         j += 1
-
-    # params.global_cap: the fold streams only the first max(global_cap,
-    # GLOB_RESIDENT) entries of `order`, whose globals lead it in
-    # submission order, so n_global is clamped to that length on the
-    # device (no host read); past it the last-submitted globals drop.
-    n_global = bins["n_global"]
-    gcap = int(params.global_cap or 0)
-    if gcap and gcap < n:
-        n_global = n_global.clamp(max=max(gcap, GLOB_RESIDENT))
-    fbd = torch.nn.functional.pad(fb_depth, (0, Wp - W, 0, Hp - H))
-    return dict(
-        tile_h=tile_h, tile_w=tile_w, H=H, W=W, Hp=Hp, Wp=Wp, kp=kp, kpi=j,
-        sl_screen=sl_screen, sl_ia=sl_ia, clip_w_off=clip_w_off,
-        plan=tuple(plan),
-        gb_slices=gb_slices, extra_keys=extra_keys, fbd=fbd.contiguous(),
-        setup=setup, payload=payload, order=bins["order"],
-        n_global=n_global, sorted_tri=bins["sorted_tri"],
-        starts=bins["starts"], counts=bins["counts"])
+    return dict(kp=kp, kpi=j, sl_screen=sl_screen, sl_ia=sl_ia,
+                clip_w_off=clip_w_off, plan=tuple(plan), gb_slices=gb_slices,
+                extra_keys=extra_keys, payload=payload)
 
 
 def _plan_channels(plan: tuple, kp: int) -> int:
@@ -172,13 +200,16 @@ def _plan_tensor(plan: tuple, device: torch.device) -> torch.Tensor:
 
 
 def fold_inputs(ctx: Dict):
-    """(args, kwargs) of tile_fold / tile_fold_plain for a prepared ctx;
-    tile_fold_kdeep takes the same plus K."""
+    """(args, kwargs) of tile_fold / tile_fold_plain for a prepared ctx
+    (with its tile origin map when it has one); tile_fold_kdeep takes the
+    same plus K, for a ctx without a map."""
     args = tuple(ctx[k] for k in ("fbd", "setup", "order", "n_global",
                                   "sorted_tri", "starts", "counts",
                                   "payload", "plan"))
     kwargs = {k: ctx[k] for k in ("tile_h", "tile_w", "kp", "kpi",
                                   "sl_screen", "sl_ia", "clip_w_off")}
+    if ctx["origin"] is not None:
+        kwargs["origin"] = ctx["origin"]
     return args, kwargs
 
 
@@ -264,7 +295,7 @@ def _entry(lib_name: str, fn_name: str, n_ptr_head: int, n_int_tail: int):
 
 def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
               payload, plan, *, tile_h, tile_w, kp, kpi, sl_screen, sl_ia,
-              clip_w_off, prev_d=None, prev_i=None):
+              clip_w_off, prev_d=None, prev_i=None, origin=None):
     """Fold + resolve + interpolate every tile.
 
     plan is a tuple of (kind, lo, hi) with kind one of KINDS, mapping
@@ -273,6 +304,10 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
     pass's winners, the fold peels: a fragment is admitted only if it ranks
     strictly below its pixel's (prev_d, prev_i) in the (depth, id) order
     and is not that winner, and a tile with no prev_i >= 0 folds nothing.
+    With origin, an (ntiles, 2) int32 tensor of each tile's screen (y0,
+    x0) (binning.tile_pixels), a pixel is folded and resolved at its
+    tile's screen origin plus its place in the tile and stored where it
+    is; without one a tile sits at its own place on the screen.
     Returns (gbuf (kpi, Hp, Wp) f32, best_d (Hp, Wp) f32, best_i (Hp, Wp)
     i32).  CUDA tensors launch csrc/tile_raster.cu; CPU tensors run
     tile_fold_plain.  There is no fallback from one to the other.
@@ -281,7 +316,7 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
     owns BLOCK_PX pixels of a tile, blocks take the tiles in tile_order
     (longest list first), and a peel pass folds only the pixels that are
     not dead_pixels.  None of that shows in the outputs."""
-    global LAUNCHES, PEEL_LAUNCHES
+    global LAUNCHES, PEEL_LAUNCHES, MAPPED_LAUNCHES, MAPPED_PEEL_LAUNCHES
     _check_layout(plan, kp, kpi, sl_screen, sl_ia, clip_w_off)
     peel = prev_d is not None
     if peel != (prev_i is not None):
@@ -291,13 +326,15 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
             fbd, setup, order, n_global, sorted_tri, starts, counts,
             payload, plan, tile_h=tile_h, tile_w=tile_w, kp=kp, kpi=kpi,
             sl_screen=sl_screen, sl_ia=sl_ia, clip_w_off=clip_w_off,
-            prev_d=prev_d, prev_i=prev_i)
+            prev_d=prev_d, prev_i=prev_i, origin=origin)
     if fbd.device.type != "cuda":
         raise ValueError(f"tile_fold runs on cuda or cpu, not {fbd.device}")
     ntx, nty = _check_inputs(fbd, setup, order, n_global, sorted_tri, starts,
                              counts, payload, tile_h, tile_w, kp)
     dev = fbd.device
     Hp, Wp = fbd.shape
+    if origin is not None:
+        check_tensor("origin", origin, I32, (ntx * nty, 2), dev)
     prev_ptrs = (None, None)
     if peel:
         check_tensor("prev_d", prev_d, F32, (Hp, Wp), dev)
@@ -308,20 +345,25 @@ def tile_fold(fbd, setup, order, n_global, sorted_tri, starts, counts,
     gbuf = torch.empty((kpi, Hp, Wp), dtype=F32, device=dev)
     best_d = torch.empty((Hp, Wp), dtype=F32, device=dev)
     best_i = torch.empty((Hp, Wp), dtype=I32, device=dev)
-    fn = _entry("tile_raster", "tile_raster_launch", 12, 9)
+    fn = _entry("tile_raster", "tile_raster_launch", 13, 9)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(fbd.data_ptr(), *prev_ptrs, setup.data_ptr(), order.data_ptr(),
              n_global.data_ptr(), sorted_tri.data_ptr(), starts.data_ptr(),
-             counts.data_ptr(), tiles.data_ptr(), payload.data_ptr(),
-             plan_t.data_ptr(),
+             counts.data_ptr(), tiles.data_ptr(),
+             None if origin is None else origin.data_ptr(),
+             payload.data_ptr(), plan_t.data_ptr(),
              len(plan), gbuf.data_ptr(), best_d.data_ptr(),
              best_i.data_ptr(), ntx, nty, tile_h, tile_w, kp, kpi,
              sl_screen, sl_ia, clip_w_off, stream)
     if err != 0:
         raise RuntimeError(f"tile_raster kernel launch failed: CUDA error "
                            f"{err}")
-    if peel:
+    if peel and origin is not None:
+        MAPPED_PEEL_LAUNCHES += 1
+    elif peel:
         PEEL_LAUNCHES += 1
+    elif origin is not None:
+        MAPPED_LAUNCHES += 1
     else:
         LAUNCHES += 1
     return gbuf, best_d, best_i
@@ -399,7 +441,7 @@ def kdeep_launch_args(fbd, setup, order, n_global, sorted_tri, starts,
 
 def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
                     payload, plan, *, tile_h, tile_w, kp, kpi, sl_screen,
-                    sl_ia, clip_w_off, prev_d=None, prev_i=None):
+                    sl_ia, clip_w_off, prev_d=None, prev_i=None, origin=None):
     """tile_fold in plain PyTorch: same inputs, same outputs, same rounding.
 
     Every (tile, triangle) pair is expanded over the tile's pixels in
@@ -409,13 +451,14 @@ def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
     gathers each pixel's winner row and interpolates.  With prev maps a
     fragment is admitted only if its key is below its pixel's
     (prev_d, prev_i) key and its id is not prev_i, and the pairs of tiles
-    with no prev_i >= 0 are dropped, as the kernel skips those tiles."""
+    with no prev_i >= 0 are dropped, as the kernel skips those tiles.  With
+    origin a pixel sits at its tile's screen origin (binning.tile_pixels),
+    for the fold and the resolve alike."""
     dev = fbd.device
     Hp, Wp = fbd.shape
     nty, ntx = Hp // tile_h, Wp // tile_w
     ntiles, tpx = nty * ntx, tile_h * tile_w
     lane = torch.arange(tpx, device=dev)
-    lx, ly = lane % tile_w, lane // tile_w
     pair_tile, pair_tri = tile_pairs(order, n_global, sorted_tri, starts,
                                      counts)
 
@@ -445,8 +488,7 @@ def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
     for c0 in range(0, pair_tile.numel(), step):
         tl = pair_tile[c0:c0 + step]
         tri = pair_tri[c0:c0 + step]
-        px = (((tl % ntx) * tile_w)[:, None] + lx).to(F32)
-        py = (((tl // ntx) * tile_h)[:, None] + ly).to(F32)
+        px, py = tile_pixels(tl, ntx, tile_h, tile_w, origin)
         inside, d = raster.fragments(setup[tri], px, py)
         ok = inside & (d > float("-inf"))       # NaN and -inf never win
         key = raster.fold_keys(d, tri[:, None], le)
@@ -462,25 +504,39 @@ def tile_fold_plain(fbd, setup, order, n_global, sorted_tri, starts, counts,
     best_d, best_i = raster.decode_keys(keys, fbd_t, le)
     best_d, best_i = to_image_(best_d), to_image_(best_i)
     return _resolve_plain(payload, plan, best_i, kp, kpi, sl_screen, sl_ia,
-                          clip_w_off), best_d, best_i
+                          clip_w_off, origin, tile_h, tile_w), best_d, best_i
 
 
 def _resolve_plain(payload, plan, best_i, kp, kpi, sl_screen, sl_ia,
-                   clip_w_off):
+                   clip_w_off, origin=None, tile_h=1, tile_w=1):
     """The (kpi, Hp, Wp) G-buffer of the winners best_i (Hp, Wp): each
-    pixel's payload row gathered and interpolated, zeros where best_i is
-    -1."""
-    dev = payload.device
+    pixel's payload row gathered and interpolated at its screen position
+    (its storage position, or by the tile origin map at tile_h x tile_w
+    tiles), zeros where best_i is -1."""
     Hp, Wp = best_i.shape
     bi = best_i.reshape(-1).long()
-    has = bi >= 0
-    rows = payload[bi.clamp(min=0)]
+    px, py = pixel_coords(Hp, Wp, tile_h, tile_w, payload.device, origin) \
+        if origin is not None else (None, None)
+    return resolve_rows(payload[bi.clamp(min=0)], bi >= 0, plan, kp, kpi,
+                        sl_screen, sl_ia, clip_w_off, px, py, Wp) \
+        .reshape(kpi, Hp, Wp)
+
+
+def resolve_rows(rows, has, plan, kp, kpi, sl_screen, sl_ia, clip_w_off,
+                 px=None, py=None, width=None):
+    """The (kpi, P) G-buffer of P pixels from each one's winner payload
+    row, rows (P, 3*kp), interpolated at screen (px, py) (flat f32; by
+    default the pixels of a frame `width` wide, row-major), zeros where
+    `has` is False: K1's resolve in plain PyTorch."""
+    dev = rows.device
 
     def r(v, f):
         return rows[:, v * kp + f]
 
-    px = torch.arange(Wp, device=dev, dtype=F32).repeat(Hp)
-    py = torch.arange(Hp, device=dev, dtype=F32).repeat_interleave(Wp)
+    if px is None:
+        Hp = rows.shape[0] // width
+        px = torch.arange(width, device=dev, dtype=F32).repeat(Hp)
+        py = torch.arange(Hp, device=dev, dtype=F32).repeat_interleave(width)
     ia = r(0, sl_ia)
     s0x, s0y = r(0, sl_screen), r(0, sl_screen + 1)
     s1x, s1y = r(1, sl_screen), r(1, sl_screen + 1)
@@ -518,9 +574,9 @@ def _resolve_plain(payload, plan, best_i, kp, kpi, sl_screen, sl_ia,
             chans += [wa, wb, wc]
         else:
             chans.append(r(0, lo))
-    zero = torch.zeros(Hp * Wp, dtype=F32, device=dev)
+    zero = torch.zeros(rows.shape[0], dtype=F32, device=dev)
     chans += [zero] * (kpi - len(chans))
-    return torch.where(has, torch.stack(chans), 0.0).reshape(kpi, Hp, Wp)
+    return torch.where(has, torch.stack(chans), 0.0)
 
 
 def tile_fold_kdeep_plain(fbd, setup, order, n_global, sorted_tri, starts,
@@ -566,19 +622,21 @@ def frag_from_planes(ctx: Dict, planes: torch.Tensor) -> Dict:
     return frag
 
 
-def _prepare_for(tris, fragment_shader, params, fb_depth, per_tri_extra):
+def _prepare_for(tris, fragment_shader, params, fb_depth, per_tri_extra,
+                 band=None):
     if params.depth_test != DepthTest.LESS_EQUAL:
         raise NotImplementedError("the tile kernels support LESS_EQUAL only")
     gb_keep = getattr(fragment_shader, "varyings", None)
     with record_function("tile.bin_pack"):
         return prepare(tris, params, fb_depth, per_tri_extra,
-                       None if gb_keep is None else frozenset(gb_keep))
+                       None if gb_keep is None else frozenset(gb_keep),
+                       **(band or {}))
 
 
 def render_tile(tris: Dict, fragment_shader: Callable, uniforms: Dict,
                 params: RenderParams, fb_color: torch.Tensor,
                 fb_depth: torch.Tensor, per_tri_extra: Optional[Dict] = None,
-                fold: Optional[Callable] = None):
+                fold: Optional[Callable] = None, band: Optional[Dict] = None):
     """Full frame: the tile fold, one full-frame shading pass, blend.
 
     With params.shade_rate = sr > 1 the fold stays at full resolution and
@@ -587,14 +645,16 @@ def render_tile(tris: Dict, fragment_shader: Callable, uniforms: Dict,
     height must divide by sr.
 
     fold: tile_fold (the default) or tile_fold_plain, which lets a check
-    on the card render the same frame through the plain twin.
+    on the card render the same frame through the plain twin.  band:
+    prepare's origin and bins for a band of a sharded frame, whose
+    params.height x params.width are the band's.
     Returns (color (H, W, 4), depth (H, W))."""
     sr = int(params.shade_rate)
     if sr > 1 and params.height % sr:
         raise ValueError(f"shade_rate={sr} needs the frame height "
                          f"divisible by it, got {params.height}")
     ctx = _prepare_for(tris, fragment_shader, params, fb_depth,
-                       per_tri_extra)
+                       per_tri_extra, band)
     args, kwargs = fold_inputs(ctx)
     with record_function("tile.fold"):
         gbuf, best_d, best_i = (fold or tile_fold)(*args, **kwargs)
@@ -634,7 +694,8 @@ def render_tile_kbuffer(tris: Dict, fragment_shader: Callable,
                         fb_color: torch.Tensor, fb_depth: torch.Tensor,
                         per_tri_extra: Optional[Dict] = None,
                         fold: Optional[Callable] = None,
-                        with_stats: bool = False):
+                        with_stats: bool = False,
+                        band: Optional[Dict] = None):
     """K-buffer via depth peeling: pass 0 through tile_fold's opaque mode,
     passes 1..K-1 through its peel mode, each keeping the best fragment
     strictly below the previous pass's winner, then the reference's
@@ -660,13 +721,13 @@ def render_tile_kbuffer(tris: Dict, fragment_shader: Callable,
     known on the host: it runs one round per pass run.  So a frame
     synchronises at most 2 (K - 1) times beyond the uniform upload.
 
-    fold: tile_fold (the default) or tile_fold_plain.  Returns (color
-    (H, W, 4), depth (H, W)), and a stats dict
-    {"kbuffer_saturated_px": pixels whose K-th layer holds a fragment}
-    third when with_stats."""
+    fold: tile_fold (the default) or tile_fold_plain; band: a band of a
+    sharded frame, as render_tile's.  Returns (color (H, W, 4), depth
+    (H, W)), and a stats dict {"kbuffer_saturated_px": pixels whose K-th
+    layer holds a fragment} third when with_stats."""
     K = params.kbuffer
     ctx = _prepare_for(tris, fragment_shader, params, fb_depth,
-                       per_tri_extra)
+                       per_tri_extra, band)
     fold = fold or tile_fold
     H, W, Hp, Wp = ctx["H"], ctx["W"], ctx["Hp"], ctx["Wp"]
     use_opq = (params.kbuffer_short_circuit and "opq" in ctx["extra_keys"]

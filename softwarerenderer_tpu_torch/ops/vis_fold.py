@@ -22,6 +22,12 @@ with ``params.tile_h`` (uncapped, unlike the tile kernel's 32) and
 zeroed for invalid slots) and folds them.  A NaN fragment never wins,
 where the TPU kernel's chunk-wide max lets one void its whole 128-lane
 chunk at that pixel.
+
+A band (``visibility_fold``'s row offset, or a band of a sharded frame,
+``parallel.sharding``) folds through a tile origin map (``origin``: each
+storage tile's screen (y0, x0), ``binning.tile_pixels``; a contiguous band
+at a row offset is ``binning.band_origin``), which changes where a pixel
+is evaluated, never where it is stored.
 """
 
 from __future__ import annotations
@@ -41,9 +47,11 @@ F32 = torch.float32
 I32 = torch.int32
 INT_MAX = 2 ** 31 - 1
 
-# K5 launches so far; chip_smoke.py resets and reads it to show that a
-# frame went through the kernel.
+# K5 launches so far, without a tile origin map and with one (a band of a
+# sharded frame); chip_smoke.py resets and reads them to show that a frame
+# went through the kernel.
 VIS_LAUNCHES = 0
+VIS_MAPPED_LAUNCHES = 0
 # Triangles a part of a tile's list holds, the kernel's default: the fastest
 # of chip_smoke.py's phase 14 part lengths on the 1080p bench frame (PERF.md
 # section 6).
@@ -56,13 +64,12 @@ _SCRATCH: Dict = {}
 
 
 def visibility_fold_plain(fbd, setup, order, n_global, sorted_tri, starts,
-                          counts, *, tile_h, tile_w, row_offset=0):
+                          counts, *, tile_h, tile_w, origin=None):
     """vis_fold in plain PyTorch: same inputs, same outputs, same rounding
     (binning.fold_binned under LESS_EQUAL)."""
     return binning.fold_binned(fbd, setup, order, n_global, sorted_tri,
                                starts, counts, tile_h=tile_h, tile_w=tile_w,
-                               row_offset=row_offset,
-                               mode=DepthTest.LESS_EQUAL)
+                               mode=DepthTest.LESS_EQUAL, origin=origin)
 
 
 def fold_items(n_global, counts, part_len: int, blocks_per_tile: int):
@@ -98,11 +105,12 @@ def fold_items(n_global, counts, part_len: int, blocks_per_tile: int):
     return tiles, first.to(I32)
 
 
-def blocks_per_sm(tile_w: int) -> int:
+def blocks_per_sm(tile_w: int, origin: bool = False) -> int:
     """Blocks of csrc/vis_fold.cu's fold an SM of the current card holds
-    (the occupancy API; the persistent grid is this many an SM)."""
-    fn = _entry("vis_fold_blocks_per_sm", [ctypes.c_int])
-    out = fn(int((BLOCK_PX // 4) % tile_w == 0))
+    (the occupancy API; the persistent grid is this many an SM), with a
+    tile origin map or without."""
+    fn = _entry("vis_fold_blocks_per_sm", [ctypes.c_int] * 2)
+    out = fn(int((BLOCK_PX // 4) % tile_w == 0), int(origin))
     if out <= 0:
         raise RuntimeError(f"vis_fold occupancy query failed: {out}")
     return out
@@ -123,33 +131,35 @@ def _entry(name: str = "vis_fold_launch", argtypes=None):
     from softwarerenderer_tpu_torch.kernels import build
     fn = getattr(build.load("vis_fold"), name)
     if fn.argtypes is None:
-        fn.argtypes = argtypes or [ctypes.c_void_p] * 14 \
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = argtypes or [ctypes.c_void_p] * 15 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def vis_fold(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
-             tile_h, tile_w, row_offset=0, part_len=PART_LEN):
+             tile_h, tile_w, part_len=PART_LEN, origin=None):
     """The LESS_EQUAL winner of every pixel of the padded (Hp, Wp) tiles.
 
     fbd (Hp, Wp) f32 seeds each pixel at id -1; setup (N, 10) f32 set-up
     rows; order (N,) i32 with the n_global (1,) i32 globals first;
     sorted_tri (L,), starts and counts (ntiles,) i32 each tile's segment
-    (binning.bin_triangles).  Returns (best_d (Hp, Wp) f32, best_i
-    (Hp, Wp) i32, -1 where the seed kept the pixel).  CUDA tensors launch
-    csrc/vis_fold.cu, which builds its work list (fold_items) and folds
-    lists cut into parts of part_len triangles; CPU tensors run
-    visibility_fold_plain.  The parts do not
-    show in the outputs."""
-    global VIS_LAUNCHES
+    (binning.bin_triangles).  Pixel (x, y) is evaluated at screen (x, y),
+    or with origin, an (ntiles, 2) int32 map of each tile's screen (y0,
+    x0), at its tile's origin (binning.tile_pixels).  Returns (best_d
+    (Hp, Wp) f32, best_i (Hp, Wp) i32, -1 where the seed kept the pixel).
+    CUDA tensors launch csrc/vis_fold.cu, which builds its work list
+    (fold_items) and folds lists cut into parts of part_len triangles; CPU
+    tensors run visibility_fold_plain.  The parts do not show in the
+    outputs."""
+    global VIS_LAUNCHES, VIS_MAPPED_LAUNCHES
     if part_len < 1:
         raise ValueError(f"part_len must be >= 1, got {part_len}")
     if fbd.device.type == "cpu":
         return visibility_fold_plain(fbd, setup, order, n_global,
                                      sorted_tri, starts, counts,
                                      tile_h=tile_h, tile_w=tile_w,
-                                     row_offset=row_offset)
+                                     origin=origin)
     if fbd.device.type != "cuda":
         raise ValueError(f"vis_fold runs on cuda or cpu, not {fbd.device}")
     dev = fbd.device
@@ -165,6 +175,8 @@ def vis_fold(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
     check_tensor("sorted_tri", sorted_tri, I32, sorted_tri.shape, dev)
     check_tensor("starts", starts, I32, (ntx * nty,), dev)
     check_tensor("counts", counts, I32, (ntx * nty,), dev)
+    if origin is not None:
+        check_tensor("origin", origin, I32, (ntx * nty, 2), dev)
     if setup.data_ptr() % 8:
         raise ValueError("setup must start on an 8-byte boundary")
     ntiles = ntx * nty
@@ -182,12 +194,16 @@ def vis_fold(fbd, setup, order, n_global, sorted_tri, starts, counts, *,
     err = _entry()(fbd.data_ptr(), setup.data_ptr(), order.data_ptr(),
                    n_global.data_ptr(), sorted_tri.data_ptr(),
                    starts.data_ptr(), counts.data_ptr(), tiles.data_ptr(),
+                   None if origin is None else origin.data_ptr(),
                    first.data_ptr(), best_d.data_ptr(), best_i.data_ptr(),
                    keys.data_ptr(), arrivals.data_ptr(), work.data_ptr(),
-                   ntx, nty, tile_h, tile_w, row_offset, part_len, stream)
+                   ntx, nty, tile_h, tile_w, part_len, stream)
     if err != 0:
         raise RuntimeError(f"vis_fold kernel launch failed: CUDA error {err}")
-    VIS_LAUNCHES += 1
+    if origin is None:
+        VIS_LAUNCHES += 1
+    else:
+        VIS_MAPPED_LAUNCHES += 1
     return best_d, best_i
 
 
@@ -197,7 +213,8 @@ def visibility_fold(tris: Dict, params: RenderParams,
                     row_offset=0, *, fold: Optional[Callable] = None):
     """A visibility_fn of raster.render_deferred running K5: (best_depth
     (H, W) f32, best_tri (H, W) i32) of the band of params.height rows at
-    screen row row_offset, seeded with init_depth.  LESS_EQUAL only.
+    screen row row_offset (folded through its tile origin map), seeded
+    with init_depth.  LESS_EQUAL only.
     chunk is the TPU kernel's DMA size and changes nothing here.  fold:
     vis_fold (the default) or visibility_fold_plain."""
     if params.depth_test != DepthTest.LESS_EQUAL:

@@ -991,31 +991,70 @@ def test_sky_panorama_uniform_raises():
                                                             4)), atol=1e-6)
 
 
+# JAX's frame of the unpacked-channel shader, shared by the cases of
+# test_unpacked_tri_extras_channel_raises.
+_UNPACKED_JAX = {}
+
+
 @pytest.mark.parametrize("through", ["Engine", "render_frame"])
 def test_unpacked_tri_extras_channel_raises(through):
-    """A fragment shader whose tri_extras names a per-triangle channel
-    that frame_setup does not pack (the reference's PBR shaders read
-    mat_metallic and its siblings) is refused by name, before any shader
-    runs, not by a KeyError inside it; the channels that are packed pass."""
+    """The name is kept from when the port refused the shader.  A fragment
+    shader whose tri_extras names a per-triangle channel that frame_setup
+    does not pack (mat_metallic on a scene without materials) renders as in
+    JAX, which drops the name (softwarerenderer_tpu/engine/renderer.py:
+    611-613): on the tile route and the deferred route, equal to JAX's
+    frame within PERF.md section 2's D5 share (JAX's CPU backend resolves
+    both routes through one binned program).  A shader that reads the
+    channel fails with a KeyError in both packages alike (JAX's while
+    tracing the frame)."""
+    import jax
+    from softwarerenderer_tpu import RenderParams as JaxRenderParams
+    from softwarerenderer_tpu.engine import renderer as jr
     from softwarerenderer_tpu_torch.engine import renderer
 
-    def pbr_like(frag, uniforms):
+    def names_metallic(frag, uniforms):
+        return renderer.scene_fragment_shader(frag, uniforms)
+
+    def j_names_metallic(frag, uniforms, xp):
+        return jr.scene_fragment_shader(frag, uniforms, xp)
+
+    def reads_metallic(frag, uniforms, xp=None):
         return frag["color"] * frag["tri"]["mat_metallic"][..., None]
 
-    pbr_like.varyings = ("color",)
-    pbr_like.tri_extras = ("tex_oy", "mat_metallic", "mat_roughness")
-    params = RenderParams(64, 48)
-    with pytest.raises(NotImplementedError,
-                       match="tri_extras channel mat_metallic"):
+    for fn, base in ((names_metallic, renderer.scene_fragment_shader),
+                     (j_names_metallic, jr.scene_fragment_shader)):
+        fn.varyings = base.varyings
+        fn.tri_extras = tuple(base.tri_extras) + ("mat_metallic",)
+    reads_metallic.varyings = ("color",)
+    reads_metallic.tri_extras = ("tex_oy", "mat_metallic")
+    scene = small_scene()
+    for use_pallas in (True, False):
+        params = RenderParams(64, 48, use_pallas=use_pallas)
         if through == "Engine":
-            Engine(small_scene(), params, fragment_shader=pbr_like,
-                   device="cpu")
+            eng = Engine(scene, params, fragment_shader=names_metallic,
+                         device="cpu")
+            c, d = eng.render()
         else:
-            eng = Engine(small_scene(), params, device="cpu")
+            eng = Engine(scene, params, device="cpu")
+            c, d = render_frame(eng.scene, eng.uniforms, params,
+                                fragment_shader=names_metallic)
+        if not _UNPACKED_JAX:
+            _UNPACKED_JAX["frame"] = tuple(np.asarray(x) for x in jax.jit(
+                functools.partial(jr.render_frame,
+                                  params=JaxRenderParams(64, 48),
+                                  fragment_shader=j_names_metallic))(
+                scene, eng.uniforms))
+        jc, jd = _UNPACKED_JAX["frame"]
+        assert torch.isfinite(c).all() and (d > -3e38).any()
+        assert (np.abs(c.numpy() - jc).max(-1) > 1e-5).mean() <= D5_SHARE
+        assert (np.abs(d.numpy() - jd) > 1e-5).mean() <= D5_SHARE
+        with pytest.raises(KeyError, match="mat_metallic"):
             render_frame(eng.scene, eng.uniforms, params,
-                         fragment_shader=pbr_like)
-    pbr_like.tri_extras = renderer.PACKED_TRI_EXTRAS
-    renderer.check_supported(params, fragment_shader=pbr_like)
+                         fragment_shader=reads_metallic)
+    with pytest.raises(KeyError, match="mat_metallic"):
+        jax.eval_shape(functools.partial(
+            jr.render_frame, params=JaxRenderParams(64, 48),
+            fragment_shader=reads_metallic), scene, eng.uniforms)
 
 
 @pytest.mark.parametrize("mode", list(BlendMode))

@@ -50,7 +50,7 @@ def part_entries(n_global, counts, tile, part, part_len):
 
 
 def fold_by_parts(fbd, setup, order, n_global, sorted_tri, starts, counts,
-                  *, tile_h, tile_w, row_offset=0, part_len):
+                  *, tile_h, tile_w, origin=None, part_len):
     """The kernel's split in plain PyTorch.  Each (tile, triangle) pair
     falls in part (its position in the tile's list) // part_len, as in
     fold_items' list; each part is folded alone with the twin's keys (a
@@ -72,13 +72,17 @@ def fold_by_parts(fbd, setup, order, n_global, sorted_tri, starts, counts,
     part = pos // part_len
     nparts = int(part.max()) + 1 if pos.numel() else 1
     lane = torch.arange(tpx)
-    lx, ly = lane % tile_w, lane // tile_w + row_offset
+    lx, ly = lane % tile_w, lane // tile_w
     parts = torch.full((nparts * npix,), raster.NEVER, dtype=torch.long)
     step = max(1, raster.MAX_CHUNK_ELEMS // tpx)
     for c0 in range(0, pair_tile.numel(), step):
         tl, tri = pair_tile[c0:c0 + step], pair_tri[c0:c0 + step]
-        px = (((tl % ntx) * tile_w)[:, None] + lx).to(torch.float32)
-        py = (((tl // ntx) * tile_h)[:, None] + ly).to(torch.float32)
+        if origin is None:             # a tile at its own place
+            y0, x0 = (tl // ntx) * tile_h, (tl % ntx) * tile_w
+        else:                          # at its screen origin (y0, x0)
+            y0, x0 = origin[tl, 0].long(), origin[tl, 1].long()
+        px = (x0[:, None] + lx).to(torch.float32)
+        py = (y0[:, None] + ly).to(torch.float32)
         inside, d = raster.fragments(setup[tri], px, py)
         key = torch.where(raster.admitted(inside, d, LE),
                           raster.fold_keys(d, tri[:, None], LE),
