@@ -142,7 +142,20 @@ drives the port's paths at 1080p (config 5 at 4K):
     balanced rows and tiles (and tiles on the deferred route), the
     K-buffer over contiguous and balanced-row bands, the ring at n = 4 on
     both frames, four views and ray-traced bands, each 0 values off its
-    single-card frame on every rank (over NCCL too with four cards).
+    single-card frame on every rank (over NCCL too with four cards);
+  * the model viewer (phase 26, ``apps.viewer.Viewer`` headless at
+    1920x1080): the native asset library built from
+    ``native/srt_native.cpp`` with g++ and used, its bakers equal to
+    ``io_host.hostops``'s numpy forms, a 262,144-triangle FBX loaded
+    equal with and without it; the FBX sphere (``--lod``), a 65,280-
+    triangle 3DS sphere and the cube fixtures (.dae, .fbx, .3ds): frame 0
+    with 1 K1 launch, 0 pixels off the same step through K1's twin and
+    within 0.1 % of ``Viewer(device="cpu")``'s frame, 29 timed frames of
+    1 K1 each, launches, host syncs and kernel time a frame; 'g' on the
+    spheres at ``--rt-cap 24`` and ``8 24`` (1 + 1 K4 a frame, 0 pixels
+    off K4's twin); 'f' through the wireframe, overdraw and depth views
+    of the fixtures against the CPU's; F10's GLB, ``--record``'s AVI and
+    ``python -m softwarerenderer_tpu_torch.apps.viewer`` in a subprocess.
 
 Any failed check raises and exits non-zero.  The last three lines of
 standard output are the card's name and power limit, a JSON line with the
@@ -4464,6 +4477,506 @@ def check_parallel_ranks(card, device="cuda") -> dict:
     return out
 
 
+VIEWER_FRAMES = 29         # timed frames a model, after frame 0
+VIEWER_PROFILE_FRAMES = 3
+VIEWER_RT_FRAMES = 9
+VIEWER_RT_CAPS = ((24,), (8, 24))   # --rt-cap 24 and the ladder 8 24
+VIEWER_CPU_OFF_MAX = 1e-3  # share of pixels off the CPU's frame by > 2
+VIEWER_CLOCK = 1234.5      # the viewer's animation clock, pinned
+# (rings, sectors) of the written spheres: a single-mesh FBX of 262,144
+# triangles, and a 3DS of 65,280, just under the format's 65,535.
+VIEWER_FBX_SPHERE = (256, 512)
+VIEWER_3DS_SPHERE = (128, 255)
+# The FBX's node transform (tests/fixtures' cube: translate, rotate 30
+# degrees about z, scale), so the load bakes it through the library.
+VIEWER_FBX_TRS = dict(translation=(0.5, -0.25, -3.0),
+                      rotation_deg=(0.0, 0.0, 30.0), scaling=(1.0, 2.0, 1.5))
+NO_INPUT = {"keys": set(), "mouse_delta": (0.0, 0.0)}
+# Kernel launches of two frames in each debug view: the depth view's
+# visibility pass is the deferred route's (K5 on the card).
+VIEW_LAUNCHES = {"WIREFRAME": {}, "OVERDRAW": {}, "DEPTH": {"K5": 2}}
+
+
+def _tree_off(got, want) -> int:
+    """Values of two loaded trees (dicts, lists, dataclasses, arrays,
+    scalars) that differ; a structural difference counts as 1."""
+    import dataclasses
+    if dataclasses.is_dataclass(want):
+        if type(got).__name__ != type(want).__name__:
+            return 1
+        return _tree_off(dataclasses.asdict(got), dataclasses.asdict(want))
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            return 1
+        return sum(_tree_off(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return 1
+        return sum(_tree_off(g, w) for g, w in zip(got, want))
+    if isinstance(want, np.ndarray):
+        g = np.asarray(got)
+        if g.dtype != want.dtype or g.shape != want.shape:
+            return 1
+        return int((g != want).sum())
+    return int(not (got == want))
+
+
+def check_native_library(card, sphere_fbx: str) -> dict:
+    """Phase 26a: the native asset library built from the checkout's
+    srt_native.cpp into the package's _build/ with g++ (no fallback: the
+    phase fails without a compiler), its five entry points used, the
+    bakers equal to io_host.hostops's numpy forms on a million seeded
+    points, and the transformed sphere FBX loaded through the library
+    equal on every value to the same load with the library out of reach."""
+    import shutil
+    from softwarerenderer_tpu_torch import native
+    from softwarerenderer_tpu_torch.io_host import hostops, model_loader
+    from softwarerenderer_tpu_torch.native import binding, build
+    gxx = shutil.which("g++") or shutil.which("clang++")
+    check(gxx is not None, "phase 26a: no g++ or clang++ to build the "
+          "native library")
+    t = time.perf_counter()
+    check(build.build(force=not native.is_available()),
+          "phase 26a: the native library did not build")
+    build_s = time.perf_counter() - t
+    want_dir = os.path.join(REPO, "softwarerenderer_tpu_torch", "_build")
+    check(os.path.dirname(build.LIBRARY) == want_dir
+          and os.path.getmtime(build.LIBRARY)
+          >= os.path.getmtime(build.SOURCE),
+          f"phase 26a: library {build.LIBRARY} is not built from "
+          f"{build.SOURCE} into {want_dir}")
+    check(native.is_available() and binding._lib._name == build.LIBRARY,
+          "phase 26a: the native library does not load")
+    rng = np.random.default_rng(26)
+    pts = rng.normal(size=(10 ** 6, 3)).astype(np.float32) * 40
+    pts[:3] = 0.0
+    m = np.asarray(rng.normal(size=(4, 4)), np.float32)
+    times = {}
+    off = 0
+    for name in ("bake_positions", "bake_normals"):
+        t = time.perf_counter()
+        got = getattr(native, name)(pts, m)
+        times[name] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        want = getattr(hostops, name)(pts, m)
+        times[name + "_numpy"] = (time.perf_counter() - t) * 1e3
+        off += int((got.view(np.int32) != want.view(np.int32)).sum())
+    pcm = rng.integers(-32768, 32767, 10 ** 5, endpoint=True) \
+        .astype(np.int16)
+    pcm_ok = np.array_equal(native.scale_pcm16(pcm, 1.7), np.clip(
+        pcm.astype(np.float32) * np.float32(1.7), -32768, 32767)
+        .astype(np.int16))
+    raw = pts[:1000].tobytes()
+    acc = native.accessor_to_f32(raw, 1000, 3, 5126, 12, False)
+    sphere = native.bounding_sphere_native(pts[:1000])
+    check(off == 0, f"phase 26a: the library's bakers differ from "
+          f"hostops's on {off} values")
+    check(pcm_ok and acc is not None and np.array_equal(acc, pts[:1000])
+          and sphere is not None and np.all(np.linalg.norm(
+              pts[:1000] - sphere[0], axis=-1) <= sphere[1] + 1e-3),
+          "phase 26a: scale_pcm16, accessor_to_f32 or the bounding "
+          "sphere is off")
+
+    # The sphere FBX through the library, counting the calls that reached
+    # it, then with the library out of reach (hostops's forms).
+    calls = {"lib": 0}
+    load = binding._load
+
+    def counted():
+        lib = load()
+        calls["lib"] += lib is not None
+        return lib
+
+    binding._load = counted
+    try:
+        model_loader.clear_caches()
+        t = time.perf_counter()
+        with_lib = model_loader.load_model(sphere_fbx)
+        lib_s = time.perf_counter() - t
+        lib_calls = calls["lib"]
+        saved = binding._lib
+        binding._lib, calls["lib"] = None, 0
+        model_loader.clear_caches()
+        t = time.perf_counter()
+        without = model_loader.load_model(sphere_fbx)
+        numpy_s = time.perf_counter() - t
+        fallback_calls = calls["lib"]
+        binding._lib = saved
+    finally:
+        binding._load = load
+        model_loader.clear_caches()
+    n_off = _tree_off(with_lib, without)
+    log(f"phase 26a native library: {build.LIBRARY} built by {gxx} from "
+        f"srt_native.cpp in {build_s:.2f} s; 10^6 points baked: positions "
+        f"{times['bake_positions']:.1f} ms (numpy "
+        f"{times['bake_positions_numpy']:.1f}), normals "
+        f"{times['bake_normals']:.1f} ms (numpy "
+        f"{times['bake_normals_numpy']:.1f}), {off} values differ; the "
+        f"sphere FBX ({len(with_lib.meshes[0]['indices'])} triangles) "
+        f"loaded in {lib_s:.2f} s through {lib_calls} library calls and "
+        f"in {numpy_s:.2f} s through hostops ({fallback_calls} library "
+        f"calls): {n_off} values differ [{card}]")
+    check(lib_calls >= 2 and fallback_calls == 0,
+          f"phase 26a: library calls {lib_calls}, {fallback_calls}")
+    check(n_off == 0, f"phase 26a: the sphere FBX differs on {n_off} "
+          f"values without the library")
+    return {"build_s": build_s, "lib_calls": lib_calls}
+
+
+def _viewer_models(tmp: str) -> dict:
+    """The models phase 26 opens, by name: (path, lod)."""
+    from softwarerenderer_tpu_torch.io_host import fbx, tds
+    from softwarerenderer_tpu_torch.models import primitives
+    r, s = VIEWER_FBX_SPHERE
+    big = primitives.uv_sphere(rings=r, sectors=s)
+    fbx_path = os.path.join(tmp, "sphere.fbx")
+    fbx.write_fbx(fbx_path, big["position"], big["indices"],
+                  normals=big["normal"], uvs=big["uv"],
+                  diffuse_color=(0.8, 0.6, 0.4), **VIEWER_FBX_TRS)
+    r, s = VIEWER_3DS_SPHERE
+    small = primitives.uv_sphere(rings=r, sectors=s)
+    tds_path = os.path.join(tmp, "sphere.3ds")
+    tds.write_3ds(tds_path, small["position"], small["indices"],
+                  uvs=small["uv"], diffuse_color=(0.3, 0.5, 0.8))
+    fix = os.path.join(REPO, "tests", "fixtures")
+    return {"sphere.fbx": (fbx_path, True), "sphere.3ds": (tds_path, False),
+            **{n: (os.path.join(fix, n), False)
+               for n in ("cube.dae", "cube.fbx", "cube.3ds")}}
+
+
+def _rgb_off(a: np.ndarray, b: np.ndarray, by: int = 0) -> int:
+    """Pixels of two RGB8 frames that differ by more than `by`."""
+    return int((np.abs(a.astype(np.int32) - b.astype(np.int32))
+                .max(-1) > by).sum())
+
+
+def _viewer_step(v, inputs=NO_INPUT) -> np.ndarray:
+    v.step(1 / 60, inputs)
+    return v.window.last_frame
+
+
+def check_viewer(card, device="cuda", size=(W, H)) -> dict:
+    """Phase 26: the model viewer (apps.viewer.Viewer, headless at
+    render_scale 1.0) on the models of _viewer_models: (a) the native
+    library (check_native_library); (b) for each model frame 0 with 1 K1
+    launch, 0 pixels off the same step through K1's twin and within
+    VIEWER_CPU_OFF_MAX of Viewer(device="cpu")'s frame, VIEWER_FRAMES
+    timed frames of 1 K1 each, launches, host syncs and kernel time a
+    frame by the profiler; (c) 'g' on the two spheres at each of
+    VIEWER_RT_CAPS: 1 + 1 K4 a frame, 0 pixels off K4's twin, the ladder's
+    frame equal to --rt-cap 24's; (d) 'f' through WIREFRAME, OVERDRAW and
+    DEPTH on the three fixtures against the CPU's frames (those views are
+    brute routes, T x H x W, which phase 16 holds on the bench scene);
+    (e) F10's GLB, --record's AVI and the entry point in a subprocess.
+    The viewer's animation clock is pinned (VIEWER_CLOCK)."""
+    import types
+    from softwarerenderer_tpu_torch.apps import viewer as viewer_mod
+    from softwarerenderer_tpu_torch.io_host import model_loader
+    t_phase = time.perf_counter()
+    clock = viewer_mod.time
+    viewer_mod.time = types.SimpleNamespace(monotonic=lambda: VIEWER_CLOCK)
+    out = {"models": {}}
+    try:
+        with tempfile.TemporaryDirectory(prefix="viewer_") as tmp:
+            models = _viewer_models(tmp)
+            out["native"] = check_native_library(card,
+                                                 models["sphere.fbx"][0])
+            for name, (path, lod) in models.items():
+                model_loader.clear_caches()
+                t = time.perf_counter()
+                v = viewer_mod.Viewer(path, width=size[0], height=size[1],
+                                      render_scale=1.0, headless=True,
+                                      lod=lod, rt_cap=VIEWER_RT_CAPS[0],
+                                      device=device)
+                res = _viewer_frames(card, name, v, path, lod, size,
+                                     time.perf_counter() - t)
+                if name.startswith("sphere"):
+                    res["rt"] = _viewer_raytraced(card, name, v, size)
+                else:
+                    res["views"] = _viewer_views(card, name, v, path, size)
+                out["models"][name] = res
+                del v
+            out["io"] = _viewer_io(card, models, tmp, size, device)
+    finally:
+        viewer_mod.time = clock
+    log(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _cpu_viewer(path, lod, size):
+    """The same model in Viewer(device="cpu"), frame 0 rendered."""
+    from softwarerenderer_tpu_torch.apps import viewer as viewer_mod
+    from softwarerenderer_tpu_torch.io_host import model_loader
+    model_loader.clear_caches()
+    cv = viewer_mod.Viewer(path, width=size[0], height=size[1],
+                           render_scale=1.0, headless=True, lod=lod,
+                           device="cpu")
+    _viewer_step(cv)
+    return cv
+
+
+def _viewer_frames(card, name, v, path, lod, size, built_s) -> dict:
+    """Phase 26b on one model: frame 0 (1 K1) against the plain path and
+    the CPU's frame, VIEWER_FRAMES timed frames, the profiler's counts."""
+    from softwarerenderer_tpu_torch import DebugMode
+    from softwarerenderer_tpu_torch.engine import render_frame
+    from softwarerenderer_tpu_torch.ops import tile_raster
+    w, h = size
+    eng = v.engines[(DebugMode.NONE, False)]
+    _zero_counts()
+    first = _viewer_step(v).copy()
+    k1_first = _launch_counts()
+    eng.frame_fn = functools.partial(render_frame,
+                                     fold=tile_raster.tile_fold_plain)
+    try:
+        plain = _viewer_step(v).copy()
+    finally:
+        eng.frame_fn = render_frame
+    k1_plain = tile_raster.LAUNCHES - k1_first["K1"]
+    n_plain = _rgb_off(first, plain)
+    covered = float((first != first[0, 0]).any(-1).mean())
+    t = time.perf_counter()
+    cv = _cpu_viewer(path, lod, size)
+    cpu_s = time.perf_counter() - t
+    n_cpu = _rgb_off(first, cv.window.last_frame, 2)
+    same_view = (np.array_equal(cv.center, v.center)
+                 and cv.distance == v.distance and cv.n_tris == v.n_tris)
+    del cv
+
+    k1, times = [], []
+    for _ in range(VIEWER_FRAMES):
+        n0 = tile_raster.LAUNCHES
+        t = time.perf_counter()
+        _viewer_step(v)
+        times.append((time.perf_counter() - t) * 1e3)
+        k1.append(tile_raster.LAUNCHES - n0)
+    median = statistics.median(times)
+
+    def frames():
+        for _ in range(VIEWER_PROFILE_FRAMES):
+            _viewer_step(v)
+    calls, empty = _runtime_calls(frames), _runtime_calls(lambda: None)
+
+    def count(names, counted):
+        return sum(n for k, n in counted.items()
+                   if any(m in k for m in names))
+    launches = count(("LaunchKernel",), calls) / VIEWER_PROFILE_FRAMES
+    syncs = (count(("Synchronize",), calls)
+             - count(("Synchronize",), empty)) / VIEWER_PROFILE_FRAMES
+    prof = frame_kernel_ms(lambda: _viewer_step(v), VIEWER_PROFILE_FRAMES)
+    idle = 1.0 - prof["kernels"] / median
+    log(f"phase 26b viewer {name} @{w}x{h}{' --lod' if lod else ''}: "
+        f"{v.n_tris} triangles packed, built in {built_s:.1f} s; frame 0 "
+        f"K1 launches {k1_first['K1']} (other kernels "
+        f"{sum(k1_first.values()) - k1_first['K1']}), {covered:.1%} of "
+        f"pixels not the clear colour; vs the same step through K1's twin "
+        f"{n_plain} pixels differ ({k1_plain} K1 launches); vs "
+        f"Viewer(device='cpu') (built and drawn in {cpu_s:.1f} s) {n_cpu} "
+        f"pixels off by > 2 ({n_cpu / (w * h):.2e}); {VIEWER_FRAMES} "
+        f"frames with K1 launches {sum(k1)}, {_spread(times)} on the host "
+        f"clock (present reads the frame back) = "
+        f"{w * h / median / 1e3:.1f} Mpixels/s; profiled: "
+        f"{launches:.1f} launches and {syncs:.1f} host syncs a frame, "
+        f"kernels {prof['kernels']:.3f} ms (K1 {prof['K1']:.3f} ms), idle "
+        f"{idle:.1%} [{card}]")
+    check(k1_first["K1"] == 1 and sum(k1_first.values()) == 1,
+          f"viewer {name}: frame 0 launches {k1_first}")
+    check(k1_plain == 0, f"viewer {name}: the plain path launched K1")
+    check(n_plain == 0, f"viewer {name}: {n_plain} pixels off the plain "
+          f"path")
+    check(covered > 0.02, f"viewer {name}: only {covered:.1%} drawn")
+    check(same_view, f"viewer {name}: the CPU viewer frames it otherwise")
+    check(n_cpu <= VIEWER_CPU_OFF_MAX * w * h,
+          f"viewer {name}: {n_cpu} pixels off the CPU's by > 2")
+    check(k1 == [1] * VIEWER_FRAMES, f"viewer {name}: K1 launches {k1}")
+    return dict(median_ms=median, launches=launches, syncs=syncs,
+                prof=prof, idle=idle, k1=sum(k1) + 1, n_tris=v.n_tris)
+
+
+def _viewer_raytraced(card, name, v, size) -> dict:
+    """Phase 26c: 'g' at each of VIEWER_RT_CAPS, 1 + 1 K4 a frame, frame 0
+    0 pixels off the same step through K4's twin (and the float frames
+    within phase 12's limits), the ladder's frame equal to the first
+    cap's; 'g' again returns to the K1 frame."""
+    from softwarerenderer_tpu_torch import DebugMode
+    from softwarerenderer_tpu_torch.ops import rt_sweep
+    from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
+    w, h = size
+    press_g = {"keys": {"g"}, "mouse_delta": (0.0, 0.0)}
+    out, frames = {}, {}
+    for cap in VIEWER_RT_CAPS:
+        v.rt_cap = cap
+        v.engines.pop((DebugMode.NONE, True), None)
+        _zero_counts()
+        first = _viewer_step(v, press_g if not v.raytrace else NO_INPUT)
+        first = first.copy()
+        c0 = _launch_counts()
+        check(v.raytrace, "'g' did not turn the ray-traced mode on")
+        eng = v.engines[(DebugMode.NONE, True)]
+        u = v.frame_uniforms()
+        got = eng.render(u)
+        eng.frame_fn = functools.partial(render_frame_raytraced,
+                                         cluster_cap=cap,
+                                         sweep=rt_sweep.rt_sweep_plain)
+        try:
+            twin = _viewer_step(v).copy()
+            want = eng.render(u)
+        finally:
+            eng.frame_fn = functools.partial(render_frame_raytraced,
+                                             cluster_cap=cap)
+        n_twin = _rgb_off(first, twin)
+        n_c, n_d, n_rgb = _frame_diff(got, want)
+        del got, want
+        per, times = [], []
+        for _ in range(VIEWER_RT_FRAMES):
+            n0, a0 = rt_sweep.LAUNCHES, rt_sweep.ANY_HIT_LAUNCHES
+            t = time.perf_counter()
+            _viewer_step(v)
+            times.append((time.perf_counter() - t) * 1e3)
+            a = rt_sweep.ANY_HIT_LAUNCHES - a0
+            per.append((rt_sweep.LAUNCHES - n0 - a, a))
+        frames[cap] = first
+        n_first = _rgb_off(first, frames[VIEWER_RT_CAPS[0]])
+        prof = frame_kernel_ms(lambda: _viewer_step(v),
+                               VIEWER_PROFILE_FRAMES)
+        median = statistics.median(times)
+        log(f"phase 26c viewer {name} 'g' @{w}x{h}, rt_cap={cap}: frame 0 "
+            f"K4 launches {c0['K4'] - c0['K4a']} nearest + {c0['K4a']} "
+            f"any-hit (K1 {c0['K1']}); vs the same step through K4's twin "
+            f"{n_twin} pixels differ (float frames: {n_c} color > 1e-5, "
+            f"{n_d} depth, {n_rgb} to_rgb8); vs rt_cap="
+            f"{VIEWER_RT_CAPS[0]} {n_first} pixels differ; "
+            f"{VIEWER_RT_FRAMES} frames {_spread(times)}, K4 a frame "
+            f"{sorted(set(per))}; kernels {prof['kernels']:.3f} ms (K4 "
+            f"{prof['K4']:.3f} ms), idle "
+            f"{1.0 - prof['kernels'] / median:.1%} [{card}]")
+        check((c0["K4"] - c0["K4a"], c0["K4a"], c0["K1"]) == (1, 1, 0),
+              f"viewer {name} rt_cap={cap}: frame 0 launches {c0}")
+        check(per == [(1, 1)] * VIEWER_RT_FRAMES,
+              f"viewer {name} rt_cap={cap}: K4 a frame {per}")
+        check(n_twin == 0 and n_first == 0,
+              f"viewer {name} rt_cap={cap}: {n_twin} pixels off K4's "
+              f"twin, {n_first} off rt_cap={VIEWER_RT_CAPS[0]}")
+        limit = FRAME_COVERED_MISMATCH_MAX * w * h
+        check(max(n_c, n_d, n_rgb) <= limit,
+              f"viewer {name} rt_cap={cap}: float frames off the twin "
+              f"{(n_c, n_d, n_rgb)}")
+        out[cap] = dict(median_ms=median, prof=prof)
+    _zero_counts()
+    _viewer_step(v, press_g)
+    _viewer_step(v)
+    back = _launch_counts()
+    check(not v.raytrace and back["K1"] == 2 and back["K4"] == 0,
+          f"viewer {name}: 'g' off launched {back}")
+    return out
+
+
+def _viewer_views(card, name, v, path, size) -> dict:
+    """Phase 26d: 'f' through WIREFRAME, OVERDRAW and DEPTH in the card's
+    and the CPU's viewer, two frames each (the key pressed, then
+    released), each view's first frame against the CPU's; the wireframe
+    and overdraw views launch none of the kernels, the depth view's
+    visibility pass K5 once a frame (VIEW_LAUNCHES); a fourth 'f' returns
+    to NONE."""
+    from softwarerenderer_tpu_torch import DebugMode
+    w, h = size
+    press_f = {"keys": {"f"}, "mouse_delta": (0.0, 0.0)}
+    cv = _cpu_viewer(path, False, size)
+    offs, launches = {}, {}
+    for _ in range(3):
+        _zero_counts()
+        got, want = _viewer_step(v, press_f), _viewer_step(cv, press_f)
+        check(v.mode == cv.mode, "the viewers' 'f' cycles differ")
+        offs[v.mode.name] = (_rgb_off(got, want), _rgb_off(got, want, 2),
+                             float((got != got[0, 0]).any(-1).mean()))
+        _viewer_step(v)
+        _viewer_step(cv)
+        launches[v.mode.name] = {k: n for k, n in _launch_counts().items()
+                                 if n}
+    _viewer_step(v, press_f)
+    _viewer_step(v)
+    log(f"phase 26d viewer {name} 'f' @{w}x{h} against "
+        f"Viewer(device='cpu'): " + "; ".join(
+            f"{m} {a} pixels differ, {b} by > 2 ({c:.2%} drawn), launches "
+            f"in 2 frames {launches[m] or 'none'}"
+            for m, (a, b, c) in offs.items()) + f" [{card}]")
+    check(list(offs) == ["WIREFRAME", "OVERDRAW", "DEPTH"]
+          and v.mode == DebugMode.NONE, f"viewer 'f' cycle {list(offs)}")
+    check(launches == VIEW_LAUNCHES, f"viewer views launched {launches}")
+    for m, (_, b, c) in offs.items():
+        check(b <= VIEWER_CPU_OFF_MAX * w * h and c > 1e-4,
+              f"viewer {name} {m}: {b} pixels off the CPU's by > 2, "
+              f"{c:.2%} drawn")
+    return offs
+
+
+def _viewer_io(card, models, tmp, size, device) -> dict:
+    """Phase 26e: F10's GLB of the 3DS sphere reloads with the model's
+    positions; --record's AVI holds the presented frames; the entry point
+    runs headless in a subprocess and writes its PNGs."""
+    from softwarerenderer_tpu_torch.apps import viewer as viewer_mod
+    from softwarerenderer_tpu_torch.io_host import model_loader
+    from softwarerenderer_tpu_torch.utils.video import read_avi
+    w, h = size
+    path, _ = models["sphere.3ds"]
+    model_loader.clear_caches()
+    v = viewer_mod.Viewer(path, width=w, height=h, render_scale=1.0,
+                          headless=True, device=device)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        _viewer_step(v, {"keys": {"f10"}, "mouse_delta": (0.0, 0.0)})
+        glb = os.path.join(tmp, "viewer_export_000.glb")
+        model_loader.clear_caches()
+        back = model_loader.load_model(glb)
+    finally:
+        os.chdir(cwd)
+    pos_off = sum(_tree_off(b["position"], s["position"])
+                  for b, s in zip(back.meshes, v.model.meshes))         + abs(len(back.meshes) - len(v.model.meshes))
+    del v
+
+    clip = os.path.join(tmp, "orbit.avi")
+    rv = viewer_mod.Viewer(models["cube.dae"][0], width=w, height=h,
+                           render_scale=1.0, headless=True, record=clip,
+                           record_fps=30.0, device=device)
+    shown = []
+    present = rv.window.present
+
+    def keep(rgb, overlay=None):
+        shown.append(rgb.copy())
+        present(rgb, overlay)
+    rv.window.present = keep
+    rv.run(frames=3)
+    frames, fps = read_avi(clip)
+    rec_ok = frames.shape == (3, h, w, 3) and np.array_equal(
+        frames, np.stack(shown)) and abs(fps - 30.0) < 1e-3
+
+    out_png = os.path.join(tmp, "entry.png")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "softwarerenderer_tpu_torch.apps.viewer",
+         models["sphere.fbx"][0], "--headless", "--frames", "3", "--out",
+         out_png], cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    entry_s = time.perf_counter() - t
+    pngs = sorted(f for f in os.listdir(tmp) if f.startswith("entry"))
+    log(f"phase 26e viewer io: F10 exported {os.path.getsize(glb)} bytes, "
+        f"reloaded with {pos_off} position values off the model's; "
+        f"--record {frames.shape[0]} frames at {fps} fps, equal to the "
+        f"presented frames: {rec_ok}; python -m "
+        f"softwarerenderer_tpu_torch.apps.viewer sphere.fbx --headless "
+        f"--frames 3: exit {proc.returncode} in {entry_s:.1f} s, wrote "
+        f"{pngs} [{card}]")
+    if proc.returncode != 0:
+        log(proc.stderr[-2000:])
+    check(pos_off == 0, f"viewer F10: {pos_off} position values off")
+    check(rec_ok, "viewer --record: the AVI is not the presented frames")
+    check(proc.returncode == 0 and pngs == ["entry.png", "entry_0001.png",
+                                            "entry_0002.png"],
+          f"viewer entry point: exit {proc.returncode}, {pngs}")
+    return dict(entry_s=entry_s)
+
+
 def build_kernels() -> None:
     """Phase 2: build every kernel from the checkout's sources and print
     what ptxas says of each."""
@@ -4735,6 +5248,9 @@ def main() -> int:
                        for c in ranks["gloo"][0]["cases"].values())
     k5m_launches = sum(c["launches"]["K5m"]
                        for c in ranks["gloo"][0]["cases"].values())
+
+    # ---- phase 26: the model viewer --------------------------------------
+    check_viewer(card)
     log(f"profiler: {TRACES['retaken']} of device_ms's {TRACES['taken']} "
         f"traces were taken again for a lost launch record")
 

@@ -32,7 +32,11 @@ is the Dust2 game on all of it (one ``fused_step`` a frame, a pipelined
 present, the JAX app's host loop, its mirror, burned-in HUD and
 recording), with the host layer it needs copied
 from the JAX package under ``io_host`` (window, HUD, audio, networking,
-the glTF and OBJ/STL/PLY loaders).
+the model loaders).  ``apps.viewer`` is the model viewer (orbit, the
+debug views, the ray-traced mode, GLB export), over the glTF, OBJ, STL,
+PLY, COLLADA, FBX and 3DS loaders and ``native``, the C++ asset library
+the loaders bake transforms with (numpy forms of equal value without a
+compiler).
 """
 
 from softwarerenderer_tpu_torch.config import (  # noqa: F401

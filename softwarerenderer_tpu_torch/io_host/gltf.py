@@ -620,8 +620,8 @@ def load_gltf(path: str, flip_uv: bool = True,
                 else:
                     # Bake world transform (ModelLoader.cs:196-200) —
                     # native C++ kernels when built, NumPy otherwise.
-                    from softwarerenderer_tpu_torch.io_host.hostops import (
-                        bake_normals, bake_positions)
+                    from softwarerenderer_tpu_torch.native import (bake_normals,
+                                                             bake_positions)
                     wpos = bake_positions(pos, global_m)
                     wn = bake_normals(normal, rot_only)
 

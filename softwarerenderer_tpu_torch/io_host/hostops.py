@@ -1,11 +1,11 @@
-"""Numpy stand-ins for the JAX package's helpers that the copied loaders
-call, so that ``io_host.gltf`` imports nothing of the JAX package:
+"""Numpy forms of helpers that the copied loaders call, so that
+``io_host`` imports nothing of the JAX package:
 
-  * ``bake_positions`` and ``bake_normals``: the JAX package's
-    ``native`` asset bakers (``native/srt_native.cpp``), in numpy with the
-    C++ code's float32 operations in its order, so a baked mesh equals the
-    one the JAX package bakes with its built library on every value (the
-    C++ library itself is not ported; ROADMAP A5d);
+  * ``bake_positions`` and ``bake_normals``: the ``native`` library's
+    asset bakers (``native/srt_native.cpp``) in numpy, with the C++ code's
+    float32 operations in its order, so a mesh baked without the library
+    equals the one baked with it on every value; ``native``'s fallback
+    when the library cannot be built;
   * ``compose_trs``: ``ops/skinning.compose_trs`` with ``xp=np``, the
     port's ``ops.skinning.compose_trs_np``.
 """

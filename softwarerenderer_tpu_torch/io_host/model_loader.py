@@ -439,17 +439,14 @@ def _load_single(path: str, rigid_animation: bool = True) -> Model:
     elif ext == ".ply":
         doc = load_ply(path)
     elif ext == ".dae":
-        raise NotImplementedError(
-            ".dae models: io_host/collada.py is not ported to "
-            "softwarerenderer_tpu_torch (ROADMAP A5d, the viewer)")
+        from softwarerenderer_tpu_torch.io_host.collada import load_dae
+        doc = load_dae(path)
     elif ext == ".fbx":
-        raise NotImplementedError(
-            ".fbx models: io_host/fbx.py is not ported to "
-            "softwarerenderer_tpu_torch (ROADMAP A5d, the viewer)")
+        from softwarerenderer_tpu_torch.io_host.fbx import load_fbx
+        doc = load_fbx(path)
     elif ext == ".3ds":
-        raise NotImplementedError(
-            ".3ds models: io_host/tds.py is not ported to "
-            "softwarerenderer_tpu_torch (ROADMAP A5d, the viewer)")
+        from softwarerenderer_tpu_torch.io_host.tds import load_3ds
+        doc = load_3ds(path)
     else:
         raise ValueError(f"unsupported model format: {ext}")
     return Model(meshes=doc["meshes"], lights=doc["lights"])

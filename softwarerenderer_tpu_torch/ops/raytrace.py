@@ -15,13 +15,16 @@ Two routes, as in JAX:
 
   * ``cluster_cap=0``, the brute route: every ray against every triangle
     through ``sim.raycast.raycast_batch``;
-  * ``cluster_cap > 0``, the bundle route: 32x32-pixel ray bundles, culled
-    against Morton clusters and swept by K4 (``ops/rt_sweep``,
-    ``csrc/rt_sweep.cu``) with ``capb=None``, which can never overflow.
-    As on JAX's Pallas route, ``cluster_cap``'s value and ``cluster_group``
-    then change nothing.  Shadow rays use the any-hit sweep, soft-shadow
-    samples stacked into the ray axis of one cast; reflections are a second
-    nearest cast.
+  * ``cluster_cap > 0``, or a non-empty tuple of caps (JAX's ladder, as
+    the viewer's ``--rt-cap 8 24`` passes it), the bundle route:
+    32x32-pixel ray bundles, culled against Morton clusters and swept by
+    K4 (``ops/rt_sweep``, ``csrc/rt_sweep.cu``) with ``capb=None``, which
+    can never overflow.  JAX sizes its pair table by ``max(cluster_cap)``
+    and falls back to a brute sweep when it overflows, exact for any cap;
+    K4 needs no table, so, as on JAX's Pallas route, ``cluster_cap``'s
+    value and ``cluster_group`` then change nothing.  Shadow rays use the
+    any-hit sweep, soft-shadow samples stacked into the ray axis of one
+    cast; reflections are a second nearest cast.
 
 Both routes shade at the cast's own Möller–Trumbore barycentrics, so the
 two give the same image (JAX's brute route re-derives them from the hit
@@ -169,11 +172,11 @@ def render_frame_raytraced(scene: Dict[str, torch.Tensor], uniforms: Dict,
     uniforms["rt_light_radius"] > 0 jitters them over a disc light (soft
     shadows) by an integer hash of the pixel.  reflections: one mirror
     bounce at the smooth normal, mixed by uniforms["rt_reflectivity"]
-    (default 0.25).  cluster_cap > 0 takes the bundle route (module
-    docstring), whose casts go through `sweep`: rt_sweep.rt_sweep (K4) by
-    default, rt_sweep.rt_sweep_plain for the same frame through the plain
-    twin.  cluster_group is accepted for JAX's callers and changes
-    nothing."""
+    (default 0.25).  cluster_cap > 0 or a non-empty tuple of caps takes
+    the bundle route (module docstring), whose casts go through `sweep`:
+    rt_sweep.rt_sweep (K4) by default, rt_sweep.rt_sweep_plain for the
+    same frame through the plain twin.  cluster_group is accepted for
+    JAX's callers and changes nothing."""
     H, W = params.height, params.width
     dev = scene["position"].device
     dirs = sky.pixel_ray_directions(uniforms, W, H, device=dev)

@@ -3,10 +3,10 @@
 The JAX package's ``utils/mathlib.py`` is written once for numpy and
 jax.numpy (its ``xp`` keyword); the port's ``utils/mathlib`` holds torch
 functions for the frame path.  The host code that the port copies from
-the JAX package (the game in ``apps/dust2``, ``io_host/ui`` and
-``io_host/gltf``) calls the numpy forms, with the JAX module's names, so
-they live here: each function is the JAX module's with ``xp=np``, the same
-float32 operations in the same order.  The constructors that the port's
+the JAX package (the game in ``apps/dust2``, the viewer, ``io_host/ui``,
+``io_host/gltf`` and ``io_host/fbx``) calls the numpy forms, with the JAX
+module's names, so they live here: each function is the JAX module's with
+``xp=np``, the same float32 operations in the same order.  The constructors that the port's
 ``utils/mathlib`` already holds in numpy are re-exported from there.
 
 Nothing here touches torch: the game's per-frame host math (mouse look,
@@ -17,9 +17,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from softwarerenderer_tpu_torch.utils import mathlib as _ml
 from softwarerenderer_tpu_torch.utils.mathlib import (  # noqa: F401
     QUAT_IDENTITY,
-    matrix_from_quaternion,
     matrix_from_yaw_pitch_roll,
     quat_from_axis_angle,
     quat_from_yaw_pitch_roll,
@@ -31,6 +31,16 @@ F32 = np.float32
 
 def _f32(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
+
+
+def matrix_from_quaternion(q, xp=np) -> np.ndarray:
+    """CreateFromQuaternion in the row-vector layout (the port's
+    ``utils.mathlib.matrix_from_quaternion``); `xp` must be numpy, the only
+    one the loaders pass."""
+    if xp is not np:
+        raise ValueError("the port's host matrix_from_quaternion runs on "
+                         "numpy only")
+    return _ml.matrix_from_quaternion(q)
 
 
 def scale(s) -> np.ndarray:

@@ -1,7 +1,8 @@
 """The port's host layer against the JAX package's: the copied modules
-(io_host/* and utils/slog, utils/appconfig) equal their sources line for
-line but for the edits listed here, and the numpy math, the glTF round
-trip and the packed scene of a loaded model equal the JAX package's."""
+(io_host/*, native/ and utils/slog, utils/appconfig) equal their sources
+line for line but for the edits listed here, and the numpy math, the glTF
+round trip, the packed scene of a loaded model and the COLLADA, FBX and
+3DS fixtures' loads equal the JAX package's."""
 
 import os
 import re
@@ -36,24 +37,51 @@ COMPOSE_TRS = ("from softwarerenderer_tpu_torch.ops.skinning import "
                "compose_trs",
                "from softwarerenderer_tpu_torch.io_host.hostops import "
                "compose_trs")
-NATIVE_BAKE = ("from softwarerenderer_tpu_torch.native import (bake_normals,\n"
-               "                                                             "
-               "bake_positions)",
-               "from softwarerenderer_tpu_torch.io_host.hostops import (\n"
-               "                        bake_normals, bake_positions)")
-
-
-def _refused(ext, module):
-    """model_loader's dispatch to a loader the port does not carry."""
-    loader = {"collada": "load_dae", "fbx": "load_fbx",
-              "tds": "load_3ds"}[module]
-    return (f"        from softwarerenderer_tpu_torch.io_host.{module} "
-            f"import {loader}\n        doc = {loader}(path)\n",
-            f"        raise NotImplementedError(\n"
-            f"            \"{ext} models: io_host/{module}.py is not ported "
-            f"to \"\n"
-            f"            \"softwarerenderer_tpu_torch (ROADMAP A5d, the "
-            f"viewer)\")\n")
+# native/: the library built into the port's own _build/ directory under a
+# name of the building process, and the bakers' fallback hostops's forms.
+NATIVE_LIBRARY = (
+    'LIBRARY = os.path.join(_DIR, "libsrt_native.so")',
+    'LIBRARY = os.path.join(os.path.dirname(_DIR), "_build", '
+    '"libsrt_native.so")')
+NATIVE_BUILD_DOC = (
+    '"""Build the native library: g++ -O3 -shared -fPIC srt_native.cpp."""',
+    '"""Build the native library: g++ -O3 -shared -fPIC srt_native.cpp, '
+    'into\nthe package\'s git-ignored _build/ directory."""')
+NATIVE_BUILD_TMP = (
+    """    cmd = [gxx, "-O3", "-std=c++17", "-shared", "-fPIC",
+           "-o", LIBRARY + ".tmp", SOURCE]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(LIBRARY + ".tmp", LIBRARY)
+        return True
+    except (subprocess.SubprocessError, OSError):
+        return False""",
+    """    # A name of this process's own, so that processes building at once
+    # never write one file; the rename into place is atomic.
+    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    cmd = [gxx, "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, SOURCE]
+    try:
+        os.makedirs(os.path.dirname(LIBRARY), exist_ok=True)
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, LIBRARY)
+        return True
+    except (subprocess.SubprocessError, OSError):
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        return False""")
+HOSTOPS_BAKERS = (
+    ("from softwarerenderer_tpu_torch.native.build import LIBRARY, build",
+     "from softwarerenderer_tpu_torch.io_host import hostops\n"
+     "from softwarerenderer_tpu_torch.native.build import LIBRARY, build"),
+    ('    """p\' = p·M in place-sized copy; falls back to NumPy."""',
+     '    """p\' = p·M in place-sized copy; falls back to NumPy (hostops\'s\n'
+     '    form, equal to the library\'s on every value)."""'),
+    ("        return (pos @ m[:3, :3] + m[3, :3]).astype(np.float32)",
+     "        return hostops.bake_positions(pos, m)"),
+    ("""        out = nrm @ m[:3, :3]
+        n = np.linalg.norm(out, axis=-1, keepdims=True)
+        return (out / np.where(n > 0, n, 1.0)).astype(np.float32)""",
+     "        return hostops.bake_normals(nrm, m)"))
 
 
 COPIES = {
@@ -63,10 +91,14 @@ COPIES = {
     "io_host/audio.py": (),
     "io_host/upnp.py": (),
     "io_host/networking.py": (),
-    "io_host/gltf.py": (HOSTMATH, COMPOSE_TRS, NATIVE_BAKE),
-    "io_host/model_loader.py": (_refused(".dae", "collada"),
-                                _refused(".fbx", "fbx"),
-                                _refused(".3ds", "tds")),
+    "io_host/gltf.py": (HOSTMATH, COMPOSE_TRS),
+    "io_host/model_loader.py": (),
+    "io_host/collada.py": (),
+    "io_host/fbx.py": (HOSTMATH, COMPOSE_TRS),
+    "io_host/tds.py": (),
+    "native/__init__.py": (),
+    "native/build.py": (NATIVE_BUILD_DOC, NATIVE_LIBRARY, NATIVE_BUILD_TMP),
+    "native/binding.py": HOSTOPS_BAKERS,
     "utils/slog.py": (),
     "utils/appconfig.py": (),
 }
@@ -96,6 +128,15 @@ def test_copy_equals_source(rel):
     assert len(got) == len(want) and not diff, diff[:5]
 
 
+def test_native_source_is_a_byte_copy():
+    """The port builds its native library from the JAX package's C++
+    source, byte for byte."""
+    with open(os.path.join(JAX_PKG, "native", "srt_native.cpp"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(PORT_PKG, "native", "srt_native.cpp"), "rb") as f:
+        assert f.read() == want
+
+
 # ---------------------------------------------------------------------------
 # Behaviour pins
 # ---------------------------------------------------------------------------
@@ -117,7 +158,7 @@ MATH_CASES = {
     "normalize": [(_V,), (np.zeros(3, F32), 1e-6)],
     "transform": [(np.concatenate([_V, np.ones((16, 1), F32)], 1), _M)],
     "transform_normal": [(_V, _M)],
-    "matrix_from_quaternion": [(_Q[0],)],
+    "matrix_from_quaternion": [(_Q[0],), (_Q[1], np)],   # fbx passes xp
     "quat_from_axis_angle": [(np.asarray([0, 1, 0], F32), np.pi)],
     "quat_from_yaw_pitch_roll": [(0.3, -1.2, 0.05)],
     "matrix_from_yaw_pitch_roll": [(-np.pi / 2, 0.0, 0.0)],
@@ -255,13 +296,15 @@ def test_model_instances_pack_as_jax(tmp_path):
 
 
 @pytest.mark.parametrize("ext", [".dae", ".fbx", ".3ds"])
-def test_unported_formats_raise(tmp_path, ext):
-    """The COLLADA, FBX and 3DS loaders are not ported (the viewer's
-    item): model_loader raises NotImplementedError naming it, and falls
-    back to nothing."""
-    path = str(tmp_path / f"model{ext}")
-    with open(path, "wb") as f:
-        f.write(b"\0" * 64)
+def test_unported_formats_raise(ext):
+    """The COLLADA, FBX and 3DS loaders, once refused with
+    NotImplementedError, now load: model_loader.load_model of the cube
+    fixture in the port equals the JAX package's load, array for array,
+    materials included."""
+    path = os.path.join(REPO, "tests", "fixtures", f"cube{ext}")
     port_loader.clear_caches()
-    with pytest.raises(NotImplementedError, match="A5d"):
-        port_loader.load_model(path)
+    jax_loader.clear_caches()
+    got = port_loader.load_model(path)
+    want = jax_loader.load_model(path)
+    assert len(want.meshes) == 1
+    assert_same(got, want, ext)
