@@ -155,7 +155,17 @@ drives the port's paths at 1080p (config 5 at 4K):
     spheres at ``--rt-cap 24`` and ``8 24`` (1 + 1 K4 a frame, 0 pixels
     off K4's twin); 'f' through the wireframe, overdraw and depth views
     of the fixtures against the CPU's; F10's GLB, ``--record``'s AVI and
-    ``python -m softwarerenderer_tpu_torch.apps.viewer`` in a subprocess.
+    ``python -m softwarerenderer_tpu_torch.apps.viewer`` in a subprocess;
+  * the rest of the JAX package's public API and its 19 demos (phase 27):
+    ``utils.profiling``'s ``timed_frames`` on the bench frame, ``hard_sync``
+    raising ``DeviceSyncTimeout`` behind a 2 s spin kernel, the watchdog
+    in a subprocess, ``trace`` holding K1 and an ``annotate`` span;
+    ``rt_accel``'s bundle counters on the ray-traced bench frame's casts
+    against the CPU and the casts' listed pairs; then every demo of
+    ``softwarerenderer_tpu_torch.examples`` on the card (multichip_render
+    a one-rank NCCL group), its launches of each kernel exactly as
+    expected, each image it writes within 0.1 % of pixels of the same
+    demo run on the CPU in a process alongside.
 
 Any failed check raises and exits non-zero.  The last three lines of
 standard output are the card's name and power limit, a JSON line with the
@@ -4977,6 +4987,402 @@ def _viewer_io(card, models, tmp, size, device) -> dict:
     return dict(entry_s=entry_s)
 
 
+# ---- phase 27: the rest of the public API, the 19 demos ---------------------
+
+API_TIMED_FRAMES = 29      # timed_frames on the bench frame, beside phase 4
+SYNC_SLEEP_S = 2.0         # the spin queued ahead of hard_sync's read
+SYNC_TIMEOUT_S = 0.5
+SYNC_RAISE_MAX_S = 1.5     # hard_sync must raise within this
+DEMO_CPU_OFF_MAX = 1e-3    # share of pixels off the CPU's by > 2 (phase 26)
+SHOWCASE_CPU_FRAMES = 4    # the CPU's showcase: the orbit's first frames
+DEMO_CPU_TIMEOUT_S = 900
+# The CPU runs, in processes beside the card's demos: (demos, torch
+# threads), None the rest.  Most demos are many small ops, fastest on one
+# thread; the ray-traced demo's twin sweeps blocks of 2^24 (bundle, ray,
+# slot) triples.
+DEMO_CPU_GROUPS = ((("raytraced",), 4), (("particle_fountain",), 1),
+                   (None, 1))
+# Each demo's kernel launches on the card, by _launch_counts' names (the
+# rest 0).  translucency_kbuffer's K2 is its live peel passes, counted on
+# the CPU run; raytraced casts through the bundle route, 2 nearest (primary,
+# reflection) and 1 any-hit (its 8 shadow samples in one cast).
+DEMO_LAUNCHES = {
+    "spinning_cube": {"K1": 8}, "custom_shader": {"K1": 1},
+    "translucency_kbuffer": {"K1": 1, "K2": None},
+    "raytraced": {"K1": 1, "K4": 3, "K4a": 1},
+    "shadowed_scene": {"K1": 1, "K5": 1},
+    "point_light_shadows": {"K1": 1, "K5": 6},
+    "pbr_materials": {"K1": 1}, "sky_environment": {"K1": 1},
+    "normal_mapping": {"K1": 2}, "mesh_lod": {"K1": 1},
+    "morph_targets": {"K1": 12}, "skeletal_animation": {"K1": 12},
+    "skinned_crowd": {"K1": 1}, "particle_fountain": {"K1": 120},
+    "ai_agents": {"K1": 1}, "render_to_texture": {"K1": 6},
+    "split_screen": {"K1": 16}, "multichip_render": {"K1m": 1},
+    "showcase": {"K1": 96}}
+
+
+def check_api_helpers(card, eng, u0, phase4_ms, device="cuda") -> dict:
+    """Phase 27a: utils.profiling's helpers and rt_accel's bundle counters
+    on the card.  timed_frames over API_TIMED_FRAMES bench frames (logged
+    beside phase 4's median); hard_sync(timeout_s=SYNC_TIMEOUT_S) on a
+    tensor queued behind a SYNC_SLEEP_S spin raises DeviceSyncTimeout
+    within SYNC_RAISE_MAX_S and the card then finishes the work; an armed
+    watchdog in a subprocess exits 42 with its dump; trace writes a Chrome
+    trace holding K1's kernel and an annotate span; bundle_pair_count and
+    bundle_survivor_count on the ray-traced bench frame's two casts equal
+    the CPU's and the casts' listed pairs (phase 11's count)."""
+    import glob
+    from softwarerenderer_tpu_torch import scenes
+    from softwarerenderer_tpu_torch.utils import profiling
+    t_phase = time.perf_counter()
+    spf = profiling.timed_frames(
+        lambda i: eng.render(scenes.camera_uniforms(eng.uniforms, i)),
+        API_TIMED_FRAMES, timeout_s=120)
+    log(f"phase 27a timed_frames: bench frame @{W}x{H}, "
+        f"{API_TIMED_FRAMES} pipelined frames between two hard syncs: "
+        f"{spf * 1e3:.3f} ms a frame (phase 4's median, each frame "
+        f"synchronised: {phase4_ms:.3f} ms) [{card}]")
+
+    # A spin kernel's cycles a second, then one of SYNC_SLEEP_S ahead of
+    # the tensor hard_sync reads.
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    end.record()
+    end.synchronize()
+    per_s = 10 ** 8 / (start.elapsed_time(end) * 1e-3)
+    x = torch.ones(1024, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(int(per_s * SYNC_SLEEP_S))
+    y = x * 2.0
+    raised = False
+    try:
+        profiling.hard_sync({"y": y}, timeout_s=SYNC_TIMEOUT_S)
+    except profiling.DeviceSyncTimeout:
+        raised = True
+    raise_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    done_s = time.perf_counter() - t0
+    value = profiling.hard_sync({"y": y}, timeout_s=10)
+    log(f"phase 27a hard_sync(timeout_s={SYNC_TIMEOUT_S}) behind a "
+        f"{SYNC_SLEEP_S} s spin: DeviceSyncTimeout raised {raised} after "
+        f"{raise_s:.3f} s; the card finished the queue at {done_s:.3f} s; "
+        f"the probe then {value} (2048 expected) [{card}]")
+    check(raised and raise_s < SYNC_RAISE_MAX_S,
+          f"hard_sync raised {raised} after {raise_s:.3f} s")
+    check(done_s > SYNC_SLEEP_S * 0.5 and value == 2048.0,
+          f"after the timeout: {done_s:.3f} s, probe {value}")
+
+    code = ("import time\nfrom softwarerenderer_tpu_torch.utils import "
+            "profiling\nprofiling.arm_watchdog('smoke stage', 0.5)\n"
+            "time.sleep(60)\n")
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    log(f"phase 27a watchdog in a subprocess: exit {out.returncode} after "
+        f"{time.perf_counter() - t:.1f} s, "
+        f"{out.stderr.count(chr(10))} lines of thread dump on stderr")
+    check(out.returncode == 42
+          and "[watchdog] stage 'smoke stage'" in out.stderr,
+          f"watchdog: exit {out.returncode}, stderr {out.stderr[-400:]}")
+
+    with tempfile.TemporaryDirectory(prefix="trace_") as tmp:
+        with profiling.trace(tmp) as d:
+            for _ in range(5):
+                with profiling.annotate("smoke.api_trace"):
+                    eng.render(u0)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(d, "*.json"))
+        check(len(files) == 1, f"trace wrote {files}")
+        with open(files[0]) as f:
+            names = [e.get("name", "") for e in
+                     json.load(f).get("traceEvents", [])]
+    k1_events = sum("tile_raster_kernel" in n for n in names)
+    spans = names.count("smoke.api_trace")
+    log(f"phase 27a trace: {len(names)} events, {k1_events} of K1 "
+        f"(tile_raster_kernel), {spans} 'smoke.api_trace' spans")
+    check(k1_events > 0 and spans > 0,
+          f"trace: K1 events {k1_events}, spans {spans}")
+
+    out = check_bundle_counters(card, device)
+    out.update(timed_ms=spf * 1e3, sync_raise_s=raise_s)
+    log(f"phase 27a took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def check_bundle_counters(card, device="cuda", size=(W, H)) -> dict:
+    """Phase 27a's bundle counters: the ray-traced bench frame (cluster_cap
+    RT_CAP) with its two casts captured; on each cast's bundles
+    bundle_pair_count equals the CPU's and the cast's listed pairs
+    (phase 11's count), and bundle_survivor_count of every bundle equals
+    the CPU's."""
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import Engine
+    from softwarerenderer_tpu_torch.ops import rt_accel, rt_sweep
+    from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
+    w, h = size
+    params = RenderParams(w, h)
+    eng = Engine(scenes.bench_scene(), params, device=device)
+    u = scenes.camera_uniforms(eng.uniforms, 0)
+    casts = []
+    cast_fns = {"primary": rt_sweep.raycast_bundles_nearest,
+                "shadow": rt_sweep.raycast_bundles_any}
+
+    def capturing(name):
+        def cast(o, d, world, accel, **kw):
+            res = cast_fns[name](o, d, world, accel, **kw)
+            casts.append((name, o, d, world, accel, kw.get("tri_mask"),
+                          int(res["n_pairs"])))
+            return res
+        return cast
+
+    rt_sweep.raycast_bundles_nearest = capturing("primary")
+    rt_sweep.raycast_bundles_any = capturing("shadow")
+    try:
+        render_frame_raytraced(eng.scene, u, params, cluster_cap=RT_CAP)
+    finally:
+        rt_sweep.raycast_bundles_nearest = cast_fns["primary"]
+        rt_sweep.raycast_bundles_any = cast_fns["shadow"]
+    check([c[0] for c in casts] == ["primary", "shadow"],
+          f"casts {[c[0] for c in casts]}")
+
+    def cpu(tree):
+        return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                for k, v in tree.items()}
+
+    out = {}
+    for name, o, d, world, accel, tm, listed in casts:
+        cworld, caccel = cpu(world), cpu(accel)
+        ctm = None if tm is None else tm.cpu()
+        got = int(rt_accel.bundle_pair_count(o, d, world, accel, tm))
+        want = int(rt_accel.bundle_pair_count(o.cpu(), d.cpu(), cworld,
+                                              caccel, ctm))
+        t = time.perf_counter()
+        per = [int(rt_accel.bundle_survivor_count(o[b], d[b], world, accel,
+                                                  tm))
+               for b in range(o.shape[0])]
+        per_s = time.perf_counter() - t
+        cper = [int(rt_accel.bundle_survivor_count(
+            o[b].cpu(), d[b].cpu(), cworld, caccel, ctm))
+            for b in range(o.shape[0])]
+        n_off = sum(a != b for a, b in zip(per, cper))
+        log(f"phase 27a bundle counters, ray-traced bench frame @{w}x{h} "
+            f"{name} cast ({o.shape[0]} bundles x {o.shape[1]} rays, "
+            f"{caccel['n_clusters']} clusters of {caccel['group']}): "
+            f"bundle_pair_count {got} on the card, {want} on the CPU, the "
+            f"cast listed {listed}; bundle_survivor_count over the bundles "
+            f"{sum(per)} (max {max(per)}), {n_off} bundles off the CPU's, "
+            f"{per_s * 1e3 / len(per):.3f} ms a call [{card}]")
+        check(got == want == listed, f"{name}: pairs {got}, CPU {want}, "
+              f"listed {listed}")
+        check(per == cper and sum(per) == got,
+              f"{name}: survivors differ from the CPU's or the pairs")
+        out[name] = {"pairs": got, "max_survivors": max(per)}
+    return out
+
+
+def _demo_kwargs(mod, out_dir: str) -> dict:
+    """main's keyword arguments that write a demo's outputs into out_dir
+    under their default basenames; a module-level OUT (a path the JAX demo
+    hard-codes) is pointed there too."""
+    import inspect
+    kw = {}
+    for name, p in inspect.signature(mod.main).parameters.items():
+        if name in ("out", "out_dir") and isinstance(p.default, str):
+            kw[name] = os.path.join(out_dir,
+                                    os.path.basename(p.default.rstrip("/")))
+    if hasattr(mod, "OUT"):
+        mod.OUT = os.path.join(out_dir, os.path.basename(mod.OUT))
+    return kw
+
+
+def _demo_images(name: str, out_dir: str, frames=None) -> dict:
+    """The images a demo wrote under out_dir, by relative path (an AVI's
+    first `frames` frames as path#i)."""
+    from PIL import Image
+    from softwarerenderer_tpu_torch.utils.video import read_avi
+    out = {}
+    for root, _, files in os.walk(out_dir):
+        for f in sorted(files):
+            path = os.path.join(root, f)
+            rel = os.path.relpath(path, out_dir)
+            if f.endswith(".png"):
+                with Image.open(path) as im:
+                    out[rel] = np.asarray(im)
+            elif f.endswith(".avi"):
+                clip, _fps = read_avi(path)
+                for i, fr in enumerate(clip[:frames]):
+                    out[f"{rel}#{i}"] = fr
+    return out
+
+
+def cpu_demo_runs(out_dir: str, names: list, threads: int) -> None:
+    """Phase 27b's CPU half, run in processes of their own beside the
+    card's demos: the demos `names` with device="cpu" into out_dir/<name>
+    on `threads` torch threads, showcase's first SHOWCASE_CPU_FRAMES
+    frames of its orbit, each timed, with the kernels' wrappers counted
+    (K1, K2 and their mapped forms, K4 and its any-hit casts; on the CPU
+    they run the plain twins), into out_dir/<first name>.json."""
+    import importlib
+    import itertools
+    from PIL import Image
+    from softwarerenderer_tpu_torch.ops import rt_sweep, tile_raster
+    torch.set_num_threads(threads)
+    fold, sweep = tile_raster.tile_fold, rt_sweep.rt_sweep
+    counts = {}
+
+    def counted_fold(*a, **k):
+        key = ("K2" if k.get("prev_i") is not None else "K1") \
+            + ("m" if k.get("origin") is not None else "")
+        counts[key] = counts.get(key, 0) + 1
+        return fold(*a, **k)
+
+    def counted_sweep(*a, **k):
+        counts["K4"] = counts.get("K4", 0) + 1
+        if k.get("any_hit"):
+            counts["K4a"] = counts.get("K4a", 0) + 1
+        return sweep(*a, **k)
+
+    tile_raster.tile_fold, rt_sweep.rt_sweep = counted_fold, counted_sweep
+    results = {}
+    for name in names:
+        d = os.path.join(out_dir, name)
+        os.makedirs(d)
+        os.chdir(d)
+        mod = importlib.import_module(
+            f"softwarerenderer_tpu_torch.examples.{name}")
+        counts.clear()
+        t = time.perf_counter()
+        if name == "showcase":
+            for i, rgb in enumerate(itertools.islice(
+                    mod.orbit_frames(device="cpu"), SHOWCASE_CPU_FRAMES)):
+                Image.fromarray(rgb).save(
+                    os.path.join(d, f"showcase.avi#{i}.png"))
+        else:
+            mod.main(device="cpu", **_demo_kwargs(mod, d))
+        results[name] = {"s": time.perf_counter() - t, "folds": dict(counts),
+                         "threads": threads}
+        print(f"cpu {name} {results[name]}", flush=True)
+    os.chdir(out_dir)
+    with open(os.path.join(out_dir, f"{names[0]}.json"), "w") as f:
+        json.dump(results, f)
+
+
+def check_demos(card, device="cuda") -> dict:
+    """Phase 27b: each of the 19 demos (softwarerenderer_tpu_torch.examples)
+    on the card, in this process, into a temporary directory (also the
+    working directory: two write relative paths), multichip_render as a
+    one-rank NCCL group: seconds, every kernel's launches (exactly
+    DEMO_LAUNCHES, no plain twin on the card path), the files and their
+    sizes.  Meanwhile cpu_demo_runs runs them all with device="cpu" in
+    processes of their own (DEMO_CPU_GROUPS); each image the card wrote
+    is then held against the CPU's: at most DEMO_CPU_OFF_MAX of its pixels
+    off by more than 2 (showcase: the AVI's first SHOWCASE_CPU_FRAMES
+    frames against the CPU's first frames of the same orbit)."""
+    import importlib
+    from softwarerenderer_tpu_torch.examples import DEMOS
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    out = {}
+    named = [n for group, _ in DEMO_CPU_GROUPS if group for n in group]
+    groups = [(list(g) if g else [n for n in DEMOS if n not in named], k)
+              for g, k in DEMO_CPU_GROUPS]
+    with tempfile.TemporaryDirectory(prefix="demos_") as tmp:
+        cpu_dir, card_dir = os.path.join(tmp, "cpu"), os.path.join(tmp, "card")
+        os.makedirs(cpu_dir)
+        cpu_log = open(os.path.join(tmp, "cpu.log"), "w")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.cpu_demo_runs({cpu_dir!r}, {names!r}, {k})"],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            stdout=cpu_log, stderr=subprocess.STDOUT)
+            for names, k in groups]
+        try:
+            for name in DEMOS:
+                d = os.path.join(card_dir, name)
+                os.makedirs(d)
+                os.chdir(d)
+                mod = importlib.import_module(
+                    f"softwarerenderer_tpu_torch.examples.{name}")
+                _zero_counts()
+                t = time.perf_counter()
+                mod.main(device=device, **_demo_kwargs(mod, d))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                counts = {k: v for k, v in _launch_counts().items() if v}
+                files = {os.path.relpath(os.path.join(r, f), d):
+                         os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(d) for f in fs}
+                out[name] = {"s": secs, "launches": counts, "files": files}
+            os.chdir(cwd)
+            card_s = time.perf_counter() - t_phase
+            rcs = [p.wait(timeout=DEMO_CPU_TIMEOUT_S) for p in procs]
+        finally:
+            os.chdir(cwd)
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            cpu_log.close()
+        with open(os.path.join(tmp, "cpu.log")) as f:
+            cpu_text = f.read()
+        check(rcs == [0] * len(procs), f"the CPU demos' processes exited "
+              f"{rcs}: {cpu_text[-2000:]}")
+        cpu = {}
+        for names, _ in groups:
+            with open(os.path.join(cpu_dir, f"{names[0]}.json")) as f:
+                cpu.update(json.load(f))
+        for name in DEMOS:
+            res = out[name]
+            want = dict(DEMO_LAUNCHES[name])
+            if want.get("K2", 0) is None:
+                want["K2"] = cpu[name]["folds"].get("K2", 0)
+            folds = cpu[name]["folds"]
+            card_imgs = _demo_images(name, os.path.join(card_dir, name),
+                                     SHOWCASE_CPU_FRAMES)
+            cpu_imgs = {k[:-len(".png")] if "#" in k else k: v
+                        for k, v in _demo_images(
+                            name, os.path.join(cpu_dir, name)).items()}
+            check(sorted(card_imgs) == sorted(cpu_imgs),
+                  f"{name}: the card wrote {sorted(card_imgs)}, the CPU "
+                  f"{sorted(cpu_imgs)}")
+            if name != "showcase":      # the CPU's showcase is 4 frames
+                check(folds == {k: v for k, v in want.items() if k != "K5"},
+                      f"{name}: the CPU run's wrappers {folds}, expected "
+                      f"{want}")
+            offs = {}
+            for rel, img in cpu_imgs.items():
+                got = card_imgs.get(rel)
+                check(got is not None and got.shape == img.shape,
+                      f"{name}: the card wrote no {rel} like the CPU's")
+                offs[rel] = _rgb_off(got, img, 2) / (img.shape[0]
+                                                     * img.shape[1])
+            worst = max(offs.values())
+            res.update(cpu_s=cpu[name]["s"], worst_off=worst)
+            log(f"phase 27b demo {name}: card {res['s']:.2f} s, launches "
+                f"{res['launches']} (expected {want}; CPU run's wrappers "
+                f"{folds}), wrote "
+                + ", ".join(f"{k} ({v} B)" for k, v in
+                            sorted(res["files"].items()))
+                + f"; CPU run {cpu[name]['s']:.1f} s on "
+                f"{cpu[name]['threads']} threads, {len(offs)} images "
+                f"compared, worst {worst:.2e} of pixels off by > 2 [{card}]")
+            check(res["launches"] == want,
+                  f"{name}: launches {res['launches']}, expected {want}")
+            check(worst <= DEMO_CPU_OFF_MAX,
+                  f"{name}: {worst:.2e} of pixels off the CPU's by > 2")
+            check(all(v > 0 for v in res["files"].values()),
+                  f"{name}: an empty file")
+    log(f"phase 27b: the card's demos {card_s:.1f} s, the CPU's beside "
+        f"them {sum(c['s'] for c in cpu.values()):.1f} s in "
+        f"{len(groups)} processes; phase 27b took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def build_kernels() -> None:
     """Phase 2: build every kernel from the checkout's sources and print
     what ptxas says of each."""
@@ -5251,6 +5657,12 @@ def main() -> int:
 
     # ---- phase 26: the model viewer --------------------------------------
     check_viewer(card)
+
+    # ---- phase 27: the rest of the public API, the 19 demos ---------------
+    t27 = time.perf_counter()
+    check_api_helpers(card, eng, u0, steady)
+    check_demos(card)
+    log(f"phase 27 took {time.perf_counter() - t27:.1f} s")
     log(f"profiler: {TRACES['retaken']} of device_ms's {TRACES['taken']} "
         f"traces were taken again for a lost launch record")
 

@@ -712,7 +712,8 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
         stats = {"live_pairs": live, "live_globals": live_glob,
                  **f["overflow"]}
         if params.pair_cap:
-            stats["pair_cap_overflow"] = (live - params.pair_cap).clamp(min=0)
+            stats["pair_cap_overflow"] = binning.pair_cap_overflow(
+                f["tris"], params)
         if params.global_cap:
             stats["global_cap_overflow"] = (live_glob - max(
                 params.global_cap, tile_raster.GLOB_RESIDENT)).clamp(min=0)

@@ -1,1 +1,2 @@
 """Packed scene -> device tensors."""
+from softwarerenderer_tpu_torch.models import primitives, scene  # noqa: F401

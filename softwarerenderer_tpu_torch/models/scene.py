@@ -11,8 +11,8 @@ Copied from softwarerenderer_tpu/models/scene.py (numpy only) so that the
 port imports nothing of the JAX package; tests/test_torch_package.py holds
 build_scene_buffers equal to the source key for key, dtype for dtype and
 bit for bit, skins, normal maps, particle slots, morph targets and LOD
-levels included.  Left out: the Camera class (the port's engine takes
-camera uniforms).
+levels included.  Camera's methods run on numpy through the port's
+host math (utils/hostmath), in the JAX class's float32 operation order.
 """
 
 from __future__ import annotations
@@ -22,8 +22,44 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from softwarerenderer_tpu_torch.utils import hostmath as hm
 
 F32 = np.float32
+
+
+# ---------------------------------------------------------------------------
+# Camera (Camera.cs)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Camera:
+    """Position + quaternion camera (Camera.cs:6-27)."""
+
+    position: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(3, dtype=F32))
+    rotation: np.ndarray = dataclasses.field(
+        default_factory=lambda: hm.QUAT_IDENTITY.copy())
+    sensitivity: float = 0.1
+
+    def _rotated(self, axis) -> np.ndarray:
+        return hm.quat_rotate(np.asarray(axis, dtype=F32),
+                              np.asarray(self.rotation, dtype=F32))
+
+    def front(self) -> np.ndarray:
+        return self._rotated([0, 0, -1])
+
+    def right(self) -> np.ndarray:
+        return self._rotated([1, 0, 0])
+
+    def up(self) -> np.ndarray:
+        return self._rotated([0, 1, 0])
+
+    def view_matrix(self) -> np.ndarray:
+        pos = np.asarray(self.position, dtype=F32)
+        return hm.look_at(pos, pos + self.front(), self.up())
+
+    def euler_degrees(self) -> np.ndarray:
+        return hm.quat_to_euler_degrees(self.rotation)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,8 @@ The sort key is tile << tri_bits | tri in int64: torch on the CPU has no
 ``>>`` for uint32, and 64 bits never overflow where the JAX package needs a
 two-key sort.  With ``params.pair_cap`` the live pairs are compacted to
 that many before the sort, as JAX's are; ``live_pair_count`` and
-``global_count`` count what pair_cap and global_cap truncate.
+``global_count`` count what pair_cap and global_cap truncate, and
+``pair_cap_overflow`` what pair_cap drops.
 
 ``visibility_binned`` folds every tile's globals and segment under any
 monotone depth test (ops.raster's keys) for the contiguous band of rows at
@@ -34,7 +35,7 @@ ops.raster.render_deferred cover its frame.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -131,10 +132,14 @@ def bin_triangles(tris: Dict, params: RenderParams, tile_h: int,
     }
 
 
-def _tile_spans(tris: Dict, params: RenderParams, row_offset: int = 0):
-    """(tile span, validity) of each slot at params' tiling: the bbox
-    arithmetic of bin_triangles without the pair table."""
-    H, th, tw = params.height, params.tile_h, params.tile_w
+def _tile_spans(tris: Dict, params: RenderParams, row_offset: int = 0,
+                tile_h: Optional[int] = None, tile_w: Optional[int] = None):
+    """(tile span, validity) of each slot at params' tiling (tile_h and
+    tile_w, where given, replace params'): the bbox arithmetic of
+    bin_triangles without the pair table."""
+    H = params.height
+    th = params.tile_h if tile_h is None else tile_h
+    tw = params.tile_w if tile_w is None else tile_w
     bbox = tris["bbox"].long()
     by0, by1 = bbox[:, 1] - row_offset, bbox[:, 3] - row_offset
     valid = tris["valid"] & (by1 >= 0) & (by0 <= H - 1)
@@ -144,22 +149,42 @@ def _tile_spans(tris: Dict, params: RenderParams, row_offset: int = 0):
 
 
 def live_pair_count(tris: Dict, params: RenderParams,
+                    tile_h: Optional[int] = None,
+                    tile_w: Optional[int] = None,
+                    span_cap: Optional[int] = None,
                     row_offset: int = 0) -> torch.Tensor:
     """The live (tile, triangle) pairs binning emits at params' tiling and
-    span_cap, the quantity params.pair_cap truncates, as a 0-d int32
-    device tensor (the JAX function's, at its default tiling)."""
-    span, valid = _tile_spans(tris, params, row_offset)
-    return torch.where(valid & (span <= params.span_cap), span, 0).sum(
+    span_cap (each replaced by the argument where given), the quantity
+    params.pair_cap truncates, as a 0-d int32 device tensor."""
+    span, valid = _tile_spans(tris, params, row_offset, tile_h, tile_w)
+    span_cap = params.span_cap if span_cap is None else span_cap
+    return torch.where(valid & (span <= span_cap), span, 0).sum(
         dtype=torch.int32)
 
 
 def global_count(tris: Dict, params: RenderParams,
+                 tile_h: Optional[int] = None, tile_w: Optional[int] = None,
+                 span_cap: Optional[int] = None,
                  row_offset: int = 0) -> torch.Tensor:
-    """The global (span > span_cap) triangles at params' tiling, the
-    quantity params.global_cap truncates, as a 0-d int32 device
-    tensor."""
-    span, valid = _tile_spans(tris, params, row_offset)
-    return (valid & (span > params.span_cap)).sum(dtype=torch.int32)
+    """The global (span > span_cap) triangles at params' tiling (as
+    live_pair_count), the quantity params.global_cap truncates, as a 0-d
+    int32 device tensor."""
+    span, valid = _tile_spans(tris, params, row_offset, tile_h, tile_w)
+    span_cap = params.span_cap if span_cap is None else span_cap
+    return (valid & (span > span_cap)).sum(dtype=torch.int32)
+
+
+def pair_cap_overflow(tris: Dict, params: RenderParams,
+                      tile_h: Optional[int] = None,
+                      tile_w: Optional[int] = None,
+                      span_cap: Optional[int] = None,
+                      row_offset: int = 0) -> torch.Tensor:
+    """The live (tile, triangle) pairs params.pair_cap drops this frame
+    (0: the frame is exact), max(0, live - pair_cap), as a 0-d int32
+    device tensor; the tiling arguments as live_pair_count's."""
+    live = live_pair_count(tris, params, tile_h, tile_w, span_cap,
+                           row_offset)
+    return (live - params.pair_cap).clamp(min=0)
 
 
 def bin_tiles(tris: Dict, params: RenderParams, tile_h: int, tile_w: int,

@@ -9,16 +9,19 @@ the bundle sweep (``ops/rt_sweep.py``) runs on:
     AABB per cluster;
   * ``_bundles_alive_entry``: per bundle of rays, which clusters any ray of
     the bundle could reach (an interval slab test against the bundle's
-    origin and direction AABBs) and the earliest time it could enter each.
+    origin and direction AABBs) and the earliest time it could enter each;
+  * ``bundle_pair_count`` and ``bundle_survivor_count``, the diagnostics
+    that size a cluster cap (``render_frame_raytraced``'s
+    ``cluster_cap``): the live (bundle, cluster) pairs of a batch of
+    bundles, and the clusters one bundle keeps alive.
 
 JAX's ``_mt_block`` (Möller–Trumbore over broadcastable blocks) is
-``sim.raycast.mt_block`` here, shared with ``raycast_batch``.
-
-JAX's XLA pair sweep (``_pair_table``, ``_pair_sweep``,
-``raycast_bundles_nearest/any``) and the per-chunk cap ladder
-(``raycast_bundle_culled``) are not ported: they are JAX's route where
-Pallas cannot run, and here the sweep kernel's plain twin takes that place
-on the CPU.
+``sim.raycast.mt_block`` here, shared with ``raycast_batch``, and its
+``raycast_bundles_nearest/any`` are ``ops/rt_sweep.py``'s, over the sweep
+kernel.  JAX's XLA pair sweep (``_pair_table``, ``_pair_sweep``) and the
+per-chunk cap ladder (``raycast_bundle_culled``) are not ported: they are
+JAX's route where Pallas cannot run, and here the sweep kernel's plain
+twin takes that place on the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Dict
 import torch
 
 from softwarerenderer_tpu_torch.sim.raycast import BIG
+from softwarerenderer_tpu_torch.utils import mathlib as ml
 
 F32 = torch.float32
 I32 = torch.int32
@@ -132,3 +136,37 @@ def _bundles_alive_entry(origins, directions, accel: Dict, slot_mask):
     alive = t0 <= t1
     nonempty = slot_mask.reshape(accel["n_clusters"], accel["group"]).any(1)
     return alive & nonempty[None, :], t0
+
+
+def _slot_mask(accel: Dict, tri_mask) -> torch.Tensor:
+    """accel's pad mask, narrowed to the triangles tri_mask keeps."""
+    if tri_mask is None:
+        return accel["slot_ok"]
+    keep = torch.as_tensor(tri_mask, device=accel["perm"].device)
+    return accel["slot_ok"] & keep.to(torch.bool)[accel["perm"].long()]
+
+
+def bundle_pair_count(origins, directions, world: Dict, accel: Dict,
+                      tri_mask=None) -> torch.Tensor:
+    """Diagnostic: the live (bundle, cluster) pairs of a (B, R, 3) bundle
+    batch (tensors or host arrays), a 0-d int32 tensor on accel's device:
+    size a cluster cap from this, the
+    way active_cap sizes from active_cap_stats.  Directions are
+    normalized first (ml.safe_normalize), as the sweep's are; with
+    tri_mask a cluster none of whose slots it keeps is dead."""
+    dev = accel["cl_lo"].device
+    o = torch.as_tensor(origins, dtype=F32, device=dev)
+    d = ml.safe_normalize(torch.as_tensor(directions, dtype=F32, device=dev))
+    alive, _t0 = _bundles_alive_entry(o, d, accel, _slot_mask(accel, tri_mask))
+    return alive.sum(dtype=I32)
+
+
+def bundle_survivor_count(origins, directions, world: Dict, accel: Dict,
+                          tri_mask=None) -> torch.Tensor:
+    """Diagnostic: how many clusters one bundle of (R, 3) rays keeps alive,
+    a 0-d int32 tensor on accel's device; directions and tri_mask as
+    bundle_pair_count's (without tri_mask no cluster is dead for want of
+    slots: the padding fills less than one cluster)."""
+    return bundle_pair_count(torch.as_tensor(origins)[None],
+                             torch.as_tensor(directions)[None], world, accel,
+                             tri_mask)

@@ -292,13 +292,6 @@ def rt_sweep_plain(rays, stream, lists, counts, t0q, *, any_hit: bool,
     return out_t, out_g
 
 
-def _masks(accel: Dict, tri_mask):
-    slot_mask = accel["slot_ok"]
-    if tri_mask is not None:
-        slot_mask = slot_mask & tri_mask.to(torch.bool)[accel["perm"].long()]
-    return slot_mask
-
-
 def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
                             *, capb=None, face_mask: int = FACE_MASK_NONE,
                             tri_mask=None, sweep: Optional[Callable] = None):
@@ -308,7 +301,7 @@ def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
     pairs, a device int) and "overflow" (a device bool).  sweep: the sweep
     to run, rt_sweep by default; rt_sweep_plain casts through the twin."""
     sweep = sweep or rt_sweep
-    slot_mask = _masks(accel, tri_mask)
+    slot_mask = rt_accel._slot_mask(accel, tri_mask)
     with record_function("rt.prep"):
         (o, d, rays, stream, lists, counts, t0q,
          overflow) = _prep(origins, directions, accel, slot_mask, capb)
@@ -356,7 +349,7 @@ def raycast_bundles_any(origins, directions, world: Dict, accel: Dict,
     "overflow"}, "hit" equal to raycast_batch's; sweep as in
     raycast_bundles_nearest."""
     sweep = sweep or rt_sweep
-    slot_mask = _masks(accel, tri_mask)
+    slot_mask = rt_accel._slot_mask(accel, tri_mask)
     with record_function("rt.prep"):
         (o, d, rays, stream, lists, counts, t0q,
          overflow) = _prep(origins, directions, accel, slot_mask, capb)

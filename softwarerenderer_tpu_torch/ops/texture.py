@@ -1,7 +1,7 @@
 """Atlas sampling: nearest/repeat (Texture.cs:42-63) and bilinear.
 
 Counterpart of ``_wrap_uv``, ``unpack_rgba8``, ``sample_nearest``,
-``sample_atlas_region`` and the bilinear samplers
+``sample_atlas_region``, ``sample_atlas_nearest`` and the bilinear samplers
 (``sample_atlas_region_bilinear``, ``sample_atlas_bilinear``,
 ``sample_bilinear``) in ``softwarerenderer_tpu/ops/texture.py``: u =
 frac(u) (+1 if negative), x = int(u·w) mod w, inside a per-pixel atlas
@@ -64,6 +64,22 @@ def sample_atlas_region(atlas: torch.Tensor, oy, ox, h, w,
     x = torch.remainder((st[..., 0] * w.to(torch.float32)).to(torch.int32), w)
     y = torch.remainder((st[..., 1] * h.to(torch.float32)).to(torch.int32), h)
     return atlas_fetch(atlas, (oy + y) * aw + (ox + x))
+
+
+def sample_atlas_nearest(atlas: torch.Tensor, offsets: torch.Tensor,
+                         sizes: torch.Tensor, tex_id: torch.Tensor,
+                         uv: torch.Tensor) -> torch.Tensor:
+    """Nearest/repeat sample inside texture `tex_id`'s atlas region, looked
+    up in the (N, 2) int32 offsets (y, x) and sizes (h, w) tables: the
+    integer semantics of sample_nearest (Texture.cs:42-63) within the
+    region.  atlas: (AH, AW, 4) RGBA8 or float32; tex_id (...,) int32; uv
+    (..., 2).  The JAX package looks the region up by a one-hot matmul on
+    its device, in float32, exact for these integers; here it is an
+    index."""
+    tid = tex_id.long().clamp(0, offsets.shape[0] - 1)
+    off, size = offsets[tid].to(torch.int32), sizes[tid].to(torch.int32)
+    return sample_atlas_region(atlas, off[..., 0], off[..., 1],
+                               size[..., 0], size[..., 1], uv)
 
 
 def atlas_fetch(atlas: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -17,16 +17,42 @@ payload), ``tri_extras`` (the per-triangle channels it reads, in
 ``frag["tri"]``) and ``alpha_sources`` (where its alpha comes from, which
 lets the K-buffer stop peeling behind opaque winners).  A shader without a
 registry gets everything and never short-circuits.
+
+``make_vertex_input`` assembles a vertex-attribute dict on the host (numpy
+float32, the JAX function's numpy path) with the reference's defaults.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from softwarerenderer_tpu_torch.ops import texture as tex_ops
 from softwarerenderer_tpu_torch.utils import mathlib as ml
+
+VARYING_KEYS = ("clip_position", "color", "uv", "normal")
+
+
+def make_vertex_input(position, uv=None, normal=None, color=None) -> Dict:
+    """Assemble the vertex-attribute dict with reference defaults
+    (white vertex color, zero normal/uv when absent — ModelLoader.cs:188-194)
+    as numpy float32 arrays."""
+    position = np.asarray(position, dtype=np.float32)
+    n = position.shape[:-1]
+    if uv is None:
+        uv = np.zeros(n + (2,), dtype=np.float32)
+    if normal is None:
+        normal = np.zeros(n + (3,), dtype=np.float32)
+    if color is None:
+        color = np.ones(n + (4,), dtype=np.float32)
+    return {
+        "position": position,
+        "uv": np.asarray(uv, dtype=np.float32),
+        "normal": np.asarray(normal, dtype=np.float32),
+        "color": np.asarray(color, dtype=np.float32),
+    }
 
 
 def default_vertex_shader(vin: Dict, uniforms: Dict) -> Dict:

@@ -4,7 +4,8 @@ The JAX package's ``utils/mathlib.py`` is written once for numpy and
 jax.numpy (its ``xp`` keyword); the port's ``utils/mathlib`` holds torch
 functions for the frame path.  The host code that the port copies from
 the JAX package (the game in ``apps/dust2``, the viewer, ``io_host/ui``,
-``io_host/gltf`` and ``io_host/fbx``) calls the numpy forms, with the JAX
+``io_host/gltf`` and ``io_host/fbx``, and ``models.scene.Camera``) calls
+the numpy forms, with the JAX
 module's names, so they live here: each function is the JAX module's with
 ``xp=np``, the same float32 operations in the same order.  The constructors that the port's
 ``utils/mathlib`` already holds in numpy are re-exported from there.
@@ -23,6 +24,7 @@ from softwarerenderer_tpu_torch.utils.mathlib import (  # noqa: F401
     matrix_from_yaw_pitch_roll,
     quat_from_axis_angle,
     quat_from_yaw_pitch_roll,
+    scale,
     translation,
 )
 
@@ -41,14 +43,6 @@ def matrix_from_quaternion(q, xp=np) -> np.ndarray:
         raise ValueError("the port's host matrix_from_quaternion runs on "
                          "numpy only")
     return _ml.matrix_from_quaternion(q)
-
-
-def scale(s) -> np.ndarray:
-    """CreateScale: uniform or (sx, sy, sz)."""
-    s = np.broadcast_to(_f32(s), (3,))
-    m = np.zeros((4, 4), dtype=np.float32)
-    m[0, 0], m[1, 1], m[2, 2], m[3, 3] = s[0], s[1], s[2], F32(1)
-    return m
 
 
 def dot(a, b) -> np.ndarray:
@@ -75,6 +69,23 @@ def normalize(v, eps=0.0) -> np.ndarray:
     if eps:
         n = np.where(n < eps, np.ones_like(n), n)
     return v / n[..., None]
+
+
+def look_at(eye, target, up) -> np.ndarray:
+    """Matrix4x4.CreateLookAt (right-handed): zaxis = normalize(eye-target)."""
+    eye = _f32(eye)
+    zaxis = normalize(eye - _f32(target))
+    xaxis = normalize(cross(up, zaxis))
+    yaxis = cross(zaxis, xaxis)
+    neg = np.stack([-dot(xaxis, eye), -dot(yaxis, eye), -dot(zaxis, eye)])
+    one = np.ones((), dtype=np.float32)
+    zero = np.zeros((), dtype=np.float32)
+    return np.stack([
+        np.stack([xaxis[0], yaxis[0], zaxis[0], zero]),
+        np.stack([xaxis[1], yaxis[1], zaxis[1], zero]),
+        np.stack([xaxis[2], yaxis[2], zaxis[2], zero]),
+        np.stack([neg[0], neg[1], neg[2], one]),
+    ])
 
 
 def transform(v, m) -> np.ndarray:

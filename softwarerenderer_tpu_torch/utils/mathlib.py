@@ -10,9 +10,12 @@ port uses, in two parts:
     the last rounding wherever neither side contracts a multiply-add.  They
     run on whatever device their tensor arguments live on.
   * numpy host constructors for building scenes and cameras
-    (``translation``, ``matrix_from_quaternion``,
+    (``identity``, ``scale``, ``translation``, ``matrix_from_quaternion``,
     ``matrix_from_yaw_pitch_roll``, ``quat_from_yaw_pitch_roll``,
-    ``QUAT_IDENTITY``), copied from the JAX module's numpy path.
+    ``quat_conjugate``, ``QUAT_IDENTITY``), copied from the JAX module's
+    numpy path.  Its other host math (``quat_mul``, ``quat_slerp``,
+    ``quat_to_euler_degrees``, the numpy ``look_at`` ...) is in
+    ``utils/hostmath``.
 
 Matrices transform ROW vectors: ``transform(v, M) == v @ M``.
 """
@@ -232,6 +235,18 @@ def invert(m: torch.Tensor):
 QUAT_IDENTITY = np.array([0.0, 0.0, 0.0, 1.0], dtype=np.float32)
 
 
+def identity() -> np.ndarray:
+    return np.eye(4, dtype=np.float32)
+
+
+def scale(s) -> np.ndarray:
+    """CreateScale: uniform or (sx, sy, sz)."""
+    s = np.broadcast_to(np.asarray(s, dtype=np.float32), (3,))
+    m = np.zeros((4, 4), dtype=np.float32)
+    m[0, 0], m[1, 1], m[2, 2], m[3, 3] = s[0], s[1], s[2], np.float32(1)
+    return m
+
+
 def translation(t) -> np.ndarray:
     """CreateTranslation: translation lives in the last row (row-vector)."""
     m = np.eye(4, dtype=np.float32)
@@ -286,3 +301,8 @@ def quat_from_yaw_pitch_roll(yaw, pitch, roll) -> np.ndarray:
 def matrix_from_yaw_pitch_roll(yaw, pitch, roll) -> np.ndarray:
     """CreateFromYawPitchRoll = CreateFromQuaternion(quat_from_yaw_pitch_roll)."""
     return matrix_from_quaternion(quat_from_yaw_pitch_roll(yaw, pitch, roll))
+
+
+def quat_conjugate(q) -> np.ndarray:
+    q = np.asarray(q, dtype=np.float32)
+    return np.stack([-q[..., 0], -q[..., 1], -q[..., 2], q[..., 3]], axis=-1)

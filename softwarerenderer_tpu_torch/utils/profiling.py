@@ -63,7 +63,13 @@ present's wait), ``game.upload`` (the frame's one host-to-device copy),
 ``game.fused`` (``fused_step``, with the ``sim.*`` and ``frame.*`` spans
 inside it), ``game.present_copy`` and ``game.shot`` (a shot's cast and
 read).  The module also holds ``FrameStats``, the game's rolling frame
-counters (host only).
+counters (host only), and the JAX module's timing and watchdog helpers:
+``trace`` (a torch.profiler trace written as Chrome JSON) and
+``annotate`` (a named span), ``hard_sync`` (one data-dependent scalar
+read that waits for every queued launch, with a watchdog that raises
+``DeviceSyncTimeout``), ``timed_frames`` (pipelined frames timed between
+two hard syncs) and ``arm_watchdog`` / ``watchdog`` (a thread dump and
+``os._exit`` when a stage overruns).
 
 The chrome trace and a JSON summary go to --out (default
 ``chiprun_out/profile``; with --sim the summary alone, its spans those
@@ -175,6 +181,160 @@ class FrameStats:
             if k.startswith("stage_"):
                 lines.append(f"{k[6:]:>10s}: {v:6.2f} ms")
         return lines
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "/tmp/srt_trace"):
+    """A torch.profiler trace around a code span (CPU activity, and CUDA
+    when a card is present), written into log_dir as a Chrome trace on
+    exit; yields log_dir."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def annotate(name: str):
+    """Named span inside a trace (shows up in the profiler timeline)."""
+    return torch.profiler.record_function(name)
+
+
+class DeviceSyncTimeout(RuntimeError):
+    """A device sync did not complete within its watchdog window: the card
+    is wedged.  Raised by hard_sync/timed_frames instead of hanging the
+    caller."""
+
+
+def _tensor_leaves(tree) -> list:
+    """The tensors of a nested dict, list or tuple, in JAX's leaf order
+    (dict keys sorted)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tensor_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tensor_leaves(v)]
+    return []
+
+
+def hard_sync(out, timeout_s: Optional[float] = None) -> float:
+    """Wait for ALL device work `out` depends on; return a probe.
+
+    Every floating, integer or bool tensor leaf of `out` (a tensor or a
+    nested dict, list or tuple of them) is reduced to one float32 sum on
+    its device and read back with .item(), which (by in-order execution
+    on the stream) waits for every launch queued before it.
+
+    timeout_s: watchdog window.  The read runs on a daemon thread; if it
+    has not completed in time, a thread dump goes to stderr and
+    DeviceSyncTimeout is raised (the stuck thread does not block process
+    exit).  An error inside the read is raised again.  None = block
+    indefinitely.
+
+    Use as the one sync point of a pipelined timing loop:
+
+        t0 = perf_counter()
+        for i in range(n): out = step(i)
+        hard_sync(out, timeout_s=120)
+        dt = perf_counter() - t0
+    """
+    leaves = [x for x in _tensor_leaves(out) if not x.is_complex()]
+    if not leaves:
+        return 0.0
+    probe = leaves[0].to(torch.float32).sum()
+    for x in leaves[1:]:
+        probe = probe + x.to(torch.float32).sum().to(probe.device)
+    if timeout_s is None:
+        return probe.item()
+
+    import threading
+    box: Dict[str, object] = {}
+
+    def _read():
+        try:
+            box["value"] = probe.item()
+        except BaseException as e:          # raised again below
+            box["error"] = e
+
+    th = threading.Thread(target=_read, daemon=True,
+                          name="hard_sync_readback")
+    th.start()
+    th.join(timeout_s)
+    if th.is_alive():
+        import faulthandler
+        sys.stderr.write(
+            f"\n[hard_sync] device readback still blocked after "
+            f"{timeout_s:.1f}s; dumping all threads:\n")
+        faulthandler.dump_traceback(file=sys.stderr)
+        raise DeviceSyncTimeout(
+            f"device sync did not complete within {timeout_s:.1f}s; the "
+            f"card is likely wedged (a previously killed run can leave it "
+            f"stuck)")
+    if "error" in box:
+        raise box["error"]  # type: ignore[misc]
+    return box["value"]  # type: ignore[return-value]
+
+
+def timed_frames(step_fn, n_frames: int, *, warmup: int = 2,
+                 timeout_s: Optional[float] = None) -> float:
+    """Pipelined-N-frames timing with one hard_sync: `warmup` calls
+    step_fn(0 .. warmup - 1), a hard_sync, then n_frames calls with i
+    counting on, then a hard_sync.  step_fn(i) must vary its inputs with
+    i and return device tensors.  timeout_s bounds each of the two syncs
+    (hard_sync's watchdog).  Returns seconds per frame."""
+    out = None
+    for i in range(warmup):
+        out = step_fn(i)
+    hard_sync(out, timeout_s=timeout_s)
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        out = step_fn(warmup + i)
+    hard_sync(out, timeout_s=timeout_s)
+    return (time.perf_counter() - t0) / n_frames
+
+
+def arm_watchdog(name: str, timeout_s: float, exit_code: int = 42):
+    """Arm a hard process watchdog; returns a zero-arg cancel function.
+
+    If not cancelled within timeout_s: dump all thread stacks to stderr
+    and os._exit(exit_code).  A hung device call blocks in native code
+    and cannot be interrupted by raising in the main thread, so a script's
+    honest failure is a loud diagnostic and a non-zero exit.  Library code
+    should prefer hard_sync(timeout_s=...), which raises instead."""
+    import faulthandler
+    import threading
+
+    done = threading.Event()
+
+    def _fire():
+        if done.wait(timeout_s):
+            return
+        sys.stderr.write(
+            f"\n[watchdog] stage '{name}' exceeded {timeout_s:.1f}s; "
+            f"device likely wedged; dumping threads and exiting "
+            f"{exit_code}:\n")
+        faulthandler.dump_traceback(file=sys.stderr)
+        sys.stderr.flush()
+        os._exit(exit_code)
+
+    threading.Thread(target=_fire, daemon=True,
+                     name=f"watchdog:{name}").start()
+    return done.set
+
+
+@contextlib.contextmanager
+def watchdog(name: str, timeout_s: float, exit_code: int = 42):
+    """Context-manager form of arm_watchdog (see its docstring)."""
+    cancel = arm_watchdog(name, timeout_s, exit_code)
+    try:
+        yield
+    finally:
+        cancel()
 
 
 def scene_stats(eng, uniforms) -> Dict:

@@ -41,6 +41,23 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 """,
     "chip_smoke": "import chip_smoke\n",
+    "examples": """
+import importlib
+from softwarerenderer_tpu_torch.examples import DEMOS
+for name in DEMOS:
+    importlib.import_module("softwarerenderer_tpu_torch.examples." + name)
+from softwarerenderer_tpu_torch import shaders
+from softwarerenderer_tpu_torch.models.scene import Camera
+from softwarerenderer_tpu_torch.ops import binning, rt_accel, texture
+from softwarerenderer_tpu_torch.utils import hostmath, mathlib, profiling
+assert Camera().view_matrix().shape == (4, 4)
+assert shaders.make_vertex_input([[0.0, 0.0, 0.0]])["color"].shape == (1, 4)
+assert (texture.sample_atlas_nearest, binning.pair_cap_overflow,
+        rt_accel.bundle_pair_count, rt_accel.bundle_survivor_count,
+        hostmath.look_at, mathlib.identity, mathlib.scale,
+        mathlib.quat_conjugate, profiling.hard_sync, profiling.timed_frames,
+        profiling.watchdog, profiling.trace)
+""",
 }
 
 _RENDER_AND_CHECK = """
@@ -146,7 +163,9 @@ print("ok")
 
 @pytest.mark.parametrize("what", sorted(_IMPORTS))
 def test_port_never_imports_jax(what):
-    """Import every module of the port (or chip_smoke.py), render a raster
+    """Import every module of the port (or chip_smoke.py, or each demo of
+    softwarerenderer_tpu_torch.examples by name with the rest of the JAX
+    API's counterparts, touching each), render a raster
     frame through the tile route, the deferred route (K5's twin), the
     forward route and a debug view, and a ray-traced CPU frame of the
     port's own bench scene, golden config 3's lit frame, the three
