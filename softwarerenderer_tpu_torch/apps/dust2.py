@@ -62,7 +62,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch import RenderParams
 from softwarerenderer_tpu_torch.engine import Engine, camera_matrices, to_rgb8
@@ -232,7 +232,7 @@ def fused_step(scene: Dict[str, torch.Tensor], sim: Dict, ctl: Dict,
     positions, rotations, fire, aim] bit-cast to bytes in rows below it;
     tail is its last image row and the aux rows.  No host read happens
     here."""
-    with record_function("game.fused"):
+    with span("game.fused"):
         dev = scene["position"].device
         cp = ctl["char_params"]
         char = character_step(sim["char"], ctl["move"], ctl["jump"],
@@ -579,7 +579,7 @@ class Dust2Game:
         matrices, one raycast wave, and its hits read back in one blocking
         read (the rays, mask and matrices go up in one non-blocking
         copy)."""
-        with record_function("game.shot"):
+        with span("game.shot"):
             d = upload({"o": origins.astype(F32), "d": dirs.astype(F32),
                         "mask": shoot_mask, "mm": self._mesh_matrices},
                        self.device)
@@ -868,7 +868,7 @@ class Dust2Game:
     def step(self, dt: float, inputs: Optional[dict] = None) -> None:
         """One frame: input → net → sim → render → present
         (Renderer.Update ordering, :258-268)."""
-        with record_function("game.step"):
+        with span("game.step"):
             self._step(dt, inputs)
 
     def _step(self, dt: float, inputs: Optional[dict]) -> None:
@@ -1467,7 +1467,7 @@ class Dust2Game:
         filling (the bootstrap case)."""
         if len(self._out_q) < max(1, self.present_depth):
             return None
-        with record_function("game.join"):
+        with span("game.join"):
             rgb, aux = self._fetch(self._out_q.pop(0))
         self._apply_aux(aux)
         return (rgb,)
@@ -1640,7 +1640,7 @@ class Dust2Game:
         staged = {"ctl": ctl, "noclip": np.asarray([self.noclip])}
         if not self._raytraced:
             staged["uniforms"] = u
-        with record_function("game.upload"):
+        with span("game.upload"):
             d = upload(staged, self.device)
         sim = {"char": dict(self.char, noclip=d["noclip"]),
                "particles": self._particles}
@@ -1659,7 +1659,7 @@ class Dust2Game:
         fetch_rgb = (self._present_nth <= 1
                      or self._frame_i % self._present_nth == 0)
         n_aux = 3 + 11 * len(self._bot_ids)
-        with record_function("game.present_copy"):
+        with span("game.present_copy"):
             self._submit(packed_dev if fetch_rgb else tail_dev, fetch_rgb,
                          eng.params.height, n_aux)
         if joined_rgb is None:

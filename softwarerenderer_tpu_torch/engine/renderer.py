@@ -67,7 +67,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch.config import (BlendMode, DebugMode,
                                                DepthTest, RenderParams)
@@ -277,6 +277,16 @@ def _to_device(v, device):
     return torch.from_numpy(np.ascontiguousarray(_host_array(v))).to(device)
 
 
+def on_device(x, dtype, device, name: str) -> torch.Tensor:
+    """x as a `dtype` tensor on `device`: a tensor already there as it is,
+    anything else moved in the span `name` (a host value's move to a card
+    waits for it)."""
+    if isinstance(x, torch.Tensor) and x.device == torch.device(device):
+        return x.to(dtype)
+    with span(name):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def device_uniforms(uniforms: Dict, width: int, height: int,
                     device) -> Dict[str, torch.Tensor]:
     """The uniforms the frame reads on the device: the camera matrices,
@@ -295,7 +305,7 @@ def device_uniforms(uniforms: Dict, width: int, height: int,
            for k, shape in _DEVICE_UNIFORMS}
     return _upload({**f32, **{k: v for k, v in uniforms.items()
                              if k not in f32 and k not in _HOST_UNIFORMS}},
-                   device)
+                   device, "sync.uniforms")
 
 
 def post_uniforms(uniforms: Dict, device) -> Dict[str, torch.Tensor]:
@@ -303,22 +313,27 @@ def post_uniforms(uniforms: Dict, device) -> Dict[str, torch.Tensor]:
     stage gets them as its third argument): every key but mesh_visible
     as device tensors, host arrays in one copy a dtype."""
     return _upload({k: v for k, v in uniforms.items()
-                    if k != "mesh_visible"}, device)
+                    if k != "mesh_visible"}, device, "sync.post_uniforms")
 
 
-def _upload(uniforms: Dict, device) -> Dict[str, torch.Tensor]:
+def _upload(uniforms: Dict, device, name: str) -> Dict[str, torch.Tensor]:
     """Host arrays as device tensors in one host->device copy a dtype;
-    tensors and dicts move as they are."""
-    groups, u = {}, {}
+    tensors and dicts move as they are.  The moves run in the span `name`:
+    a pageable copy to a card waits for it."""
+    groups, moved = {}, {}
     for k, v in uniforms.items():
         if isinstance(v, (torch.Tensor, dict)):
-            u[k] = _to_device(v, device)
+            moved[k] = v
         else:
             a = _host_array(v)
             groups.setdefault(a.dtype, {})[k] = a
-    for arrays in groups.values():
-        packed = torch.from_numpy(np.concatenate(
-            [a.reshape(-1) for a in arrays.values()])).to(device)
+    host = [torch.from_numpy(np.concatenate(
+        [a.reshape(-1) for a in arrays.values()]))
+        for arrays in groups.values()]
+    with span(name):
+        u = {k: _to_device(v, device) for k, v in moved.items()}
+        copies = [h.to(device) for h in host]
+    for arrays, packed in zip(groups.values(), copies):
         off = 0
         for k, a in arrays.items():
             u[k] = packed[off:off + a.size].reshape(a.shape)
@@ -500,7 +515,7 @@ def frame_vertices(scene: Dict[str, torch.Tensor], u: Dict) -> Dict:
     normal map, tangent) after apply_vertex_updates, the billboards facing
     the camera of the device uniforms u (device_uniforms)."""
     vin = {k: scene[k] for k in ("position", "uv", "normal", "color")}
-    with record_function("frame.vertex_updates"):
+    with span("frame.vertex_updates"):
         return apply_vertex_updates(vin, scene, u, u["view"])
 
 
@@ -513,7 +528,7 @@ def posed_geometry(scene: Dict[str, torch.Tensor], u: Dict,
     camera's device uniforms (device_uniforms)."""
     posed = {"vin": frame_vertices(scene, u), "tri_mask": None}
     if "tri_lod_level" in scene:
-        with record_function("frame.camera_cull"):
+        with span("frame.camera_cull"):
             posed["tri_mask"] = lod.lod_tri_mask(scene, u, height)
     return posed
 
@@ -545,15 +560,16 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
     frame is the uncapped one while the caps hold."""
     H, W = params.height, params.width
     dev = scene["position"].device
-    with record_function("frame.camera_cull"):
+    with span("frame.camera_cull"):
         u = device_uniforms(uniforms, W, H, dev)
         view_proj = ml.transform(u["view"], u["projection"])     # V·P
         visible = culling.spheres_in_frustum(
             scene["bounds_center"], scene["bounds_radius"],
             scene["mesh_matrices"], view_proj)
         if "mesh_visible" in uniforms:
-            visible = visible & torch.as_tensor(uniforms["mesh_visible"],
-                                                dtype=torch.bool, device=dev)
+            visible = visible & on_device(uniforms["mesh_visible"],
+                                          torch.bool, dev,
+                                          "sync.mesh_visible")
         tri_mesh = scene["tri_mesh_id"].long()
         tri_mask = visible[tri_mesh]
     posed = posed or {}
@@ -562,7 +578,7 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
         vin = frame_vertices(scene, u)
     if "tri_lod_level" in scene:
         lod_mask = posed.get("tri_mask")
-        with record_function("frame.camera_cull"):
+        with span("frame.camera_cull"):
             if lod_mask is None:
                 lod_mask = lod.lod_tri_mask(scene, u, H)
             tri_mask = tri_mask & lod_mask
@@ -576,7 +592,7 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
                 if "tri_normal_tex_id" in scene else None)
     overflow = {}
     if params.geom_cap:
-        with record_function("frame.geom_cap"):
+        with span("frame.geom_cap"):
             pt = {"tex": tri_tex, "mesh": tri_mesh}
             if tri_ntex is not None:
                 pt["ntex"] = tri_ntex
@@ -585,7 +601,7 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
                                            indices, pt)
             tri_tex, tri_mesh, tri_ntex = pt["tex"], pt["mesh"], pt.get(
                 "ntex")
-    with record_function("frame.geometry"):
+    with span("frame.geometry"):
         u.update(model=culling.model_matrices_per_vertex(scene),
                  atlas_data=scene["atlas_data"],
                  atlas_offsets=scene["atlas_offsets"],
@@ -601,7 +617,7 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
     # access is the texel fetch, and with "mesh_metallic" in the scene the
     # PBR channels; pruned to the shader's `tri_extras` (the material
     # channels are computed only when kept).
-    with record_function("frame.extras"):
+    with span("frame.extras"):
         keep = getattr(fragment_shader, "tri_extras", None)
         tid2 = tri_tex.repeat_interleave(2)
         mid2 = tri_mesh.repeat_interleave(2)
@@ -633,7 +649,7 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
                 per_tri["opq"] = opq
 
     if params.active_cap:
-        with record_function("frame.active_cap"):
+        with span("frame.active_cap"):
             n_slots = tris["valid"].shape[0]
             tris, per_tri, n_valid = geometry.compact_triangles(
                 tris, params.active_cap, per_tri)
@@ -645,7 +661,7 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
         fb_depth = torch.full((H, W), raster.DEPTH_CLEAR, dtype=F32,
                               device=dev)
     else:
-        fb_color, fb_depth = (torch.as_tensor(x, dtype=F32, device=dev)
+        fb_color, fb_depth = (on_device(x, F32, dev, "sync.fb")
                               for x in fb)
     return {"tris": tris, "uniforms": u, "per_tri": per_tri,
             "fb_color": fb_color, "fb_depth": fb_depth,
@@ -685,7 +701,7 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
     if params.ssaa > 1:
         f = params.ssaa
         if fb is not None:
-            fb = tuple(torch.as_tensor(x, dtype=F32, device=dev)
+            fb = tuple(on_device(x, F32, dev, "sync.fb")
                        .repeat_interleave(f, 0).repeat_interleave(f, 1)
                        for x in fb)
         # The vertices carry over; the LOD levels are the f×-high frame's.
@@ -706,7 +722,7 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
     # every *_overflow is 0; live_pairs and live_globals are always there
     # so a workload can be measured before a cap is chosen.  Device
     # tensors: reading them is the caller's choice of a sync.
-    with record_function("frame.cap_stats"):
+    with span("frame.cap_stats"):
         live = binning.live_pair_count(f["tris"], params)
         live_glob = binning.global_count(f["tris"], params)
         stats = {"live_pairs": live, "live_globals": live_glob,
@@ -728,7 +744,7 @@ def supersampled(render: Callable, params: RenderParams, device):
     f = params.ssaa
     color, depth = render(params.replace(width=params.width * f,
                                          height=params.height * f, ssaa=1))
-    with record_function("frame.ssaa_resolve"):
+    with span("frame.ssaa_resolve"):
         H, W = params.height, params.width
         n = torch.full((), float(f * f), device=device)
         color = color.reshape(H, f, W, f, 4).sum((1, 3)) / n
@@ -751,7 +767,7 @@ def post_chained(render: Callable, uniforms: Dict, params: RenderParams,
     color, depth = render(u2, base)
     pu = post_uniforms(uniforms, device)
     for fx in chain:
-        with record_function("post.callable" if callable(fx)
+        with span("post.callable" if callable(fx)
                              else f"post.{fx}"):
             color, depth = apply_post_fx(fx, color, depth, uniforms, pu,
                                          params)
@@ -1053,10 +1069,11 @@ class Engine(torch.nn.Module):
     def forward(self, uniforms: Optional[Dict] = None,
                 fb: Optional[tuple] = None):
         kw = {} if fb is None else {"fb": fb}
-        return self.frame_fn(self.scene, uniforms or self.uniforms,
-                             params=self.params,
-                             vertex_shader=self.vertex_shader,
-                             fragment_shader=self.fragment_shader, **kw)
+        with span("engine.render"):
+            return self.frame_fn(self.scene, uniforms or self.uniforms,
+                                 params=self.params,
+                                 vertex_shader=self.vertex_shader,
+                                 fragment_shader=self.fragment_shader, **kw)
 
     def render(self, uniforms: Optional[Dict] = None,
                fb: Optional[tuple] = None):
@@ -1065,4 +1082,6 @@ class Engine(torch.nn.Module):
         return self(uniforms, fb)
 
     def present(self, uniforms: Optional[Dict] = None) -> np.ndarray:
-        return to_rgb8(self.render(uniforms)[0]).cpu().numpy()
+        rgb = to_rgb8(self.render(uniforms)[0])
+        with span("sync.present"):
+            return rgb.cpu().numpy()

@@ -38,7 +38,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch.config import DepthTest, RenderParams
 from softwarerenderer_tpu_torch.ops import binning, raster, tile_raster
@@ -71,7 +71,10 @@ def kslot_fold(tris: Dict, params: RenderParams, row_offset=0):
     for _ in range(params.kbuffer):
         bd, bi = binning.fold_binned(*args, **kwargs, mode=mode, below=below)
         bi = torch.where(bd == worst, raster.NO_TRI, bi)
-        if not bool((bi[:H, :W] >= 0).any()):           # host read
+        live = (bi[:H, :W] >= 0).any()
+        with span("sync.kslot_live"):
+            live = bool(live)
+        if not live:
             break
         depths.append(bd[:H, :W])
         ids.append(bi[:H, :W])
@@ -94,12 +97,12 @@ def render_binned_kbuffer(tris: Dict, fragment_shader: Callable,
     Returns (color (H, W, 4), depth (H, W)), and with with_stats a third
     value {"kbuffer_saturated_px": pixels whose K-th slot holds a
     fragment}."""
-    with record_function("kbuffer.slots"):
+    with span("kbuffer.slots"):
         sd, si = kslot_fold(tris, params, row_offset)
-    with record_function("kbuffer.shade"):
+    with span("kbuffer.shade"):
         src = torch.stack([fragment_shader(raster.winner_fragments(
             tris, ids, per_tri_extra, row_offset), uniforms) for ids in si]) \
             if si.shape[0] else fb_color.new_zeros((0, *fb_color.shape))
-    with record_function("kbuffer.replay"):
+    with span("kbuffer.replay"):
         return tile_raster.replay_layers(src, sd, si, fb_color, fb_depth,
                                          params, with_stats)

@@ -23,7 +23,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch.config import BlendMode, DepthTest, RenderParams
 from softwarerenderer_tpu_torch.ops.geometry import unflatten_varyings
@@ -383,10 +383,10 @@ def shade_deferred(tris: Dict, best_depth, best_tri,
     row_offset or coords place the pixels on the screen
     (interpolate_at_pixels)."""
     covered = best_tri != NO_TRI
-    with record_function("deferred.interp"):
+    with span("deferred.interp"):
         frag = winner_fragments(tris, best_tri, per_tri_extra, row_offset,
                                 coords)
-    with record_function("deferred.shade"):
+    with span("deferred.shade"):
         color = fragment_shader(frag, uniforms)
         return write(color, covered & (color[..., 3] > 0), best_depth,
                      params, fb_color, fb_depth)
@@ -513,7 +513,7 @@ def render_deferred(tris: Dict, fragment_shader: Callable, uniforms: Dict,
     frames."""
     if visibility_fn is None:
         visibility_fn = default_visibility(params)
-    with record_function("vis.fold"):
+    with span("vis.fold"):
         best_d, best_i = visibility_fn(tris, params, chunk or params.chunk,
                                        init_depth=fb_depth,
                                        row_offset=row_offset)

@@ -42,7 +42,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch.config import RenderParams
 from softwarerenderer_tpu_torch.ops import rt_sweep, sky
@@ -77,8 +77,9 @@ def build_rt_world(scene: Dict[str, torch.Tensor], uniforms: Dict) -> Dict:
     aoff, asiz = scene["atlas_offsets"], scene["atlas_sizes"]
     mask = None
     if "mesh_visible" in uniforms:
-        vis = torch.as_tensor(uniforms["mesh_visible"], dtype=torch.bool,
-                              device=dev)
+        with span("sync.mesh_visible"):
+            vis = torch.as_tensor(uniforms["mesh_visible"], dtype=torch.bool,
+                                  device=dev)
         mask = vis[world["tri_mesh_id"].long()]
     region = torch.stack([aoff[:, 0][tid], aoff[:, 1][tid], asiz[:, 0][tid],
                           asiz[:, 1][tid]], 1)
@@ -209,7 +210,7 @@ def trace_pixel_rows(scene: Dict[str, torch.Tensor], uniforms: Dict,
     h, W = dirs.shape[0], dirs.shape[1]
     dev = dirs.device
 
-    with record_function("rt.world"):
+    with span("rt.world"):
         u = device_uniforms(uniforms, params.width, params.height, dev)
         u["atlas_data"] = scene["atlas_data"]
         world = build_rt_world(scene, uniforms)
@@ -261,7 +262,7 @@ def trace_pixel_rows(scene: Dict[str, torch.Tensor], uniforms: Dict,
             rt_white_colors, shadows, S, reflections,
             (light, lt1, lt2, sradius), mix_reflection, shade_lit)
 
-    with record_function("rt.composite"):
+    with span("rt.composite"):
         covered = depth != DEPTH_CLEAR
         color = torch.where(covered[..., None], color, background(dirs))
     return color, depth
@@ -275,27 +276,27 @@ def _brute_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
     ids = ray_ids.reshape(-1)
 
     def cast(o, dd):
-        with record_function("rt.brute_cast"):
+        with span("rt.brute_cast"):
             return raycast_batch_bary(o, dd, world, FACE_MASK_NONE,
                                       tri_mask)
     hits = cast(eye.expand_as(d), d)
-    with record_function("rt.shade"):
+    with span("rt.shade"):
         rgba, depth = _shade_hits(hits, world, u, fragment_shader, white)
         off = hits["point"] + hits["normal"] * 1e-3
     if reflections:
-        with record_function("rt.shade"):
+        with span("rt.shade"):
             n = hits["normal"]
             rdir = d - 2.0 * ml.dot(d, n)[:, None] * n
         rh = cast(off, rdir)
-        with record_function("rt.shade"):
+        with span("rt.shade"):
             rgba = mix_reflection(rgba, rh, rdir)
     if shadows:
         occl = torch.zeros(d.shape[0], dtype=F32, device=d.device)
         for s in range(S):
-            with record_function("rt.shade"):
+            with span("rt.shade"):
                 sdir = _shadow_dir(ids, s, *light_basis)
             occl = occl + cast(off, sdir)["hit"].to(F32)
-        with record_function("rt.shade"):
+        with span("rt.shade"):
             rgba = shade_lit(rgba, occl)
     ok = hits["hit"]
     color = torch.where(ok[:, None], rgba, 0.0).reshape(h, W, 4)
@@ -312,7 +313,7 @@ def _bundle_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
     nth, ntw = hp // th, Wp // tw
     B, R = nth * ntw, th * tw
 
-    with record_function("rt.accel"):
+    with span("rt.accel"):
         accel = rt_sweep.build_rt_accel_pl(world)
         # Edge padding (JAX's jnp.pad mode="edge"): the pad rays replicate
         # the last row and column and take part in the bundle bounds.
@@ -331,7 +332,7 @@ def _bundle_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
                      for k in HIT_KEYS}
 
     prim, hits = cast_nearest(eye.expand(B, R, 3), d_t)
-    with record_function("rt.shade"):
+    with span("rt.shade"):
         rgba, depth = _shade_hits(hits, world, u, fragment_shader, white)
         hit_b = prim["hit"]
         off = prim["point"] + prim["normal"] * 1e-3                # (B, R, 3)
@@ -344,24 +345,24 @@ def _bundle_route(world, u, dirs, ray_ids, eye, tri_mask, fragment_shader,
         ctr = torch.where((nhit > 0)[:, None], ctr, math.nan)
         off = torch.where(hit_b[..., None], off, ctr[:, None, :])
     if reflections:
-        with record_function("rt.shade"):
+        with span("rt.shade"):
             n = prim["normal"]
             rdir = d_t - 2.0 * ml.dot(d_t, n)[..., None] * n
         _, rh = cast_nearest(off, rdir)
-        with record_function("rt.shade"):
+        with span("rt.shade"):
             rgba = mix_reflection(rgba, rh, rdir)
     if shadows:
-        with record_function("rt.shade"):
+        with span("rt.shade"):
             sdirs = torch.stack([_shadow_dir(i_t, s, *light_basis)
                                  .reshape(B, R, 3) for s in range(S)], 1)
         sh = rt_sweep.raycast_bundles_any(
             off[:, None].expand(B, S, R, 3).reshape(B, S * R, 3),
             sdirs.reshape(B, S * R, 3), world, accel,
             face_mask=FACE_MASK_NONE, tri_mask=tri_mask, sweep=sweep)
-        with record_function("rt.shade"):
+        with span("rt.shade"):
             occl = sh["hit"].reshape(B, S, R).to(F32).sum(1).reshape(-1)
             rgba = shade_lit(rgba, occl)
-    with record_function("rt.composite"):
+    with span("rt.composite"):
         ok = hits["hit"]
         color = torch.where(ok[:, None], rgba, 0.0)
         depth = torch.where(ok, depth, DEPTH_CLEAR)

@@ -39,7 +39,7 @@ import ctypes
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch.ops import rt_accel
 from softwarerenderer_tpu_torch.sim.raycast import (
@@ -292,6 +292,12 @@ def rt_sweep_plain(rays, stream, lists, counts, t0q, *, any_hit: bool,
     return out_t, out_g
 
 
+def _read_overflow(overflow: torch.Tensor) -> bool:
+    """An explicit capb's overflow flag, read on the host."""
+    with span("sync.rt_overflow"):
+        return bool(overflow)
+
+
 def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
                             *, capb=None, face_mask: int = FACE_MASK_NONE,
                             tri_mask=None, sweep: Optional[Callable] = None):
@@ -302,20 +308,20 @@ def raycast_bundles_nearest(origins, directions, world: Dict, accel: Dict,
     to run, rt_sweep by default; rt_sweep_plain casts through the twin."""
     sweep = sweep or rt_sweep
     slot_mask = rt_accel._slot_mask(accel, tri_mask)
-    with record_function("rt.prep"):
+    with span("rt.prep"):
         (o, d, rays, stream, lists, counts, t0q,
          overflow) = _prep(origins, directions, accel, slot_mask, capb)
-    if capb is not None and bool(overflow):
+    if capb is not None and _read_overflow(overflow):
         B, R = o.shape[:2]
         res = raycast_batch_bary(o.reshape(-1, 3), d.reshape(-1, 3),
                                  world, face_mask, tri_mask)
         out = {k: x.reshape((B, R) + x.shape[1:]) for k, x in res.items()}
     else:
-        with record_function("rt.sweep_nearest"):
+        with span("rt.sweep_nearest"):
             tbest, g = sweep(rays, stream, lists, counts, t0q, any_hit=False,
                              face_mask=face_mask,
                              boxes=(accel["cl_lo"], accel["cl_hi"]))
-        with record_function("rt.winner"):
+        with span("rt.winner"):
             hit = g < NOTRI
             wtri = torch.where(hit, g, 0).long()
             if "geom_table" in world:
@@ -350,16 +356,16 @@ def raycast_bundles_any(origins, directions, world: Dict, accel: Dict,
     raycast_bundles_nearest."""
     sweep = sweep or rt_sweep
     slot_mask = rt_accel._slot_mask(accel, tri_mask)
-    with record_function("rt.prep"):
+    with span("rt.prep"):
         (o, d, rays, stream, lists, counts, t0q,
          overflow) = _prep(origins, directions, accel, slot_mask, capb)
-    if capb is not None and bool(overflow):
+    if capb is not None and _read_overflow(overflow):
         B, R = o.shape[:2]
         hit = raycast_batch(o.reshape(-1, 3), d.reshape(-1, 3), world,
                             face_mask=face_mask,
                             tri_mask=tri_mask)["hit"].reshape(B, R)
     else:
-        with record_function("rt.sweep_any"):
+        with span("rt.sweep_any"):
             _t, g = sweep(rays, stream, lists, counts, t0q, any_hit=True,
                           face_mask=face_mask,
                           boxes=(accel["cl_lo"], accel["cl_hi"]))

@@ -34,7 +34,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch.config import DepthTest, RenderParams
 from softwarerenderer_tpu_torch.ops import binning, culling, geometry
@@ -57,7 +57,9 @@ def _f32s(device, *xs):
             if not isinstance(x, torch.Tensor)]
     if host:
         packed = torch.from_numpy(np.concatenate(
-            [a.reshape(-1) for a in host])).to(device)
+            [a.reshape(-1) for a in host]))
+        with span("sync.light_uniforms"):
+            packed = packed.to(device)
     out, off = [], 0
     for x in xs:
         if isinstance(x, torch.Tensor):
@@ -146,7 +148,7 @@ def _light_setup(scene: Dict[str, torch.Tensor], S: int,
     """(sp, model): the light passes' parameters and per-vertex model
     matrices, shared by a frame's passes."""
     sp = shadow_params(params, S)
-    with record_function("shadow.geometry"):
+    with span("shadow.geometry"):
         return sp, culling.model_matrices_per_vertex(scene)
 
 
@@ -168,14 +170,14 @@ def _light_pass(scene: Dict[str, torch.Tensor], model: torch.Tensor,
                 posed: Dict) -> torch.Tensor:
     """One depth-only pass from a light camera -> (S, S) f32 map."""
     dev = scene["position"].device
-    with record_function("shadow.geometry"):
+    with span("shadow.geometry"):
         u = {"model": model, "view": light_view, "projection": light_proj,
              "near_clip": _constant(LIGHT_NEAR_CLIP, dev)}
         tris = geometry.build_triangles(
             light_vertex_shader, posed["vin"], scene["indices"], u,
             width=sp.width, height=sp.height, cull_mode=0,
             tri_mask=posed["tri_mask"], keep_varyings=())
-    with record_function("shadow.fold"):
+    with span("shadow.fold"):
         depth, _ = (visibility_fn or light_pass_visibility(sp, dev))(tris,
                                                                      sp)
     return depth

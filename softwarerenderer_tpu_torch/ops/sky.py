@@ -17,6 +17,7 @@ import torch
 from softwarerenderer_tpu_torch.ops import texture
 from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
 from softwarerenderer_tpu_torch.utils import mathlib as ml
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 F32 = np.float32
 
@@ -44,7 +45,9 @@ def pixel_ray_directions(uniforms, width: int, height: int,
     xs = np.arange(width, dtype=F32) / F32(width) * F32(2.0) - F32(1.0)
     ys = F32(1.0) - np.arange(height, dtype=F32) / F32(height) * F32(2.0)
     packed = torch.cat([front, up, right, th.reshape(1), tw.reshape(1),
-                        torch.from_numpy(xs), torch.from_numpy(ys)]).to(device)
+                        torch.from_numpy(xs), torch.from_numpy(ys)])
+    with span("sync.sky_rays"):
+        packed = packed.to(device)
     front, up, right = packed[0:3], packed[3:6], packed[6:9]
     th, tw = packed[9], packed[10]
     xs, ys = packed[11:11 + width], packed[11 + width:]

@@ -33,7 +33,7 @@ import functools
 from typing import Callable, Dict, Optional
 
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch.config import BlendMode, DepthTest, RenderParams
 from softwarerenderer_tpu_torch.ops.binning import (bin_triangles, cdiv,
@@ -627,7 +627,7 @@ def _prepare_for(tris, fragment_shader, params, fb_depth, per_tri_extra,
     if params.depth_test != DepthTest.LESS_EQUAL:
         raise NotImplementedError("the tile kernels support LESS_EQUAL only")
     gb_keep = getattr(fragment_shader, "varyings", None)
-    with record_function("tile.bin_pack"):
+    with span("tile.bin_pack"):
         return prepare(tris, params, fb_depth, per_tri_extra,
                        None if gb_keep is None else frozenset(gb_keep),
                        **(band or {}))
@@ -656,10 +656,10 @@ def render_tile(tris: Dict, fragment_shader: Callable, uniforms: Dict,
     ctx = _prepare_for(tris, fragment_shader, params, fb_depth,
                        per_tri_extra, band)
     args, kwargs = fold_inputs(ctx)
-    with record_function("tile.fold"):
+    with span("tile.fold"):
         gbuf, best_d, best_i = (fold or tile_fold)(*args, **kwargs)
     H, W = ctx["H"], ctx["W"]
-    with record_function("tile.shade"):
+    with span("tile.shade"):
         color = fragment_shader(frag_from_planes(ctx, gbuf[:, :H:sr, :W]),
                                 uniforms)
         if sr > 1:
@@ -755,7 +755,8 @@ def render_tile_kbuffer(tris: Dict, fragment_shader: Callable,
             # torch.nonzero's size is dynamic, so this is a host sync; it
             # has no fill entries, so index_copy_ below writes each live
             # segment once and no segment twice.
-            idx = torch.nonzero(live_seg).squeeze(1)
+            with span("sync.peel_segments"):
+                idx = torch.nonzero(live_seg).squeeze(1)
             if idx.numel() <= seg_cap:
                 kpi = gbuf.shape[0]
                 first = (idx // nseg) * Wp + (idx % nseg) * seg
@@ -772,32 +773,35 @@ def render_tile_kbuffer(tris: Dict, fragment_shader: Callable,
         return shade(frag_from_planes(ctx, gbuf[:, :H, :W]))
 
     args, kwargs = fold_inputs(ctx)
-    with record_function("tile.fold"):
+    with span("tile.fold"):
         gbuf, bd, bi = fold(*args, **kwargs)
-    with record_function("tile.shade"):
+    with span("tile.shade"):
         col, opq = shade(frag_from_planes(ctx, gbuf[:, :H, :W]))
     colors, depths, ids = [col], [bd[:H, :W]], [bi[:H, :W]]
     pad_stop = torch.ones((Hp, Wp), dtype=torch.bool, device=bd.device)
     pad_stop[:H, :W] = False
     for _ in range(1, K):
-        with record_function("tile.peel_prev"):
+        with span("tile.peel_prev"):
             stop = pad_stop
             if opq is not None:
                 stop = pad_stop.clone()
                 stop[:H, :W] |= opq
             prev_d = torch.where(stop, DEPTH_CLEAR, bd)
             prev_i = torch.where(stop, -1, bi)
-            if not bool((prev_i >= 0).any()):      # host sync
+            live = (prev_i >= 0).any()
+            with span("sync.peel_live"):
+                live = bool(live)
+            if not live:
                 break
-        with record_function("tile.peel_fold"):
+        with span("tile.peel_fold"):
             gbuf, bd, bi = fold(*args, **kwargs, prev_d=prev_d,
                                 prev_i=prev_i)
-        with record_function("tile.peel_shade"):
+        with span("tile.peel_shade"):
             col, opq = shade_layer(gbuf, bi)
         colors.append(col)
         depths.append(bd[:H, :W])
         ids.append(bi[:H, :W])
-    with record_function("tile.replay"):
+    with span("tile.replay"):
         return replay_layers(torch.stack(colors), torch.stack(depths),
                              torch.stack(ids), fb_color, fb_depth, params,
                              with_stats)
@@ -838,14 +842,14 @@ def render_tile_kbuffer_single(tris: Dict, fragment_shader: Callable,
                        per_tri_extra)
     H, W, kpi = ctx["H"], ctx["W"], ctx["kpi"]
     args, kwargs = fold_inputs(ctx)
-    with record_function("tile.fold"):
+    with span("tile.fold"):
         gbuf, bd, bi = (fold or tile_fold_kdeep)(*args, K=K, **kwargs)
-    with record_function("tile.shade"):
+    with span("tile.shade"):
         src = torch.stack([
             fragment_shader(frag_from_planes(
                 ctx, gbuf[s * kpi:(s + 1) * kpi, :H, :W]), uniforms)
             for s in range(K)])
-    with record_function("tile.replay"):
+    with span("tile.replay"):
         return replay_layers(src, bd[:, :H, :W], bi[:, :H, :W], fb_color,
                              fb_depth, params, with_stats)
 

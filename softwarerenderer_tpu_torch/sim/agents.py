@@ -39,7 +39,7 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch.models.convert import tree_to_torch
 from softwarerenderer_tpu_torch.sim import prng
@@ -122,7 +122,7 @@ def _xz(v: torch.Tensor) -> torch.Tensor:
                        -1)
 
 
-@record_function("sim.agents")
+@span("sim.agents")
 def agents_step(state: Dict, dt, waypoints, world: Dict,
                 char_params: Dict, brain: Dict, tri_mask=None,
                 next_hop=None, targets=None, target_alive=None,

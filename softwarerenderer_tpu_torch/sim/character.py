@@ -30,7 +30,7 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch.models.convert import tree_to_torch
 from softwarerenderer_tpu_torch.sim.raycast import BIG, raycast_batch
@@ -138,7 +138,7 @@ def _with_y(v: torch.Tensor, y) -> torch.Tensor:
 def cast(origins: torch.Tensor, directions: torch.Tensor, world: Dict,
          tri_mask=None) -> Dict:
     """A raycast wave of the simulation, under the span sim.raycast."""
-    with record_function("sim.raycast"):
+    with span("sim.raycast"):
         return raycast_batch(origins, directions, world, tri_mask=tri_mask)
 
 
@@ -249,7 +249,7 @@ def _move_with_slide(current, desired, radius, actual_step, world, params,
     return cur
 
 
-@record_function("sim.character")
+@span("sim.character")
 def character_step(state: Dict, move_input, jump_requested, dt,
                    world: Dict, params: Dict, tri_mask=None,
                    slide_v_steps: int = DEFAULT_SLIDE_V_STEPS,

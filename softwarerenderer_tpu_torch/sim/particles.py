@@ -31,7 +31,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+from softwarerenderer_tpu_torch.utils.profiling import span
 
 from softwarerenderer_tpu_torch.models.convert import tree_to_torch
 from softwarerenderer_tpu_torch.sim import prng
@@ -84,7 +84,7 @@ def _slot_iota(m: int, device: torch.device) -> torch.Tensor:
     return torch.arange(m, dtype=torch.int32, device=device)
 
 
-@record_function("sim.particles")
+@span("sim.particles")
 def particle_step(state: Dict, emitter: Dict, dt,
                   max_emit: Optional[int] = None) -> Dict:
     """One step: age and kill, integrate (gravity, drag, the optional

@@ -48,12 +48,26 @@ and ``sim.particles``.  It prints:
     pairs, clusters swept before the early exits, and rays that hit;
   * the frame time without the profiler, back to back and synchronised
     after every frame;
-  * from a torch.profiler trace of N frames, per frame: each
-    ``record_function`` span's host time and device window (first kernel
-    to last kernel of the span, gaps included), kernel time by span and in
-    all, kernel launches, host->device copies and stream syncs;
-  * the device's idle share: 1 - (kernel time per frame) / (synchronised
-    frame time without the profiler).
+  * ``span_totals()`` a frame (each span's calls, host ms and self ms:
+    host time less that of the spans inside it), from N frames back to
+    back under ``recording()`` without the profiler, and from the traced
+    frames below, with each run's frame time (the difference is the
+    profiler's cost);
+  * from a torch.profiler trace of N frames, per frame: each span's host
+    time and device window (first kernel to last kernel of the span, gaps
+    included), kernel time by span and in all, kernel launches,
+    host->device copies and stream syncs, for every span the trace holds;
+  * the device's idle share, ``device_idle_pct``: 100 (1 - the union of
+    kernel, copy and fill intervals / the traced window, from the first
+    host call to the end of the last device activity).
+
+The program's spans are ``span`` objects (``with span("frame.geometry")``
+or ``@span("sim.agents")``): off, a span reads one flag and does nothing
+else; while the torch profiler runs it is a ``record_function`` on the
+trace's clock, and while the profiler runs or inside ``recording()`` it
+adds to ``span_totals()``.  ``engine.render`` holds one frame of
+``Engine.render``; each ``sync.<what>`` span holds a place where the host
+waits for the card (a pageable copy to it, or a read of a device value).
 
 With --game it profiles the Dust2 game's step instead (``profile_game``:
 ``apps/dust2.Dust2Game`` at 640x400 unless --width and --height say
@@ -65,7 +79,7 @@ inside it), ``game.present_copy`` and ``game.shot`` (a shot's cast and
 read).  The module also holds ``FrameStats``, the game's rolling frame
 counters (host only), and the JAX module's timing and watchdog helpers:
 ``trace`` (a torch.profiler trace written as Chrome JSON) and
-``annotate`` (a named span), ``hard_sync`` (one data-dependent scalar
+``annotate`` (``span``), ``hard_sync`` (one data-dependent scalar
 read that waits for every queued launch, with a watchdog that raises
 ``DeviceSyncTimeout``), ``timed_frames`` (pipelined frames timed between
 two hard syncs) and ``arm_watchdog`` / ``watchdog`` (a thread dump and
@@ -81,14 +95,17 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import functools
 import json
 import os
 import statistics
 import sys
+import threading
 import time
 from typing import Dict, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -121,7 +138,6 @@ class FrameStats:
 
     def __init__(self, window: int = 120):
         self._times = collections.deque(maxlen=window)
-        self._stages: Dict[str, collections.deque] = {}
         self.pixels_per_frame = 0
         self.triangles_per_frame = 0
         self._last = None
@@ -138,16 +154,6 @@ class FrameStats:
         if triangles is not None:
             self.triangles_per_frame = triangles
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        """Per-stage host span: with stats.stage("render"): ..."""
-        dq = self._stages.setdefault(name, collections.deque(maxlen=120))
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dq.append(time.perf_counter() - t0)
-
     def _pct(self, sorted_times, q):
         if not sorted_times:
             return 0.0
@@ -158,7 +164,7 @@ class FrameStats:
         ts = sorted(self._times)
         mean = sum(ts) / len(ts) if ts else 0.0
         fps = 1.0 / mean if mean > 0 else 0.0
-        out = {
+        return {
             "fps": fps,
             "frame_ms_mean": mean * 1000.0,
             "frame_ms_p50": self._pct(ts, 0.50) * 1000.0,
@@ -166,21 +172,13 @@ class FrameStats:
             "mpixels_per_s": self.pixels_per_frame * fps / 1e6,
             "mtris_per_s": self.triangles_per_frame * fps / 1e6,
         }
-        for name, dq in self._stages.items():
-            if dq:
-                out[f"stage_{name}_ms"] = 1000.0 * sum(dq) / len(dq)
-        return out
 
     def debug_lines(self):
         c = self.counters()
-        lines = [f"{c['fps']:6.1f} fps   {c['frame_ms_mean']:6.2f} ms "
-                 f"(p99 {c['frame_ms_p99']:.2f})",
-                 f"{c['mpixels_per_s']:8.2f} Mpix/s  "
-                 f"{c['mtris_per_s']:8.2f} Mtris/s"]
-        for k, v in sorted(c.items()):
-            if k.startswith("stage_"):
-                lines.append(f"{k[6:]:>10s}: {v:6.2f} ms")
-        return lines
+        return [f"{c['fps']:6.1f} fps   {c['frame_ms_mean']:6.2f} ms "
+                f"(p99 {c['frame_ms_p99']:.2f})",
+                f"{c['mpixels_per_s']:8.2f} Mpix/s  "
+                f"{c['mtris_per_s']:8.2f} Mtris/s"]
 
 
 @contextlib.contextmanager
@@ -199,9 +197,107 @@ def trace(log_dir: str = "/tmp/srt_trace"):
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    """Named span inside a trace (shows up in the profiler timeline)."""
-    return torch.profiler.record_function(name)
+# What span() keeps while recording is on: calls, host ns and self ns by
+# name, and each thread's stack of open spans (the child ns of each).
+_totals: Dict[str, list] = {}
+_totals_lock = threading.Lock()
+_open = threading.local()
+_recording = [0]
+
+
+class span:
+    """A named host span: ``with span("frame.geometry"): ...`` or
+    ``@span("sim.agents")`` on a function.
+
+    Off (no torch profiler running and no ``recording()``), it reads one
+    flag and does nothing else: no torch op, no record_function, so it
+    costs nothing a CUDA graph would capture.  While the torch profiler
+    runs it opens ``torch.profiler.record_function(name)``, which puts the
+    span in the Chrome trace on the device activity's clock.  While
+    recording is on (the profiler runs, or inside ``recording()``) it
+    adds to ``span_totals()``: its calls, its host time and its self time
+    (host time less the time of the spans opened inside it on the same
+    thread).  One instance is open at most once at a time; the decorator
+    opens a fresh one a call."""
+
+    __slots__ = ("name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._t0 = None
+
+    def __enter__(self):
+        traced = _autograd_profiler._is_profiler_enabled
+        if not (traced or _recording[0]):
+            return self
+        self._rf = None
+        if traced:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        stack.append([0])
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self._t0 is None:
+            return False
+        host = time.perf_counter_ns() - self._t0
+        self._t0 = None
+        stack = _open.stack
+        child = stack.pop()[0]
+        if stack:
+            stack[-1][0] += host
+        with _totals_lock:
+            t = _totals.setdefault(self.name, [0, 0, 0])
+            t[0] += 1
+            t[1] += host
+            t[2] += host - child
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return spanned
+
+
+# The JAX module's name for a span inside a trace.
+annotate = span
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep span_totals() without the torch profiler (and without its
+    cost per op), for as long as the block runs."""
+    with _totals_lock:
+        _recording[0] += 1
+    try:
+        yield
+    finally:
+        with _totals_lock:
+            _recording[0] -= 1
+
+
+def span_totals() -> Dict[str, Dict[str, float]]:
+    """{name: {"calls", "host_ms", "self_ms"}} of every span closed while
+    recording was on since the last reset_span_totals()."""
+    with _totals_lock:
+        return {k: {"calls": c, "host_ms": h * 1e-6, "self_ms": s * 1e-6}
+                for k, (c, h, s) in _totals.items()}
+
+
+def reset_span_totals() -> None:
+    with _totals_lock:
+        _totals.clear()
 
 
 class DeviceSyncTimeout(RuntimeError):
@@ -432,17 +528,30 @@ def _wall_ms(step, frames, sync_each: bool) -> float:
     return (time.perf_counter() - t_all) * 1e3 / frames
 
 
+# Device activity: kernels, copies and fills on the card.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _busy_us(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(intervals):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy
+
+
 def trace_summary(trace: Dict, frames: int) -> Dict:
-    """Per-frame numbers from a chrome trace written by torch.profiler."""
+    """Per-frame numbers from a chrome trace written by torch.profiler,
+    for every span the trace holds."""
     ev = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
     kernels = [e for e in ev if e.get("cat") == "kernel"]
-    host = {s: 0.0 for s in SPANS}
-    window = {s: 0.0 for s in SPANS}
-    by_span = {s: 0.0 for s in SPANS}
+    host: Dict[str, float] = collections.defaultdict(float)
+    window: Dict[str, float] = collections.defaultdict(float)
+    by_span: Dict[str, float] = collections.defaultdict(float)
     gpu_spans = []
     for e in ev:
-        if e.get("name") not in host:
-            continue
         if e.get("cat") == "user_annotation":
             host[e["name"]] += e["dur"]
         elif e.get("cat") == "gpu_user_annotation":
@@ -462,46 +571,78 @@ def trace_summary(trace: Dict, frames: int) -> Dict:
     syncs = sum(1 for e in rt if "Synchronize" in e["name"])
     copies = sum(1 for e in ev if e.get("cat") == "gpu_memcpy"
                  and "HtoD" in e["name"])
+    # The traced window: from the first host call or span to the end of
+    # the last device activity; the device is idle where no kernel, copy
+    # or fill runs (overlapping ones count once).
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+              if e.get("cat") in DEVICE_CATS]
+    starts = [e["ts"] for e in ev if e.get("cat") in (
+        "user_annotation", "cuda_runtime", "cuda_driver")]
+    window_us = (max(hi for _, hi in device) - min(starts)
+                 if device and starts else 0.0)
     per = 1e-3 / frames
     by_name: Dict[str, float] = {}
     for k in kernels:
         by_name[k["name"]] = by_name.get(k["name"], 0.0) + k["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
-        "span_host_ms": {s: host[s] * per for s in SPANS},
-        "span_device_window_ms": {s: window[s] * per for s in SPANS},
-        "span_kernel_ms": {s: by_span[s] * per for s in SPANS},
+        "span_host_ms": {s: v * per for s, v in sorted(host.items())},
+        "span_device_window_ms": {s: v * per
+                                  for s, v in sorted(window.items())},
+        "span_kernel_ms": {s: v * per for s, v in sorted(by_span.items())},
         "kernel_ms": sum(k["dur"] for k in kernels) * per,
         "kernels": len(kernels) / frames,
         "launch_calls": launches / frames,
         "syncs": syncs / frames,
         "htod_copies": copies / frames,
         "top_kernels_ms": [(n[:80], v * per) for n, v in top],
+        "window_ms": window_us * per,
+        "device_idle_pct": (100.0 * (1.0 - _busy_us(device) / window_us)
+                            if window_us > 0 else None),
     }
+
+
+def _per_frame(totals: Dict, frames: int) -> Dict:
+    """span_totals() divided by the frames it covers."""
+    return {k: {"calls": v["calls"] / frames,
+                "host_ms": v["host_ms"] / frames,
+                "self_ms": v["self_ms"] / frames} for k, v in totals.items()}
 
 
 def profile(step, frames: int, path: str) -> Dict:
     """step(i) timed back to back and synchronised (30 calls each after 3
-    of warm-up), then traced over `frames` calls (the chrome trace to
-    `path`): the timings, trace_summary's numbers and the device's idle
-    share."""
+    of warm-up), back to back again over `frames` calls under recording()
+    (span_totals a frame, without the profiler), then traced over
+    `frames` calls (the chrome trace to `path`): the timings, each run's
+    span_totals a frame, and trace_summary's numbers."""
     _wall_ms(step, 3, True)                              # warm-up
     back_to_back = _wall_ms(step, 30, False)
     synced = _wall_ms(step, 30, True)
+    reset_span_totals()
+    with recording():
+        recorded_ms = _wall_ms(step, frames, False)
+    untraced = _per_frame(span_totals(), frames)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    reset_span_totals()
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
         for i in range(frames):
             step(i)
         torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3 / frames
+    traced = _per_frame(span_totals(), frames)
+    reset_span_totals()
     prof.export_chrome_trace(path)
     with open(path) as f:
         summary = trace_summary(json.load(f), frames)
     return {"frame_ms_back_to_back": back_to_back,
             "frame_ms_synchronised": synced, "profiled_frames": frames,
-            **summary,
-            "device_idle_share": 1.0 - summary["kernel_ms"] / synced}
+            "frame_ms_recording": recorded_ms, "frame_ms_traced": traced_ms,
+            "spans_recording": untraced, "spans_traced": traced,
+            **summary}
 
 
 def sim_programs() -> Dict:
@@ -731,4 +872,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # The spans the program opens live in the imported module, not in
+    # this __main__ copy of it: run main there.
+    from softwarerenderer_tpu_torch.utils.profiling import main as _main
+    sys.exit(_main())
