@@ -51,7 +51,10 @@ The capacity caps act in ``frame_setup`` as in JAX's render_frame:
 ``geom_cap`` before the geometry, ``active_cap`` after it, ``pair_cap``
 in the binning every binned route runs and ``global_cap`` in the tile
 kernels' inputs; ``active_cap_stats`` returns their counters as a third
-value.  ``shade_rate`` shades every r-th row on the opaque tile route.
+value.  ``Engine`` runs a scene with LOD levels at the scene's LOD bound
+as ``geom_cap`` where the caller sets none (exact: one level a mesh);
+render_frame and frame_setup apply only the caps they are given.
+``shade_rate`` shades every r-th row on the opaque tile route.
 ``render_frame_multiview`` (split screen) and ``render_frame_pip`` (an
 inset of a second camera) render each view as a render_frame, and
 ``Engine(rtt_passes=...)`` renders to texture first (engine.rtt).  A
@@ -1003,6 +1006,20 @@ def render_frame_with_spot_shadow(scene: Dict[str, torch.Tensor],
                         fragment_shader, fold=fold, posed=posed)
 
 
+def _lod_geom_bound(scene: Dict) -> int:
+    """The most input triangles a frame of a packed scene can draw when
+    its LOD levels leave some out of every frame: lod.suggested_geom_cap
+    (one level a mesh), or 0 where that is every triangle.  Counted on the
+    host once a scene (a device scene is read back once)."""
+    if "tri_lod_level" not in scene:
+        return 0
+    host = {k: np.asarray(scene[k].cpu() if torch.is_tensor(scene[k])
+                          else scene[k])
+            for k in ("tri_mesh_id", "tri_lod_level")}
+    bound = lod.suggested_geom_cap(host)
+    return bound if bound < host["tri_mesh_id"].shape[0] else 0
+
+
 def to_rgb8(color: torch.Tensor) -> torch.Tensor:
     """RGBA f32 -> RGB u8 (MainWindow.cs:236-240), on the device."""
     return (color[..., :3].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
@@ -1029,7 +1046,15 @@ class Engine(torch.nn.Module):
     through it.  rtt_passes: render-to-texture passes (engine.rtt.RttPass)
     run before each frame through engine.rtt.render_frame_rtt, each with
     its uniforms sub-dict uniforms[pass.uniforms_key], created here with
-    the pass's defaults; they do not combine with frame_fn."""
+    the pass's defaults; they do not combine with frame_fn.
+
+    On a scene with LOD levels and no params.geom_cap, every frame runs
+    at the scene's LOD bound (_lod_geom_bound) as its geom_cap: the
+    masked-in triangles are compacted before the geometry, which then
+    scales with the triangles a frame can draw.  One level is active a
+    mesh, so the cap never overflows and the frame is the uncapped one;
+    params stays as given, and active_cap_stats reports no counter for
+    this cap."""
 
     def __init__(self, scene: Dict, params: RenderParams,
                  vertex_shader: Callable = scene_vertex_shader,
@@ -1051,6 +1076,8 @@ class Engine(torch.nn.Module):
         self.vertex_shader = vertex_shader
         self.fragment_shader = fragment_shader
         self.frame_fn = frame_fn or render_frame
+        self._lod_bound = _lod_geom_bound(scene)
+        self._lod_params = (None, None)
         for k, v in scene_to_torch(scene, device).items():
             self.register_buffer(k, v, persistent=False)
         self.uniforms = default_frame_uniforms(params.width, params.height)
@@ -1066,14 +1093,32 @@ class Engine(torch.nn.Module):
     def scene(self) -> Dict[str, torch.Tensor]:
         return dict(self.named_buffers())
 
+    def frame_params(self) -> RenderParams:
+        """The params a frame runs with: self.params, with the scene's LOD
+        bound as geom_cap where the scene has one and params sets none."""
+        p = self.params
+        if not self._lod_bound or p.geom_cap:
+            return p
+        if self._lod_params[0] is not p:
+            self._lod_params = (p, p.replace(geom_cap=self._lod_bound))
+        return self._lod_params[1]
+
     def forward(self, uniforms: Optional[Dict] = None,
                 fb: Optional[tuple] = None):
         kw = {} if fb is None else {"fb": fb}
+        params = self.frame_params()
         with span("engine.render"):
-            return self.frame_fn(self.scene, uniforms or self.uniforms,
-                                 params=self.params,
-                                 vertex_shader=self.vertex_shader,
-                                 fragment_shader=self.fragment_shader, **kw)
+            out = self.frame_fn(self.scene, uniforms or self.uniforms,
+                                params=params,
+                                vertex_shader=self.vertex_shader,
+                                fragment_shader=self.fragment_shader, **kw)
+        if params is not self.params and len(out) == 3 \
+                and isinstance(out[2], dict):
+            # The bound cannot overflow: its counter is not the caller's.
+            stats = {k: v for k, v in out[2].items()
+                     if k != "geom_cap_overflow"}
+            return out[0], out[1], stats
+        return out
 
     def render(self, uniforms: Optional[Dict] = None,
                fb: Optional[tuple] = None):

@@ -73,8 +73,8 @@ def suggested_active_cap(scene: Dict) -> int:
     lvl = np.asarray(scene["tri_lod_level"])
     m = int(mesh_id.max()) + 1 if mesh_id.size else 0
     nl = int(lvl.max()) + 1 if lvl.size else 1
-    counts = np.zeros((m, nl), np.int64)
-    np.add.at(counts, (mesh_id, lvl), 1)
+    counts = np.bincount(mesh_id.astype(np.int64) * nl + lvl,
+                         minlength=m * nl).reshape(m, nl)
     return int(2 * counts.max(axis=1).sum())
 
 

@@ -30,9 +30,11 @@ LOD meshes over a normal-mapped floor) with the normal-mapped shaders at
 ``scenes.animated_uniforms(u, i)``, whose updates show as
 ``frame.vertex_updates``; with --crowd ``scripts/profile_lod.py``'s 4K
 crowd of LOD spheres (``scenes.lod_crowd_scene()``) at its camera,
-uncapped, at ``lod.suggested_active_cap`` or at the script's ladder of
-caps measured on frame 0 (``scenes.lod_cap_ladder``), whose compactions
-show as ``frame.geom_cap`` and ``frame.active_cap``.  Without --width and
+uncapped (no caps of the user's: ``Engine`` still compacts the input
+triangles to the scene's own LOD bound, ``lod.suggested_geom_cap``), at
+``lod.suggested_active_cap`` or at the script's ladder of caps measured
+on frame 0 (``scenes.lod_cap_ladder``), whose compactions show as
+``frame.geom_cap`` and ``frame.active_cap``.  Without --width and
 --height a frame is 1920x1080, config 5's and the crowd's 3840x2160.  With --sim
 it profiles the simulation instead, three programs (``sim_programs``):
 bench.py config 4's coupled step at 1280x720, a crowd step of
