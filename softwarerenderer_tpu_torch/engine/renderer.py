@@ -86,6 +86,7 @@ from softwarerenderer_tpu_torch.ops import texture as tex_ops
 from softwarerenderer_tpu_torch.ops import tile_raster
 from softwarerenderer_tpu_torch.sim import particles
 from softwarerenderer_tpu_torch.utils import mathlib as ml
+from softwarerenderer_tpu_torch.utils.staging import upload
 
 F32 = torch.float32
 
@@ -291,11 +292,12 @@ def on_device(x, dtype, device, name: str) -> torch.Tensor:
 
 
 def device_uniforms(uniforms: Dict, width: int, height: int,
-                    device) -> Dict[str, torch.Tensor]:
+                    device, staged: bool = False) -> Dict[str, torch.Tensor]:
     """The uniforms the frame reads on the device: the camera matrices,
     the shading uniforms and every other key the caller added (a shader's
     lights or texture, say).  Host arrays move in one host->device copy a
-    dtype, as each copy waits for the device; tensors and dicts move as
+    dtype, as each copy waits for the device, or with `staged` in one
+    pinned copy that does not wait (_stage); tensors and dicts move as
     they are."""
     view, proj = camera_matrices(uniforms, width, height)
     cam_dev = _camera_device(uniforms)
@@ -306,17 +308,34 @@ def device_uniforms(uniforms: Dict, width: int, height: int,
     f32 = {k: (host[k].to(torch.float32) if isinstance(host[k], torch.Tensor)
                else np.asarray(host[k], np.float32)).reshape(shape)
            for k, shape in _DEVICE_UNIFORMS}
-    return _upload({**f32, **{k: v for k, v in uniforms.items()
-                             if k not in f32 and k not in _HOST_UNIFORMS}},
-                   device, "sync.uniforms")
+    move = _stage if staged else _upload
+    return move({**f32, **{k: v for k, v in uniforms.items()
+                          if k not in f32 and k not in _HOST_UNIFORMS}},
+                device, "sync.uniforms")
 
 
 def post_uniforms(uniforms: Dict, device) -> Dict[str, torch.Tensor]:
     """The caller's uniforms as the post chain reads them (a callable
     stage gets them as its third argument): every key but mesh_visible
-    as device tensors, host arrays in one copy a dtype."""
-    return _upload({k: v for k, v in uniforms.items()
-                    if k != "mesh_visible"}, device, "sync.post_uniforms")
+    as device tensors, staged (_stage), so the chain is issued while the
+    frame under it still runs."""
+    return _stage({k: v for k, v in uniforms.items()
+                   if k != "mesh_visible"}, device, "sync.post_uniforms")
+
+
+def _stage(uniforms: Dict, device, name: str) -> Dict[str, torch.Tensor]:
+    """_upload's tensors, the host arrays in one pinned copy that does not
+    wait for the card (utils.staging.upload); tensors and dicts move as
+    they are, in the span `name` (a host tensor's move waits)."""
+    host = {k: v for k, v in uniforms.items()
+            if not isinstance(v, (torch.Tensor, dict))}
+    moved = {}
+    if len(host) < len(uniforms):
+        with span(name):
+            moved = {k: _to_device(v, device) for k, v in uniforms.items()
+                     if k not in host}
+    staged = upload(host, device)
+    return {k: moved[k] if k in moved else staged[k] for k in uniforms}
 
 
 def _upload(uniforms: Dict, device, name: str) -> Dict[str, torch.Tensor]:
@@ -541,7 +560,7 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
                 vertex_shader: Callable = scene_vertex_shader,
                 fragment_shader: Callable = scene_fragment_shader,
                 fb: Optional[tuple] = None,
-                posed: Optional[Dict] = None) -> Dict:
+                posed: Optional[Dict] = None, staged: bool = False) -> Dict:
     """Everything a route takes for one frame: {"tris": the set-up
     triangles, "uniforms": the device uniforms the shaders read,
     "per_tri": the per-triangle extras, "fb_color" and "fb_depth": the
@@ -553,7 +572,9 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
     what the caller computed of the frame's geometry (posed_geometry at
     params.height); a missing entry is computed here.  A scene with a
     "tri_valid" entry (parallel.shard_scene_triangles' mask of real
-    triangles) draws only those.
+    triangles) draws only those.  staged: the uniforms' host arrays cross
+    without waiting for the card (device_uniforms), for a caller that
+    paces the host itself (post_chained).
 
     The caps, as JAX's render_frame applies them: params.geom_cap
     compacts the masked-in input triangles (and their texture, mesh and
@@ -564,7 +585,7 @@ def frame_setup(scene: Dict[str, torch.Tensor], uniforms: Dict,
     H, W = params.height, params.width
     dev = scene["position"].device
     with span("frame.camera_cull"):
-        u = device_uniforms(uniforms, W, H, dev)
+        u = device_uniforms(uniforms, W, H, dev, staged)
         view_proj = ml.transform(u["view"], u["projection"])     # V·P
         visible = culling.spheres_in_frustum(
             scene["bounds_center"], scene["bounds_radius"],
@@ -676,7 +697,8 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
                  vertex_shader: Callable = scene_vertex_shader,
                  fragment_shader: Callable = scene_fragment_shader,
                  fold: Optional[Callable] = None,
-                 fb: Optional[tuple] = None, posed: Optional[Dict] = None):
+                 fb: Optional[tuple] = None, posed: Optional[Dict] = None,
+                 staged: bool = False):
     """One frame over a packed scene already on the device
     (models.convert.scene_to_torch), drawn with the given shaders over
     fb = (color (H, W, 4), depth (H, W)), the cleared framebuffer by
@@ -695,7 +717,9 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
     fold: the tile fold the tile routes run, tile_raster.tile_fold by
     default; tile_raster.tile_fold_plain renders the same frame through
     the plain twins.  posed: the frame's posed geometry (posed_geometry)
-    when the caller shares it with its light passes."""
+    when the caller shares it with its light passes.  staged: as
+    frame_setup's; a frame with a post chain chooses it itself
+    (post_chained)."""
     check_supported(params, uniforms)
     shaders_kw = dict(vertex_shader=vertex_shader,
                       fragment_shader=fragment_shader, fold=fold)
@@ -710,14 +734,15 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
         # The vertices carry over; the LOD levels are the f×-high frame's.
         return supersampled(lambda hi: render_frame(
             scene, uniforms, hi, fb=fb, posed={"vin": posed.get("vin")},
-            **shaders_kw), params, dev)
+            staged=staged, **shaders_kw), params, dev)
     chain = enabled_post_fx(params, uniforms)
     if chain:
+        paced = _paces(uniforms, dev)
         return post_chained(lambda u2, base: render_frame(
-            scene, u2, base, fb=fb, posed=posed, **shaders_kw),
-            uniforms, params, chain, dev)
+            scene, u2, base, fb=fb, posed=posed, staged=paced,
+            **shaders_kw), uniforms, params, chain, dev)
     f = frame_setup(scene, uniforms, params, vertex_shader, fragment_shader,
-                    fb, posed)
+                    fb, posed, staged)
     out = _route(f, fragment_shader, params, fold)
     if not params.active_cap_stats:
         return out
@@ -743,10 +768,13 @@ def render_frame(scene: Dict[str, torch.Tensor], uniforms: Dict,
 
 def supersampled(render: Callable, params: RenderParams, device):
     """The params.ssaa = f frame: render(params at f× in each axis, ssaa
-    1) box-filtered down, depth taken at every f-th sample."""
+    1) box-filtered down, depth taken at every f-th sample.  The inner
+    frame runs in the span frame.ssaa, the filter in frame.ssaa_resolve."""
     f = params.ssaa
-    color, depth = render(params.replace(width=params.width * f,
-                                         height=params.height * f, ssaa=1))
+    with span("frame.ssaa"):
+        color, depth = render(params.replace(width=params.width * f,
+                                             height=params.height * f,
+                                             ssaa=1))
     with span("frame.ssaa_resolve"):
         H, W = params.height, params.width
         n = torch.full((), float(f * f), device=device)
@@ -754,12 +782,38 @@ def supersampled(render: Callable, params: RenderParams, device):
         return color, depth[::f, ::f]
 
 
+def _holds_host(tree) -> bool:
+    """Whether a uniform, or a dict of them, holds a value that is not a
+    CUDA tensor (its move to the card waits for it)."""
+    if isinstance(tree, dict):
+        return any(_holds_host(v) for v in tree.values())
+    return not (isinstance(tree, torch.Tensor) and tree.is_cuda)
+
+
+def _paces(uniforms: Dict, device) -> bool:
+    """Whether post_chained paces the host: on a card, where the uniforms
+    hold a host value (the frame would wait for their upload anyway)."""
+    return torch.device(device).type == "cuda" and _holds_host(uniforms)
+
+
 def post_chained(render: Callable, uniforms: Dict, params: RenderParams,
                  chain: tuple, device):
     """The post chain (enabled_post_fx) over render(uniforms, params) of
     the base frame: every effect stripped from params (callable stages
     too, or it would recurse); in the sky branch the shaders still see
-    the panorama as env_panorama (PBR's reflections)."""
+    the panorama as env_panorama (PBR's reflections).  The chain, with
+    its uniforms' upload, runs in the span frame.post, each stage in its
+    own post.<stage>.
+
+    Nothing in the chain waits for the card while it is issued.  On a
+    card, where the uniforms hold host values (_paces), the host waits
+    once, in sync.post_chain, until the second half of the chain (from
+    stage len // 2) has begun: the caller's present and the next frame's
+    set-up overlap that half, so the card does not wait for the host, and
+    the next frame's inputs are read no more than that half ahead of the
+    card.  render_frame then stages the base frame's uniforms too, so
+    that this is the frame's one wait.  Uniforms all on the card (the
+    game's staged ones) keep frames in flight with no wait."""
     base = params.replace(
         tonemap=None, bloom=False, ssao=False, fxaa=False,
         post_fx=tuple(f for f in params.post_fx if isinstance(f, str)))
@@ -768,12 +822,20 @@ def post_chained(render: Callable, uniforms: Dict, params: RenderParams,
         u2 = {k: v for k, v in uniforms.items() if k != "sky_panorama"}
         u2["env_panorama"] = uniforms["sky_panorama"]
     color, depth = render(u2, base)
-    pu = post_uniforms(uniforms, device)
-    for fx in chain:
-        with span("post.callable" if callable(fx)
-                             else f"post.{fx}"):
-            color, depth = apply_post_fx(fx, color, depth, uniforms, pu,
-                                         params)
+    paced = _paces(uniforms, device)
+    last = None
+    with span("frame.post"):
+        pu = post_uniforms(uniforms, device)
+        for i, fx in enumerate(chain):
+            if paced and i == len(chain) // 2:
+                last = torch.cuda.Event()
+                last.record(torch.cuda.current_stream(device))
+            with span("post.callable" if callable(fx) else f"post.{fx}"):
+                color, depth = apply_post_fx(fx, color, depth, uniforms, pu,
+                                             params)
+        if last is not None:
+            with span("sync.post_chain"):
+                last.synchronize()
     return color, depth
 
 

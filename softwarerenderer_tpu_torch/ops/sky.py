@@ -17,7 +17,7 @@ import torch
 from softwarerenderer_tpu_torch.ops import texture
 from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
 from softwarerenderer_tpu_torch.utils import mathlib as ml
-from softwarerenderer_tpu_torch.utils.profiling import span
+from softwarerenderer_tpu_torch.utils.staging import upload
 
 F32 = np.float32
 
@@ -30,7 +30,8 @@ def pixel_ray_directions(uniforms, width: int, height: int,
     perspective.
 
     The camera basis, the half extents and the W + H screen coordinates are
-    computed on the host and uploaded in one copy; only the (H, W) combine
+    computed on the host and uploaded in one pinned copy that does not wait
+    for the card (utils.staging.upload); only the (H, W) combine
     and the normalization run on the device, whose divisor is a device
     tensor (CUDA divides by a host scalar as a multiply by its reciprocal,
     which is not x / W in every bit)."""
@@ -46,8 +47,7 @@ def pixel_ray_directions(uniforms, width: int, height: int,
     ys = F32(1.0) - np.arange(height, dtype=F32) / F32(height) * F32(2.0)
     packed = torch.cat([front, up, right, th.reshape(1), tw.reshape(1),
                         torch.from_numpy(xs), torch.from_numpy(ys)])
-    with span("sync.sky_rays"):
-        packed = packed.to(device)
+    packed = upload(packed.numpy(), device)
     front, up, right = packed[0:3], packed[3:6], packed[6:9]
     th, tw = packed[9], packed[10]
     xs, ys = packed[11:11 + width], packed[11 + width:]
