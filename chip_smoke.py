@@ -63,13 +63,16 @@ drives the port's paths at 1080p (config 5 at 4K):
   * the image-quality frames (phase 20): the bench frame at 1920x1080 with
     ``ssaa=2`` (K1 once a frame at 3840x2160), trilinear mips, the whole
     post chain (SSAO, bloom, ACES, FXAA) and a seeded sky panorama, 10
-    counted frames, frame 0 against the plain path, K1 at that size
-    against its twin beside its bound, the frame's launches and host syncs
-    by the profiler and what the post chain adds; goldens feature_mips
-    (against the same frame on the CPU), _trilinear, _ssaa and _ssao; the
-    ray-traced bench frame under the sky (K4 1 + 1 a frame, frame 0
-    against K4's twin); a PBR frame with env_panorama and env_irradiance
-    at 320x180 against the CPU's;
+    counted frames with one launch of each post kernel
+    (``csrc/post_fx.cu``) a frame, frame 0 against the plain path; each
+    post kernel alone at 3840x2160 against its twin, timed beside its
+    byte bound and its twin (ptxas's registers and spills in phase 2); K1
+    at that size against its twin beside its bound, the frame's launches
+    and host syncs by the profiler and what the post chain adds; goldens
+    feature_mips (against the same frame on the CPU), _trilinear, _ssaa
+    and _ssao; the ray-traced bench frame under the sky (K4 1 + 1 a
+    frame, frame 0 against K4's twin); a PBR frame with env_panorama and
+    env_irradiance at 320x180 against the CPU's;
   * the animated frame (phase 21): ``scenes.animated_scene()`` (a
     normal-mapped floor, 64 skinned tentacles of 3 bones, 8 flip-book
     meshes, 4 morphing meshes, a 1,024-slot particle emitter, 16 meshes of
@@ -761,7 +764,13 @@ def report_ptxas(output: str) -> None:
              "vis_fold_kernelILb0ELb0E": "K5 vis_fold_kernel",
              "vis_fold_kernelILb1ELb1E": "K5m vis_fold_kernel<one column a "
                                          "thread, mapped>",
-             "vis_fold_kernelILb0ELb1E": "K5m vis_fold_kernel<mapped>"}
+             "vis_fold_kernelILb0ELb1E": "K5m vis_fold_kernel<mapped>",
+             "sky_kernelILb1E": "post sky_kernel<uint8 panorama>",
+             "sky_kernelILb0E": "post sky_kernel<float32 panorama>",
+             "ssao_kernel": "post ssao_kernel",
+             "bloom_kernel": "post bloom_kernel",
+             "tonemap_kernel": "post tonemap_kernel",
+             "fxaa_kernel": "post fxaa_kernel"}
     fn = "?"
     for line in output.splitlines():
         if "Compiling entry function" in line:
@@ -2289,7 +2298,8 @@ def check_image_quality_frames(card, device="cuda", size=(W, H)) -> None:
     from softwarerenderer_tpu_torch import RenderParams, scenes
     from softwarerenderer_tpu_torch.engine import (
         Engine, render_frame, scene_fragment_shader_trilinear)
-    from softwarerenderer_tpu_torch.ops import rt_sweep, tile_raster
+    from softwarerenderer_tpu_torch.ops import (post_kernels, rt_sweep,
+                                                tile_raster)
     from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
     from softwarerenderer_tpu_torch.ops.raytrace import render_frame_raytraced
     w, h = size
@@ -2304,9 +2314,15 @@ def check_image_quality_frames(card, device="cuda", size=(W, H)) -> None:
         return dict(scenes.camera_uniforms(eng.uniforms, i),
                     sky_panorama=pano)
 
+    post_kernels.LAUNCHES.update(dict.fromkeys(post_kernels.STAGES, 0))
     run = counted_frames(lambda i: eng.render(u_at(i)), IQ_FRAMES, size)
     check(run["k1"] == [1] * IQ_FRAMES and run["k5"] == [0] * IQ_FRAMES,
           f"image-quality frame: K1 launches {run['k1']}, K5 {run['k5']}")
+    check(post_kernels.LAUNCHES == dict.fromkeys(post_kernels.STAGES,
+                                                 IQ_FRAMES),
+          f"image-quality frame: post kernel launches "
+          f"{post_kernels.LAUNCHES} in {IQ_FRAMES} frames")
+    post_launches = sum(post_kernels.LAUNCHES.values())
     plain = render_frame(eng.scene, u_at(0), params,
                          fragment_shader=trilinear,
                          fold=tile_raster.tile_fold_plain)
@@ -2345,7 +2361,8 @@ def check_image_quality_frames(card, device="cuda", size=(W, H)) -> None:
     bare_prof = frame_kernel_ms(lambda: bare_eng.render(bare_u), 5)
     log(f"phase 20 image-quality frame @{w}x{h}, ssaa=2 (K1 at {2 * w}x"
         f"{2 * h}), trilinear, SSAO, bloom, ACES, FXAA, sky: {IQ_FRAMES} "
-        f"frames, K1 launches {sum(run['k1'])}, "
+        f"frames, K1 launches {sum(run['k1'])}, post kernel launches "
+        f"{post_launches} (1 a stage a frame), "
         f"{timing_text(run, prof, w, h)}; {prof['launches']:.0f} launches "
         f"and {prof['syncs']:.1f} host syncs a frame; without the post "
         f"chain and sky {bare_prof['launches']:.0f} launches, kernels "
@@ -2457,6 +2474,65 @@ def check_image_quality_frames(card, device="cuda", size=(W, H)) -> None:
     check(n_c <= PBR_ENV_CPU_MISMATCH_MAX * n_cov and err <= 1e-3
           and n_d == 0, f"PBR environment frame card vs CPU: {n_c} color, "
           f"{n_d} depth pixels differ")
+
+
+def check_post_kernels(card, device="cuda", size=(2 * W, 2 * H)) -> dict:
+    """Phase 20: each post kernel (csrc/post_fx.cu) alone at `size`, the
+    image-quality frame's supersampled size, on the bench frame's color and
+    depth at that size with the trilinear shader under a seeded sky, each
+    stage fed the one before it as in the chain: equal to its plain twin
+    on every value, timed with CUDA events (median of KERNEL_RUNS) beside
+    its byte bound (every input read once, the frame written once) and
+    its twin (median of PLAIN_RUNS).  Returns {stage: numbers}."""
+    from softwarerenderer_tpu_torch import RenderParams, scenes
+    from softwarerenderer_tpu_torch.engine import (
+        Engine, scene_fragment_shader_trilinear)
+    from softwarerenderer_tpu_torch.engine.renderer import post_uniforms
+    from softwarerenderer_tpu_torch.ops import (bloom, fxaa, post_kernels,
+                                                sky, ssao, tonemap)
+    w, h = size
+    eng = Engine(scenes.bench_scene(),
+                 RenderParams(w, h, use_mipmaps="trilinear"), device=device,
+                 fragment_shader=scene_fragment_shader_trilinear)
+    u = dict(scenes.camera_uniforms(eng.uniforms, 0),
+             sky_panorama=scenes.sky_panorama())
+    pu = post_uniforms(u, device)
+    color, depth = eng.render(u)
+    rays = sky.ray_basis(u, w, h, device)
+    # The sky's kernel is timed alone: composite_sky computes and stages
+    # its camera basis on the host first, which the events would count.
+    stages = (
+        ("sky", lambda c: post_kernels.sky(c, depth, rays,
+                                           pu["sky_panorama"]),
+         lambda c: sky.composite_sky_plain(c, depth, u,
+                                           pu["sky_panorama"])[0],
+         (depth, pu["sky_panorama"], rays)),
+        ("ssao", lambda c: ssao.apply_ssao(c, depth, pu)[0],
+         lambda c: ssao.apply_ssao_plain(c, depth, pu)[0], (depth,)),
+        ("bloom", lambda c: bloom.apply_bloom(c),
+         lambda c: bloom.apply_bloom_plain(c), ()),
+        ("tonemap", lambda c: tonemap.apply_tonemap(c, "aces", pu),
+         lambda c: tonemap.apply_tonemap_plain(c, "aces", pu), ()),
+        ("fxaa", lambda c: fxaa.apply_fxaa(c),
+         lambda c: fxaa.apply_fxaa_plain(c), ()))
+    out = {}
+    for name, kernel, twin, more in stages:
+        got, want = kernel(color), twin(color)
+        n_off = int((got != want).sum())
+        check(n_off == 0, f"post {name} kernel at {w}x{h}: {n_off} values "
+              f"differ from its twin, max "
+              f"{float((got - want).abs().max()):.3g}")
+        ms = cuda_ms(lambda: kernel(color), KERNEL_RUNS)
+        plain_ms = cuda_ms(lambda: twin(color), PLAIN_RUNS)
+        b = bound(nbytes(color, got, *more), 0.0)
+        out[name] = dict(b, ms=ms, plain_ms=plain_ms, max_abs_err=0.0)
+        log(f"phase 20 post kernel {name} @{w}x{h}: equal to its twin on "
+            f"every value; kernel {ms:.4f} ms (median of {KERNEL_RUNS}), "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+            f"{100 * b['bound_ms'] / ms:.1f} % of it; twin {plain_ms:.3f} "
+            f"ms (median of {PLAIN_RUNS}) [{card}]")
+        color = got
+    return out
 
 
 # Phase 21: the animated frame (scenes.animated_scene).
@@ -5389,7 +5465,7 @@ def build_kernels() -> None:
     from softwarerenderer_tpu_torch.kernels import build
     t0 = time.perf_counter()
     libs = build.build_all(["tile_raster", "tile_kdeep", "rt_sweep",
-                            "vis_fold"])
+                            "vis_fold", "post_fx"])
     build_s = time.perf_counter() - t0
     log(f"phase 2 build: {', '.join(p.name for p in libs.values())} in "
         f"{build_s:.2f} s (one nvcc per source, in parallel)")
@@ -5630,6 +5706,7 @@ def main() -> int:
 
     # ---- phase 20: the image-quality frames ----------------------------
     check_image_quality_frames(card)
+    check_post_kernels(card)
 
     # ---- phase 21: the animated frame ------------------------------------
     check_animated_frames(card)

@@ -8,7 +8,9 @@ the mean of the two neighbours across the edge (the orientation from the
 second differences), by the smoothstep of its normalised distance from
 the neighbourhood mean, squared and capped at ``subpix_cap``.  The edge
 search of full FXAA is left out, as in JAX.  Its compares can flip on one
-ulp of luma, so a frame may differ from JAX's on a few edge pixels.
+ulp of luma, so a frame may differ from JAX's on a few edge pixels.  On
+the card the stage is one kernel (ops/post_kernels.fxaa), whose plain
+twin is ``apply_fxaa_plain``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from softwarerenderer_tpu_torch.ops import post_kernels
 from softwarerenderer_tpu_torch.ops.ssao import shift
 
 F32 = np.float32
@@ -29,7 +32,20 @@ def luma(rgb: torch.Tensor) -> torch.Tensor:
 
 def apply_fxaa(color: torch.Tensor, abs_threshold=1.0 / 24.0,
                rel_threshold=1.0 / 8.0, subpix_cap=0.75) -> torch.Tensor:
-    """Anti-alias an (H, W, 4) frame; alpha passes through."""
+    """Anti-alias an (H, W, 4) frame; alpha passes through.  CUDA tensors
+    launch csrc/post_fx.cu's FXAA kernel (ops/post_kernels.fxaa), CPU
+    tensors run apply_fxaa_plain."""
+    if not color.is_cuda:
+        return apply_fxaa_plain(color, abs_threshold, rel_threshold,
+                                subpix_cap)
+    return post_kernels.fxaa(color, abs_threshold, rel_threshold,
+                             subpix_cap)
+
+
+def apply_fxaa_plain(color: torch.Tensor, abs_threshold=1.0 / 24.0,
+                     rel_threshold=1.0 / 8.0,
+                     subpix_cap=0.75) -> torch.Tensor:
+    """apply_fxaa in plain PyTorch, the FXAA kernel's twin."""
     rgb = color[..., :3]
     c = luma(rgb)
     n, s = shift(c, -1, 0), shift(c, 1, 0)

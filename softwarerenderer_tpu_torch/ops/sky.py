@@ -3,7 +3,9 @@
 Counterpart of ``softwarerenderer_tpu/ops/sky.py``:
 ``pixel_ray_directions``, ``sample_panorama`` (a bilinear lat-long lookup
 by direction), ``composite_sky`` (the panorama on every pixel the frame
-left at clear depth, the "sky" stage of the post chain) and
+left at clear depth, the "sky" stage of the post chain: on the card one
+kernel, ``ops/post_kernels.sky``, whose plain twin is
+``composite_sky_plain``) and
 ``irradiance_panorama``, the host (numpy) cosine convolution that makes
 PBR's ``env_irradiance`` map, copied from the JAX module.  A panorama is
 an (H, W, 4) float32 or uint8 array.
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from softwarerenderer_tpu_torch.ops import texture
+from softwarerenderer_tpu_torch.ops import post_kernels, texture
 from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
 from softwarerenderer_tpu_torch.utils import mathlib as ml
 from softwarerenderer_tpu_torch.utils.staging import upload
@@ -22,19 +24,13 @@ from softwarerenderer_tpu_torch.utils.staging import upload
 F32 = np.float32
 
 
-def pixel_ray_directions(uniforms, width: int, height: int,
-                         device) -> torch.Tensor:
-    """World-space view ray direction per pixel, (H, W, 3) float32 on
-    `device`, matching the raster projection: pixel centres at integer
-    coordinates, Y-down screen to Y-up NDC, the vertical FOV of the .NET
-    perspective.
-
-    The camera basis, the half extents and the W + H screen coordinates are
-    computed on the host and uploaded in one pinned copy that does not wait
-    for the card (utils.staging.upload); only the (H, W) combine
-    and the normalization run on the device, whose divisor is a device
-    tensor (CUDA divides by a host scalar as a multiply by its reciprocal,
-    which is not x / W in every bit)."""
+def ray_basis(uniforms, width: int, height: int, device) -> torch.Tensor:
+    """What pixel_ray_directions combines, (11 + W + H,) float32 on
+    `device`: the camera's front, up and right, the half extents th and
+    tw, then the W + H screen coordinates xs and ys (pixel centres at
+    integer coordinates, Y-down screen to Y-up NDC, the vertical FOV of
+    the .NET perspective).  Computed on the host and uploaded in one
+    pinned copy that does not wait for the card (utils.staging.upload)."""
     rot = torch.from_numpy(np.asarray(uniforms["camera_rotation"], F32))
     front = ml.quat_rotate(torch.tensor([0.0, 0.0, -1.0]), rot)
     up = ml.quat_rotate(torch.tensor([0.0, 1.0, 0.0]), rot)
@@ -47,7 +43,16 @@ def pixel_ray_directions(uniforms, width: int, height: int,
     ys = F32(1.0) - np.arange(height, dtype=F32) / F32(height) * F32(2.0)
     packed = torch.cat([front, up, right, th.reshape(1), tw.reshape(1),
                         torch.from_numpy(xs), torch.from_numpy(ys)])
-    packed = upload(packed.numpy(), device)
+    return upload(packed.numpy(), device)
+
+
+def pixel_ray_directions(uniforms, width: int, height: int,
+                         device) -> torch.Tensor:
+    """World-space view ray direction per pixel, (H, W, 3) float32 on
+    `device`: ray_basis's (H, W) combine and normalization, on the device,
+    whose divisor is a device tensor (CUDA divides by a host scalar as a
+    multiply by its reciprocal, which is not x / W in every bit)."""
+    packed = ray_basis(uniforms, width, height, device)
     front, up, right = packed[0:3], packed[3:6], packed[6:9]
     th, tw = packed[9], packed[10]
     xs, ys = packed[11:11 + width], packed[11 + width:]
@@ -76,7 +81,19 @@ def composite_sky(color: torch.Tensor, depth: torch.Tensor, uniforms,
                   panorama: torch.Tensor):
     """(color, depth) with every clear-depth pixel replaced by the
     panorama's sample along its view ray (alpha 1 from the panorama);
-    the camera comes from the host `uniforms`."""
+    the camera comes from the host `uniforms`.  CUDA tensors launch
+    csrc/post_fx.cu's sky kernel (ops/post_kernels.sky), CPU tensors run
+    composite_sky_plain."""
+    if not depth.is_cuda:
+        return composite_sky_plain(color, depth, uniforms, panorama)
+    H, W = depth.shape
+    rays = ray_basis(uniforms, W, H, device=depth.device)
+    return post_kernels.sky(color, depth, rays, panorama), depth
+
+
+def composite_sky_plain(color: torch.Tensor, depth: torch.Tensor, uniforms,
+                        panorama: torch.Tensor):
+    """composite_sky in plain PyTorch, the sky kernel's twin."""
     H, W = depth.shape
     dirs = pixel_ray_directions(uniforms, W, H, device=depth.device)
     sky = sample_panorama(panorama, dirs)

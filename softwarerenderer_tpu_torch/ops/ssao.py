@@ -8,7 +8,9 @@ direction pairs at radii 1, 2 and 4, and pixels whose neighbourhood is
 nearer on both sides of a pair (creases, contact lines) darken.
 Neighbours are edge-replicated shifts (``shift``), which ops.bloom and
 ops.fxaa share.  Every division has a tensor divisor: CUDA divides by a
-host scalar as a multiply by its reciprocal, which rounds once more.
+host scalar as a multiply by its reciprocal, which rounds once more.  On
+the card the stage is one kernel (ops/post_kernels.ssao), whose plain
+twin is ``apply_ssao_plain``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from softwarerenderer_tpu_torch.ops import post_kernels
 from softwarerenderer_tpu_torch.ops.raster import DEPTH_CLEAR
 
 F32 = np.float32
@@ -78,10 +81,27 @@ def compute_ssao(depth: torch.Tensor, uniforms: Dict, radii=(1, 2, 4),
 
 
 def apply_ssao(color: torch.Tensor, depth: torch.Tensor, uniforms: Dict,
-               strength: float = 0.9, **kw):
+               strength: float = 0.9, radii=(1, 2, 4), range_frac=0.02,
+               bias_frac=0.002):
     """(color, depth) with covered pixels darkened by the occlusion;
-    clear-depth pixels pass through."""
-    ao = compute_ssao(depth, uniforms, **kw)
+    clear-depth pixels pass through.  CUDA tensors launch
+    csrc/post_fx.cu's SSAO kernel (ops/post_kernels.ssao), CPU tensors
+    run apply_ssao_plain."""
+    if not depth.is_cuda:
+        return apply_ssao_plain(color, depth, uniforms, strength, radii,
+                                range_frac, bias_frac)
+    return post_kernels.ssao(
+        color, depth, uniforms["near_clip"], uniforms["far_clip"],
+        strength=strength, radii=radii, range_frac=range_frac,
+        bias_frac=bias_frac), depth
+
+
+def apply_ssao_plain(color: torch.Tensor, depth: torch.Tensor,
+                     uniforms: Dict, strength: float = 0.9, radii=(1, 2, 4),
+                     range_frac=0.02, bias_frac=0.002):
+    """apply_ssao in plain PyTorch, the SSAO kernel's twin."""
+    ao = compute_ssao(depth, uniforms, radii=radii, range_frac=range_frac,
+                      bias_frac=bias_frac)
     covered = depth != DEPTH_CLEAR
     shade = 1.0 - float(F32(strength)) * ao
     rgb = color[..., :3] * torch.where(covered, shade, 1.0)[..., None]
