@@ -80,12 +80,12 @@ drives the port's paths at 1080p (config 5 at 4K):
     stepping 1/60 s: 10 counted frames with one K1 launch each, frame 0
     against the plain path, the vertex updates and LOD mask equal to the
     CPU's on every value at 320x180 (and the LOD levels at 1080 rows), the
-    frame's launches, syncs and ``frame.vertex_updates`` span by the
-    profiler; its directional shadowed frame (512-texel map, K1 + K5 1 + 1
-    a frame, the light pass's K5 map equal to the plain fold, two poses'
-    maps different); K1 on the frame's inputs and K5 on the light pass's
-    against their twins, timed beside their bounds; golden
-    feature_skinning;
+    frame's launches and syncs by the profiler and its
+    ``frame.vertex_updates`` span's host and kernel time; its directional
+    shadowed frame (512-texel map, K1 + K5 1 + 1 a frame, the light pass's
+    K5 map equal to the plain fold, two poses' maps different); K1 on the
+    frame's inputs and K5 on the light pass's against their twins, timed
+    beside their bounds; golden feature_skinning;
   * the simulation (phase 22): bench.py config 4's coupled step
     (``scenes.coupled_step``: the collision world built in the step, the
     character controller, the frame at 1280x720) for 240 steps from
@@ -2605,13 +2605,14 @@ def check_animated_frames(card, device="cuda", size=(W, H)) -> dict:
     the vertex updates (positions, normals, tangents, colors) and the LOD
     mask against the same calls on the CPU at ANIMATED_CPU_SIZE and the
     meshes' levels at both heights, every value equal; the frame's
-    launches, host syncs and frame.vertex_updates span by the profiler,
-    and what the updates launch alone; the directional shadowed frame of
-    the same scene with a 512-texel map, K1 + K5 1 + 1 a frame, frame 0's
-    light pass through K5 against the plain fold on every texel, K5 on
-    that pass's inputs against its twin, timed beside its bound, frame 0
-    against the plain path, the light maps of two poses different; golden
-    feature_skinning."""
+    launches and host syncs by the profiler, the frame.vertex_updates
+    span's host time under profiling.recording() and its kernel time by
+    the profiler, and what the updates launch alone; the directional
+    shadowed frame of the same scene with a 512-texel map, K1 + K5 1 + 1 a
+    frame, frame 0's light pass through K5 against the plain fold on every
+    texel, K5 on that pass's inputs against its twin, timed beside its
+    bound, frame 0 against the plain path, the light maps of two poses
+    different; golden feature_skinning."""
     from softwarerenderer_tpu_torch import RenderParams, scenes
     from softwarerenderer_tpu_torch.engine import Engine, render_frame
     from softwarerenderer_tpu_torch.engine.renderer import (
@@ -2622,6 +2623,7 @@ def check_animated_frames(card, device="cuda", size=(W, H)) -> dict:
                                                 normalmap, shadows,
                                                 tile_raster, vis_fold)
     from softwarerenderer_tpu_torch.utils import profiling
+    from portbench import tracesum
     w, h = size
     params = RenderParams(w, h)
     shaders = dict(vertex_shader=normalmap.normal_mapped_vertex_shader,
@@ -2681,10 +2683,19 @@ def check_animated_frames(card, device="cuda", size=(W, H)) -> dict:
 
     prof = frame_kernel_ms(lambda: eng.render(u_at(0)), 5)
     prof["syncs"] = host_syncs(lambda i: eng.render(u_at(i)), 3)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    span = "frame.vertex_updates"
     eng.render(u_at(0))
     torch.cuda.synchronize()
+    profiling.reset_span_totals()
+    with profiling.recording():
+        for i in range(5):
+            eng.render(u_at(i))
+        torch.cuda.synchronize()
+    spans = {"span_host_ms": {
+        k: v["host_ms"] / 5 for k, v in profiling.span_totals().items()}}
+    profiling.reset_span_totals()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as trace:
         for i in range(5):
             eng.render(u_at(i))
@@ -2693,7 +2704,8 @@ def check_animated_frames(card, device="cuda", size=(W, H)) -> dict:
         path = os.path.join(tmp, "trace.json")
         trace.export_chrome_trace(path)
         with open(path) as f:
-            spans = profiling.trace_summary(json.load(f), 5)
+            spans["span_kernel_ms"] = tracesum.summarize(
+                json.load(f), 5, (span,), {})["span_kernel_ms"]
     du = device_uniforms(u_at(0), w, h, device)
 
     def updates():
@@ -2701,16 +2713,14 @@ def check_animated_frames(card, device="cuda", size=(W, H)) -> dict:
     upd = frame_kernel_ms(updates, 5)
     upd["syncs"] = host_syncs(lambda i: updates(), 3)
     upd_ms = cuda_ms(updates, KERNEL_RUNS)
-    span = "frame.vertex_updates"
     log(f"phase 21 animated frame @{w}x{h} (64 skinned tentacles, 15,360 "
         f"skinned vertices, 8 flip-books, 4 morphs, 1,024 particles, 16 LOD "
         f"meshes, normal-mapped): {ANIMATED_FRAMES} frames, K1 launches "
         f"{sum(run['k1'])}, {timing_text(run, prof, w, h)}; "
         f"{prof['launches']:.0f} launches and {prof['syncs']:.1f} host "
         f"syncs a frame; {span} span host {spans['span_host_ms'][span]:.3f}"
-        f" ms, device window {spans['span_device_window_ms'][span]:.3f} ms,"
-        f" kernels {spans['span_kernel_ms'][span]:.3f} ms; the updates and "
-        f"LOD mask alone: {upd['launches']:.0f} launches, "
+        f" ms, kernels {spans['span_kernel_ms'][span]:.3f} ms; the updates "
+        f"and LOD mask alone: {upd['launches']:.0f} launches, "
         f"{upd['syncs']:.1f} host syncs, kernels {upd['kernels']:.3f} ms, "
         f"{upd_ms:.3f} ms (CUDA events, median of {KERNEL_RUNS}); {text} "
         f"[{card}]")
