@@ -72,7 +72,11 @@ drives the port's paths at 1080p (config 5 at 4K):
     feature_mips (against the same frame on the CPU), _trilinear, _ssaa
     and _ssao; the ray-traced bench frame under the sky (K4 1 + 1 a
     frame, frame 0 against K4's twin); a PBR frame with env_panorama and
-    env_irradiance at 320x180 against the CPU's;
+    env_irradiance at 320x180 against the CPU's; the tile route's
+    shading kernel (``csrc/tile_shade.cu``) on both benchmark cells'
+    frames (``portbench``'s programs): one launch per ``engine.render``,
+    the last frame's shading against its plain twin on every value,
+    timed beside its byte bound and the twin;
   * the animated frame (phase 21): ``scenes.animated_scene()`` (a
     normal-mapped floor, 64 skinned tentacles of 3 bones, 8 flip-book
     meshes, 4 morphing meshes, a 1,024-slot particle emitter, 16 meshes of
@@ -770,7 +774,11 @@ def report_ptxas(output: str) -> None:
              "ssao_kernel": "post ssao_kernel",
              "bloom_kernel": "post bloom_kernel",
              "tonemap_kernel": "post tonemap_kernel",
-             "fxaa_kernel": "post fxaa_kernel"}
+             "fxaa_kernel": "post fxaa_kernel",
+             "tile_shade_kernelILi0E":
+             "shade tile_shade_kernel<nearest_region>",
+             "tile_shade_kernelILi1E":
+             "shade tile_shade_kernel<trilinear_regions>"}
     fn = "?"
     for line in output.splitlines():
         if "Compiling entry function" in line:
@@ -2532,6 +2540,103 @@ def check_post_kernels(card, device="cuda", size=(2 * W, 2 * H)) -> dict:
             f"{100 * b['bound_ms'] / ms:.1f} % of it; twin {plain_ms:.3f} "
             f"ms (median of {PLAIN_RUNS}) [{card}]")
         color = got
+    return out
+
+
+# Phase 20's shading kernel: the benchmark cells whose frames it shades,
+# the seed of their inputs and the frames counted along each cell's path.
+SHADE_CELLS = ("lodcrowd-4k.sweep", "lodcrowd-iq-1080p.pan")
+SHADE_SEED = 2600000001
+SHADE_FRAMES = 8
+
+
+def shade_bound(args) -> dict:
+    """Bound of one shading pass (tile_shade.shade's arguments): each
+    covered pixel reads its G-buffer channels and depth once, every pixel
+    its winner and framebuffer depth once and writes color and depth once,
+    the framebuffer color read once (16 bytes when it is the clear color
+    expanded); the atlas's texels are left out (mostly from cache) and the
+    operations are negligible."""
+    from softwarerenderer_tpu_torch.ops import tile_shade
+    fetch, ctx, gbuf, best_d, best_i, u, params, fb_c, fb_d = args
+    H, W = ctx["H"], ctx["W"]
+    covered = int((best_i[:H, :W] >= 0).sum())
+    planes = len(tile_shade.planes_of(ctx, fetch))
+    fb_bytes = 16 if fb_c.stride()[:2] == (0, 0) else H * W * 16
+    out = bound(covered * (planes + 1) * 4 + H * W * 28 + fb_bytes, 0.0)
+    out.update(covered=covered, planes=planes)
+    return out
+
+
+def check_shade_kernel(card) -> dict:
+    """Phase 20: the tile route's shading kernel (csrc/tile_shade.cu) on
+    both benchmark cells' frames, portbench's Program for each cell at
+    SHADE_SEED along the cell's camera path: SHADE_FRAMES frames under
+    recording() launch it once per engine.render; the last frame's
+    shading inputs, captured, give the kernel's color and depth equal to
+    its plain twin's (tile_raster.shade_plain) on every value; the kernel is
+    timed with CUDA events around its wrapper (median of KERNEL_RUNS),
+    alone in a profiler trace, beside its byte bound (shade_bound) and the
+    twin (median of PLAIN_RUNS).  Registers and spills: phase 2.  Returns
+    {cell: numbers}."""
+    from portbench import harness
+    from softwarerenderer_tpu_torch.ops import tile_raster, tile_shade
+    from softwarerenderer_tpu_torch.utils import profiling
+    out = {}
+    for name in SHADE_CELLS:
+        cell = harness.cell_of(name)
+        mod = cell["module"]
+        prog = mod.Program(mod.make_inputs(SHADE_SEED), "cuda")
+        calls = []
+        shade = tile_shade.shade
+
+        def spy(*args):
+            calls.append(args)
+            return shade(*args)
+
+        n0 = sum(tile_shade.LAUNCHES.values())
+        profiling.reset_span_totals()
+        tile_shade.shade = spy
+        try:
+            with profiling.recording():
+                for i in range(SHADE_FRAMES):
+                    prog.render(harness.camera_at(cell["camera"], i))
+                torch.cuda.synchronize()
+        finally:
+            tile_shade.shade = shade
+        renders = profiling.span_totals()["engine.render"]["calls"]
+        launches = sum(tile_shade.LAUNCHES.values()) - n0
+        check(launches == renders == SHADE_FRAMES,
+              f"{name}: {launches} shade kernel launches over {renders} "
+              f"engine.render calls, expected {SHADE_FRAMES} of each")
+        args = calls[-1]
+        fetch, ctx, gbuf, bd, bi, u, params, fb_c, fb_d = args
+        got = shade(*args)
+        want = tile_raster.shade_plain(ctx, gbuf, bd, bi,
+                                       prog.engine.fragment_shader, u,
+                                       params, fb_c, fb_d)
+        torch.cuda.synchronize()
+        n_off = [_differing(g, w.cpu()) for g, w in zip(got, want)]
+        check(n_off == [0, 0], f"{name}: the shade kernel's color and depth "
+              f"differ from its twin's on {n_off} values")
+        ms = cuda_ms(lambda: shade(*args), KERNEL_RUNS)
+        alone = device_ms(lambda: shade(*args), KERNEL_RUNS,
+                          "tile_shade_kernel")
+        plain_ms = cuda_ms(lambda: tile_raster.shade_plain(
+            ctx, gbuf, bd, bi, prog.engine.fragment_shader, u, params, fb_c,
+            fb_d), PLAIN_RUNS)
+        b = shade_bound(args)
+        H, W = ctx["H"], ctx["W"]
+        out[name] = dict(b, ms=ms, alone_ms=alone, plain_ms=plain_ms,
+                         launches_per_render=launches / renders)
+        log(f"phase 20 shade kernel <{fetch}> on {name} @{W}x{H} "
+            f"(sr {params.shade_rate}): {launches} launches in {renders} "
+            f"engine.render; equal to its twin on every value; "
+            f"{b['covered']} covered pixels, {b['planes']} planes; kernel "
+            f"{ms:.4f} ms with its wrapper (median of {KERNEL_RUNS}), "
+            f"{alone:.4f} ms alone; bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}), {100 * b['bound_ms'] / alone:.1f} % of it; "
+            f"twin {plain_ms:.3f} ms (median of {PLAIN_RUNS}) [{card}]")
     return out
 
 
@@ -5475,7 +5580,7 @@ def build_kernels() -> None:
     from softwarerenderer_tpu_torch.kernels import build
     t0 = time.perf_counter()
     libs = build.build_all(["tile_raster", "tile_kdeep", "rt_sweep",
-                            "vis_fold", "post_fx"])
+                            "vis_fold", "post_fx", "tile_shade"])
     build_s = time.perf_counter() - t0
     log(f"phase 2 build: {', '.join(p.name for p in libs.values())} in "
         f"{build_s:.2f} s (one nvcc per source, in parallel)")
@@ -5717,6 +5822,7 @@ def main() -> int:
     # ---- phase 20: the image-quality frames ----------------------------
     check_image_quality_frames(card)
     check_post_kernels(card)
+    check_shade_kernel(card)
 
     # ---- phase 21: the animated frame ------------------------------------
     check_animated_frames(card)

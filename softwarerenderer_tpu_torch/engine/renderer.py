@@ -106,10 +106,13 @@ def scene_fragment_shader(frag: Dict, uniforms: Dict) -> torch.Tensor:
 
 # The same registries as the JAX shader: the varyings it reads (the rest
 # are pruned from the payload), the per-triangle channels it samples
-# through, and where its alpha comes from.
+# through, and where its alpha comes from; and the port's own, its fused
+# form on the tile route (ops/tile_shade.py: the texel fetch the shading
+# kernel runs for it).
 scene_fragment_shader.varyings = ("color", "uv", "data.world_normal")
 scene_fragment_shader.tri_extras = ("tex_oy", "tex_ox", "tex_h", "tex_w")
 scene_fragment_shader.alpha_sources = ("color", "texture")
+scene_fragment_shader.tile_shade = "nearest_region"
 
 
 def scene_fragment_shader_bilinear(frag: Dict,
@@ -147,6 +150,7 @@ scene_fragment_shader_trilinear.tri_extras = (
     "tex_oy", "tex_ox", "tex_h", "tex_w",
     "tex_oy2", "tex_ox2", "tex_h2", "tex_w2", "mip_frac256")
 scene_fragment_shader_trilinear.alpha_sources = ("color", "texture")
+scene_fragment_shader_trilinear.tile_shade = "trilinear_regions"
 
 
 def opaque_tri_flags(scene: Dict[str, torch.Tensor], vin: Dict,

@@ -7,8 +7,9 @@ Counterpart of ``_wrap_uv``, ``unpack_rgba8``, ``sample_nearest``,
 frac(u) (+1 if negative), x = int(u·w) mod w, inside a per-pixel atlas
 region (oy, ox, h, w) resolved per triangle or looked up by texture id.
 Bilinear filtering puts texel centres at half-integers and wraps both
-neighbours.  Integer wrap is ``torch.remainder`` (floor mod, like
-``jnp`` and Python ``%``), never ``fmod``.  An atlas is RGBA8 rows (the
+neighbours.  A NaN coordinate casts to texel 0, as on the card and in
+JAX.  Integer wrap is ``torch.remainder`` (floor mod, like ``jnp`` and
+Python ``%``), never ``fmod``.  An atlas is RGBA8 rows (the
 packed scene's) or float32 rows (a panorama may be either).
 
 The host (numpy) helpers that build textures and the packed atlas,
@@ -31,6 +32,17 @@ def wrap_uv(uv: torch.Tensor) -> torch.Tensor:
     return torch.where(frac < 0, frac + 1.0, frac)
 
 
+def texel_index(x: torch.Tensor) -> torch.Tensor:
+    """x.to(int32) as the card and XLA cast a NaN: to 0 (the CPU's cast
+    gives INT_MIN, which picks another texel of a region whose size is not
+    a power of two).  The nearest samplers cast a wrapped coordinate times
+    the size, a NaN or a value inside the texture, where the casts
+    agree."""
+    if x.device.type == "cpu":
+        x = torch.nan_to_num(x, nan=0.0)
+    return x.to(torch.int32)
+
+
 def unpack_rgba8(q: torch.Tensor) -> torch.Tensor:
     """uint8 RGBA -> float32 bytes/255, exactly like the reference's Sample.
 
@@ -45,8 +57,8 @@ def sample_nearest(texture: Dict, uv: torch.Tensor) -> torch.Tensor:
     data = texture["data"]
     h, w = data.shape[0], data.shape[1]
     st = wrap_uv(uv)
-    x = torch.remainder((st[..., 0] * float(w)).to(torch.int32), w)
-    y = torch.remainder((st[..., 1] * float(h)).to(torch.int32), h)
+    x = torch.remainder(texel_index(st[..., 0] * float(w)), w)
+    y = torch.remainder(texel_index(st[..., 1] * float(h)), h)
     return data.reshape(h * w, data.shape[-1])[(y * w + x).long()]
 
 
@@ -61,8 +73,8 @@ def sample_atlas_region(atlas: torch.Tensor, oy, ox, h, w,
     h = h.clamp(min=1)
     w = w.clamp(min=1)
     st = wrap_uv(uv)
-    x = torch.remainder((st[..., 0] * w.to(torch.float32)).to(torch.int32), w)
-    y = torch.remainder((st[..., 1] * h.to(torch.float32)).to(torch.int32), h)
+    x = torch.remainder(texel_index(st[..., 0] * w.to(torch.float32)), w)
+    y = torch.remainder(texel_index(st[..., 1] * h.to(torch.float32)), h)
     return atlas_fetch(atlas, (oy + y) * aw + (ox + x))
 
 

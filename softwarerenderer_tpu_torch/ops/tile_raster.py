@@ -19,6 +19,10 @@ maps payload columns to G-buffer channels.  Triangle ids are int32
 throughout; payload rows are indexed by triangle id, so the winner's row is
 read once per pixel after the fold.
 
+The opaque route's shading pass (``render_tile``) has a kernel of its own
+for the scene shaders, ``csrc/tile_shade.cu`` behind ``ops/tile_shade.py``,
+whose plain twin is ``shade_plain``.
+
 A band of a sharded frame (``parallel.sharding``) folds tiles that are not
 its own screen rows: ``prepare(origin=, bins=)`` takes the band's bins and
 its tile origin map (``binning.tile_pixels``), which ``tile_fold`` hands
@@ -41,7 +45,7 @@ from softwarerenderer_tpu_torch.ops.binning import (bin_triangles, cdiv,
                                                    tile_pixels, to_image,
                                                    to_tiles)
 from softwarerenderer_tpu_torch.ops.geometry import unflatten_varyings
-from softwarerenderer_tpu_torch.ops import forward, raster
+from softwarerenderer_tpu_torch.ops import forward, raster, tile_shade
 from softwarerenderer_tpu_torch.ops.raster import (DEPTH_CLEAR, blend,
                                                   setup_rows)
 
@@ -644,6 +648,10 @@ def render_tile(tris: Dict, fragment_shader: Callable, uniforms: Dict,
     repeated down its block of sr rows (pallas_tile.py:1072-1089); the
     height must divide by sr.
 
+    The shading pass is one launch of csrc/tile_shade.cu where
+    tile_shade.fused_fetch finds the shader's fused form (the scene
+    shaders on the card), else its plain twin shade_plain.
+
     fold: tile_fold (the default) or tile_fold_plain, which lets a check
     on the card render the same frame through the plain twin.  band:
     prepare's origin and bins for a band of a sharded frame, whose
@@ -658,17 +666,35 @@ def render_tile(tris: Dict, fragment_shader: Callable, uniforms: Dict,
     args, kwargs = fold_inputs(ctx)
     with span("tile.fold"):
         gbuf, best_d, best_i = (fold or tile_fold)(*args, **kwargs)
-    H, W = ctx["H"], ctx["W"]
     with span("tile.shade"):
-        color = fragment_shader(frag_from_planes(ctx, gbuf[:, :H:sr, :W]),
-                                uniforms)
-        if sr > 1:
-            color = color.repeat_interleave(sr, 0)
-        written = (best_i[:H, :W] >= 0) & (color[..., 3] > 0)
-        out_c = torch.where(written[..., None],
-                            blend(color, fb_color, params.blend_mode),
-                            fb_color)
-        out_d = torch.where(written, best_d[:H, :W], fb_depth)
+        fetch = tile_shade.fused_fetch(fragment_shader, ctx, gbuf)
+        if fetch is not None:
+            return tile_shade.shade(fetch, ctx, gbuf, best_d, best_i,
+                                    uniforms, params, fb_color, fb_depth)
+        return shade_plain(ctx, gbuf, best_d, best_i, fragment_shader,
+                           uniforms, params, fb_color, fb_depth)
+
+
+def shade_plain(ctx: Dict, gbuf: torch.Tensor, best_d: torch.Tensor,
+                best_i: torch.Tensor, fragment_shader: Callable,
+                uniforms: Dict, params: RenderParams, fb_color: torch.Tensor,
+                fb_depth: torch.Tensor):
+    """render_tile's shading pass in plain PyTorch, for any shader: the
+    shader over the fold's G-buffer planes (every params.shade_rate-th row
+    of the ctx["H"] x ctx["W"] frame, repeated down its block), then the
+    blend where the pixel has a winner and the shaded alpha is above 0,
+    and the winner's depth there.  The twin of tile_shade.shade.
+    Returns (color (H, W, 4), depth (H, W))."""
+    sr = int(params.shade_rate)
+    H, W = ctx["H"], ctx["W"]
+    color = fragment_shader(frag_from_planes(ctx, gbuf[:, :H:sr, :W]),
+                            uniforms)
+    if sr > 1:
+        color = color.repeat_interleave(sr, 0)
+    written = (best_i[:H, :W] >= 0) & (color[..., 3] > 0)
+    out_c = torch.where(written[..., None],
+                        blend(color, fb_color, params.blend_mode), fb_color)
+    out_d = torch.where(written, best_d[:H, :W], fb_depth)
     return out_c, out_d
 
 
